@@ -1,0 +1,172 @@
+"""Training loops: episode rollout + off-policy updates (Algorithm 1).
+
+Port of ``repro.core.agents.loops`` (``train_sac`` / ``evaluate_sac``)
+without the population mesh and checkpoints, which come in later slices.
+Each chunk (reset, batched rollout of ``num_envs`` episodes, replay
+write, ``num_envs * episode_len * updates_per_step`` gradient steps,
+metric reduction) is one call of ``rollout.make_train_chunk``; its
+reduced metrics come to the host once per chunk.
+
+Tracks the paper's figure metrics: accumulated reward per episode (Figs.
+3-4), information leaked (Figs. 5-6), and distinct states explored (Fig.
+7, packed key of the discretized observation).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.agents import action_space as A
+from repro_torch.core.agents import rollout as R
+from repro_torch.core.agents import sac as SAC
+from repro_torch.core.env import MHSLEnv
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclass
+class TrainResult:
+    episode_reward: list = field(default_factory=list)
+    episode_leak: list = field(default_factory=list)
+    episode_violation: list = field(default_factory=list)
+    states_explored: list = field(default_factory=list)  # cumulative distinct
+    metrics: list = field(default_factory=list)
+    # host seconds per chunk (each ends in the chunk's metric transfer,
+    # which waits for the device) and whether the chunk updated
+    chunk_seconds: list = field(default_factory=list)
+    chunk_updated: list = field(default_factory=list)
+    params: Optional[dict] = None
+
+
+# transition fields persisted to the SAC replay buffer
+SAC_FIELDS = ("obs", "obs_next", "hist", "hist_mask", "action", "masks",
+              "reward", "done")
+
+
+def sac_example(env: MHSLEnv, cfg: SAC.SACConfig) -> Dict:
+    """Single-transition tree defining the replay buffer layout."""
+    adims = env.action_dims
+    pair_dim = env.obs_dim + A.flat_dim(adims)
+    d = env.device
+
+    def z(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=d)
+
+    i32, b = torch.int32, torch.bool
+    return dict(
+        obs=z((env.obs_dim,)),
+        obs_next=z((env.obs_dim,)),
+        hist=z((cfg.hist_len, pair_dim)),
+        hist_mask=z((cfg.hist_len,)),
+        action={"u": z((), i32), "size": z((), i32),
+                "decoys": z((adims["decoys"],), i32),
+                "p_tx": z((), i32), "p_d": z((), i32)},
+        masks={k: z((adims[k],), b) for k in ("u", "size", "decoys", "p_tx", "p_d")},
+        reward=z(()),
+        done=z(()),
+    )
+
+
+def combine_key_lanes(packed: np.ndarray) -> np.ndarray:
+    """(..., 2) uint32 key lanes -> (...,) uint64 keys ``(hi << 32) | lo``."""
+    p = np.asarray(packed).astype(np.uint64)
+    return (p[..., 0] << np.uint64(32)) | p[..., 1]
+
+
+def _chunk_metrics(result: TrainResult, seen: set, m, ep: int, episodes: int,
+                   num_envs: int) -> None:
+    """The chunk's one device->host transfer, then per-episode bookkeeping."""
+    host = {k: m[k].cpu().numpy() for k in ("reward", "leak", "viol", "obs_keys")}
+    keys = combine_key_lanes(host["obs_keys"])  # (num_envs, T)
+    for i in range(num_envs):
+        if ep + i >= episodes:
+            break
+        seen.update(int(k) for k in np.unique(keys[i]))
+        result.episode_reward.append(float(host["reward"][i]))
+        result.episode_leak.append(float(host["leak"][i]))
+        result.episode_violation.append(float(host["viol"][i]))
+        result.states_explored.append(len(seen))
+    if m["did_update"]:
+        result.metrics.append({k: float(v) for k, v in m["update"].items()})
+
+
+def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
+              seed: int = 0, warmup_episodes: int = 10,
+              resample_positions: bool = False, num_envs: int = 1,
+              scenario=None, device: DeviceLike = None) -> TrainResult:
+    """ICM-CA SAC training on the batched engine.
+
+    Runs on ``env.device``; ``device``, when given, must name the same
+    device (``cuda`` is the default of both). ``scenario`` overrides the
+    env's default physics. ``num_envs`` envs roll out together; each
+    chunk then takes ``num_envs * episode_len * updates_per_step``
+    gradient steps. Warmup rounds up to chunk granularity: updates start
+    with the first chunk that begins at or past ``warmup_episodes``. If
+    ``episodes`` is not a multiple of ``num_envs`` the last chunk still
+    trains on the whole population but only the first ``episodes``
+    entries are reported. Without ``resample_positions`` every env of
+    every chunk replays one geometry drawn at the start.
+
+    Randomness: weights come from a CPU generator seeded with ``seed``;
+    positions, actions, leakage draws and replay indices from a generator
+    on the device seeded with ``seed + 1``.
+    """
+    if num_envs < 1:
+        raise ValueError(f"num_envs must be >= 1, got {num_envs}")
+    if device is not None and resolve_device(device) != env.device:
+        raise ValueError(f"train_sac on {device} needs an env on that device; "
+                         f"the env is on {env.device}")
+    adims = env.action_dims
+    params = SAC.init_agent(torch.Generator().manual_seed(seed), env.obs_dim,
+                            adims, cfg, device=env.device)
+    update, init_opt = SAC.make_update(adims, cfg)
+    opt_state = init_opt(params)
+    gen = torch.Generator(device=env.device).manual_seed(seed + 1)
+
+    buf = R.buffer_init(cfg.buffer_size, sac_example(env, cfg))
+    n_updates = cfg.updates_per_step * env.episode_len * num_envs
+    chunk = R.make_train_chunk(
+        env, R.uniform_policy(adims), R.sac_policy(adims, cfg), update,
+        hist_len=cfg.hist_len, fields=SAC_FIELDS, batch_size=cfg.batch,
+        n_updates=n_updates,
+    )
+
+    def one_geometry():
+        dev, eav = env.sample_positions(gen, 1, scenario)
+        return (dev.expand(num_envs, -1, -1), eav.expand(num_envs, -1, -1))
+
+    fixed = None if resample_positions else one_geometry()
+    result = TrainResult()
+    seen: set = set()
+    ep = 0
+    while ep < episodes:
+        t0 = time.perf_counter()
+        positions = (env.sample_positions(gen, num_envs, scenario)
+                     if resample_positions else fixed)
+        params, opt_state, metrics = chunk(params, opt_state, buf, positions,
+                                           gen, ep >= warmup_episodes, scenario)
+        _chunk_metrics(result, seen, metrics, ep, episodes, num_envs)
+        result.chunk_seconds.append(time.perf_counter() - t0)
+        result.chunk_updated.append(metrics["did_update"])
+        ep += num_envs
+
+    result.params = params
+    return result
+
+
+@torch.no_grad()
+def evaluate_sac(env: MHSLEnv, params, cfg: SAC.SACConfig, episodes: int = 20,
+                 seed: int = 1000, scenario=None) -> Dict[str, float]:
+    """Policy evaluation: all ``episodes`` run as one batched population,
+    each with a fresh geometry. Returns mean reward and leak per episode."""
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    st0 = env.reset(env.sample_positions(gen, episodes, scenario), scenario)
+    _, traj = R.rollout_episode(env, R.sac_policy(env.action_dims, cfg),
+                                params, st0, gen, cfg.hist_len, scenario)
+    return {
+        "reward": float(traj["reward"].sum()) / episodes,
+        "leak": float(traj["leak"].sum()) / episodes,
+    }

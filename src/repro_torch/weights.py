@@ -1,0 +1,56 @@
+"""Carry SAC parameters and AdamW state between the JAX package and the port.
+
+Both sides keep the same tree layout (nested dicts and lists, ``x @ w + b``
+with ``w`` of shape ``(d_in, d_out)``), so a conversion is a leafwise copy.
+The JAX side is handed over as numpy arrays (``jax.tree.map(np.asarray,
+tree)``); this module imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim import OptState
+from repro_torch.tree import tree_map
+
+
+def _to_torch(x, dev):
+    arr = np.asarray(x)
+    return torch.from_numpy(arr.copy()).to(dev)
+
+
+def sac_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX SAC params (as numpy arrays) -> the port's params on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_torch(x, dev), np_tree)
+
+
+def sac_params_to_numpy(params: Any):
+    """The port's params -> numpy arrays in the same tree layout."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), params)
+
+
+def sac_opt_state_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX ``{actor, critic, icm}`` AdamW states (numpy leaves; each an
+    ``OptState(step, mu, nu)`` or ``()``) -> the port's."""
+    dev = resolve_device(device)
+    return {
+        name: (OptState(step=_to_torch(st.step, dev).to(torch.int32),
+                        mu=sac_params_from_jax(st.mu, dev),
+                        nu=sac_params_from_jax(st.nu, dev))
+               if len(st) else ())
+        for name, st in np_tree.items()
+    }
+
+
+def sac_opt_state_to_numpy(opt_state: Any):
+    """The port's AdamW states -> numpy ``(step, mu, nu)`` triples."""
+    return {
+        name: (OptState(step=st.step.cpu().numpy(),
+                        mu=sac_params_to_numpy(st.mu),
+                        nu=sac_params_to_numpy(st.nu)) if len(st) else ())
+        for name, st in opt_state.items()
+    }

@@ -23,6 +23,11 @@ def pytest_configure(config):
         "longer depends on its dispatch-group size and decode matches the "
         "forward - the test must now PASS (see test_models_smoke.py)",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one. Run on the card with "
+        "`PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py`",
+    )
 
 
 def run_with_devices(code: str, n_devices: int = 8, timeout: int = 420) -> str:
