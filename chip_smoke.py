@@ -10,19 +10,31 @@ Phases (each raises on failure; any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), TF32 off for matmuls and
    cuDNN so f32 means f32;
-2. build: every hand-written kernel of the main path, compiled from
+2. build: every hand-written kernel (``ca_attention``,
+   ``stage_mlp_block``, ``flash_attention``), compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
    source, all started together);
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, forward and backward, f32 and bf16/fp16;
-4. the slice: ``train_sac`` through two updating chunks and
+3. each kernel against its plain PyTorch version on the card, at its
+   paths' shapes and at ragged and other-arch shapes, forward (and
+   backward through autograd where the kernel has one), f32 and bf16;
+4. the SAC slice: ``train_sac`` through two updating chunks and
    ``evaluate_sac`` at the repo's SAC configuration on the ResNet-101
-   MHSL env, with the launch counters reset just before and read just
+   MHSL env, with the launch counter reset just before and read just
    after, checked against the count the path must give;
+4b. the split slice, through ``launch.train_mhsl_rl.main``: a plan
+   learned on the 36-layer Qwen2.5-3B profile, 1F1B pipelined training
+   of Qwen2.5-3B at full width and depth 8 (stage MLP halves through
+   ``stage_mlp_block``) and a held-out loss (attention through
+   ``flash_attention``), every counter reset just before and read just
+   after; the flash kernel against its plain version on the q, k, v of
+   every attention call of one held-out loss call; then one f32
+   pipelined step at depth 2 against ``make_train_step``;
 5. timings: seconds per training chunk and env-steps/s; a
-   ``torch.profiler`` trace of single gradient steps (device busy share,
-   kernels per step); each kernel and its plain version at the main
-   path's shapes (CUDA events, device time by CUDA-graph replay).
+   ``torch.profiler`` trace of single SAC gradient steps (device busy
+   share, kernels per step); seconds per pipelined step and tokens/s;
+   each kernel, its plain version and, where one exists, the one
+   PyTorch call computing the same function, at the paths' shapes
+   (device time by CUDA-graph replay), beside each kernel's bound.
 
 The second-to-last line of output is the per-kernel JSON record, the
 last line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -84,7 +96,7 @@ def phase_card(torch):
 # 2. build
 # ---------------------------------------------------------------------------
 
-KERNELS = ("ca_attention",)
+KERNELS = ("ca_attention", "stage_mlp_block", "flash_attention")
 
 
 def phase_build():
@@ -444,8 +456,8 @@ def phase_trace(torch, card, env, cfg, params, steps=20):
     dev_us = sum(e.self_device_time_total for e in kern)
     n_kern = sum(e.count for e in kern)
     if dev_us == 0:
-        log("[trace] the profiler saw no device time")
-        return
+        raise AssertionError("the profiler saw no device time in the "
+                             "gradient steps")
     log(f"[trace] per gradient step: {n_kern / steps:.0f} kernels, "
         f"{dev_us / steps / 1e3:.3f} ms device busy, busy share "
         f"{dev_us / 1e6 / (step_s * steps):.3f} of host time [{card}]")
@@ -456,6 +468,515 @@ def phase_trace(torch, card, env, cfg, params, steps=20):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"[trace]   host op {e.key[:50]}: {e.count / steps:.1f}/step, "
             f"{e.self_cpu_time_total / steps:.1f} us/step self CPU")
+
+
+# ---------------------------------------------------------------------------
+# 3b. the split executor's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+
+# (label, (B, S), D, F, activation, x dtype); weights are f32 master
+# weights, as on the split executor's path. The first case is the main
+# path's call (a 2x256-token microbatch of Qwen2.5-3B).
+STAGE_CASES = [
+    ("qwen2.5-3b", (2, 256), 2048, 11008, "swiglu", "bfloat16"),
+    ("qwen2.5-3b", (2, 256), 2048, 11008, "swiglu", "float32"),
+    ("minitron-4b ragged", (1, 130), 3072, 9216, "relu2", "bfloat16"),
+    ("gelu", (1, 37), 256, 512, "gelu", "float32"),
+    ("gelu", (1, 37), 256, 512, "gelu", "bfloat16"),
+    ("silu", (1, 37), 256, 512, "silu", "float32"),
+    ("silu", (1, 37), 256, 512, "silu", "bfloat16"),
+]
+# stated tolerances, forward: f32 max|err| <= 1e-4 (f32 sums of up to
+# 11008 terms taken in another order than cuBLAS's); bf16 max|err| <=
+# 2^-6 max|ref|, two bf16 ulps at the largest output (a reordered f32 sum
+# can land on the other side of a bf16 rounding of h, hc or the output).
+# Backward: the wrapper's backward is autograd of mlp_block, the same code
+# the plain route differentiates, so max|err| <= 1e-5 max|ref| per leaf.
+STAGE_FWD_F32_ATOL = 1e-4
+STAGE_FWD_BF16_REL = 2.0 ** -6
+STAGE_BWD_REL = 1e-5
+
+# (label, B, Sq, Skv, H, KH, hd, window, q_offset); each in f32 and bf16.
+# The first case has the shapes of the held-out evaluation's calls.
+FLASH_CASES = [
+    ("qwen2.5-3b", 8, 1024, 1024, 16, 2, 128, None, 0),
+    ("ragged S=200", 2, 200, 200, 16, 2, 128, None, 0),
+    ("window 64", 2, 512, 512, 16, 2, 128, 64, 0),
+    ("Sq=32 at q_offset 96", 2, 32, 128, 16, 2, 128, None, 96),
+    ("stablelm-1.6b MHA hd=64", 2, 512, 512, 32, 32, 64, None, 0),
+]
+# forward max|err|: f32 1e-5, bf16 2e-2 (one bf16 ulp of outputs below
+# 4), as the CPU parity tests hold the plain version to the JAX kernel
+FLASH_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _stage_inputs(torch, rows, d, f, activation, dtype, seed):
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = L.init_mlp(g, d, f, activation, device="cuda")  # f32
+    nw = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+    x = torch.randn((*rows, d), generator=g, device="cuda").to(dtype)
+    return nw, params, x
+
+
+def phase_stage_checks(torch):
+    """stage_mlp_block kernel vs stage_mlp_block_ref on the card, forward,
+    and gradients through the wrapper's autograd against autograd of
+    mlp_block. Returns the max forward error of the main-path case."""
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.models import layers as L
+
+    saved = SB.launches
+    main_err = None
+    for n, (label, rows, d, f, act, dn) in enumerate(STAGE_CASES):
+        dtype = getattr(torch, dn)
+        nw, params, x = _stage_inputs(torch, rows, d, f, act, dtype, seed=20 + n)
+        with torch.no_grad():
+            ref = SB.stage_mlp_block_ref(nw, params, x, activation=act)
+            before = SB.launches
+            out = SB.stage_mlp_block(nw, params, x, activation=act)
+        torch.cuda.synchronize()
+        if SB.launches != before + 1:
+            raise AssertionError("stage_mlp_block did not count its launch")
+        if out.dtype != dtype or out.shape != x.shape:
+            raise AssertionError(f"stage_mlp_block out {out.dtype} {tuple(out.shape)}")
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"non-finite stage_mlp_block output ({label})")
+        err = float((out.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        lim = STAGE_FWD_F32_ATOL if dn == "float32" else STAGE_FWD_BF16_REL * top
+        if err > lim:
+            raise AssertionError(f"stage_mlp_block fwd {label} {dn}: {err} > {lim}")
+        if n == 0:
+            main_err = err
+
+        # backward: kernel forward + autograd of mlp_block vs plain autograd
+        gy = torch.randn(x.shape, generator=torch.Generator(device="cuda")
+                         .manual_seed(n), device="cuda").to(dtype)
+        names = sorted(params)
+
+        def grads(fn):
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            nr = nw.detach().requires_grad_(True)
+            xr = x.detach().requires_grad_(True)
+            out_ = fn(nr, p, xr)
+            return torch.autograd.grad(out_, [nr, xr] + [p[k] for k in names], gy)
+
+        gk = grads(lambda nr, p, xr: SB.stage_mlp_block(nr, p, xr, activation=act))
+        gr = grads(lambda nr, p, xr: L.mlp_block(nr, p, xr, act))
+        bwd = 0.0
+        for name, a, r in zip(["norm_w", "x"] + names, gk, gr):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"non-finite stage_mlp_block grad {name}")
+            e = float((a.float() - r.float()).abs().max())
+            lim_b = STAGE_BWD_REL * float(r.float().abs().max())
+            if e > lim_b:
+                raise AssertionError(f"stage_mlp_block bwd {label} {dn} {name}: "
+                                     f"{e} > {lim_b}")
+            bwd = max(bwd, e / max(float(r.float().abs().max()), 1e-30))
+        log(f"[check] stage_mlp_block {label:18s} rows {rows[0] * rows[1]:4d} "
+            f"D {d} F {f} {act:6s} {dn:8s}: fwd max|err| {err:.3e} (limit "
+            f"{lim:.3e}, max|ref| {top:.3f}); bwd max|err|/max|ref| {bwd:.3e} "
+            f"(limit {STAGE_BWD_REL:g})")
+    SB.launches = saved
+    return main_err
+
+
+def phase_flash_checks(torch):
+    """flash_attention kernel vs flash_attention_ref on the card, forward
+    (the kernel has no backward)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    saved = FA.launches
+    for n, (label, b, sq, skv, h, kh, hd, win, off) in enumerate(FLASH_CASES):
+        g = torch.Generator(device="cuda").manual_seed(40 + n)
+        q32 = torch.randn(b, sq, h, hd, generator=g, device="cuda")
+        k32 = torch.randn(b, skv, kh, hd, generator=g, device="cuda")
+        v32 = torch.randn(b, skv, kh, hd, generator=g, device="cuda")
+        for dn in ("float32", "bfloat16"):
+            dtype = getattr(torch, dn)
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            with torch.no_grad():
+                ref = FA.flash_attention_ref(q, k, v, window=win, q_offset=off)
+                before = FA.launches
+                out = FA.flash_attention(q, k, v, window=win, q_offset=off)
+            torch.cuda.synchronize()
+            if FA.launches != before + 1:
+                raise AssertionError("flash_attention did not count its launch")
+            if out.dtype != dtype or out.shape != q.shape:
+                raise AssertionError(f"flash_attention out {out.dtype} {tuple(out.shape)}")
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"non-finite flash_attention output ({label})")
+            err = float((out.float() - ref.float()).abs().max())
+            if err > FLASH_ATOL[dn]:
+                raise AssertionError(f"flash_attention {label} {dn}: {err} > "
+                                     f"{FLASH_ATOL[dn]}")
+            log(f"[check] flash_attention {label:24s} B {b} Sq {sq} Skv {skv} "
+                f"H {h}/{kh} hd {hd} {dn:8s}: max|err| {err:.3e} (atol "
+                f"{FLASH_ATOL[dn]:g})")
+    FA.launches = saved
+
+
+# ---------------------------------------------------------------------------
+# 4b. the split slice: plan -> pipelined training -> held-out loss
+# ---------------------------------------------------------------------------
+
+# the launcher's arguments: Qwen2.5-3B at its published widths, depth cut
+# to 8 layers; a short SAC run on the full 36-layer profile; 4 stages,
+# M = 4 microbatches of 2 x 256 tokens; 8 x 1024 held-out tokens
+SPLIT_ARGV = ["--arch", "qwen2.5-3b", "--episodes", "24", "--num-envs", "8",
+              "--pipeline-steps", "4", "--stages", "4", "--depth", "8",
+              "--microbatches", "4", "--batch", "8", "--seq", "256",
+              "--eval-batch", "8", "--eval-seq", "1024", "--seed", "0"]
+# held-out loss through the flash kernel vs impl="dense" on the same
+# tokens, a secondary check (the kernel is held to its plain version on
+# the eval call's own q, k, v): bf16 compute, and dense rounds the softmax
+# weights to bf16 where the kernel does not; |difference| <= 1e-4 nats,
+# about 8x the 1.3e-5 read on an H100 80GB HBM3 at 700 W
+EVAL_ATOL = 1e-4
+# f32 depth-2 pipelined step vs make_train_step on the card: loss rtol
+# 1e-5; gradients max|err| <= 1e-4 max|ref| per leaf (f32 sums over up
+# to 11008 terms in the kernel's order vs cuBLAS's, through two layers)
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_REL = 1e-4
+
+
+def phase_split(torch, card):
+    """The split executor's path through ``launch.train_mhsl_rl.main``,
+    with every launch counter at 0 just before and read just after."""
+    from repro_torch.core.agents.sac import SACConfig
+    from repro_torch.core.pipeline import stage_lengths
+    from repro_torch.kernels import ca_attention as CA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.launch import train_mhsl_rl as RUN
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    args = RUN.parse_args(SPLIT_ARGV)
+    CA.launches = SB.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    res = RUN.main(SPLIT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"ca_attention": CA.launches, "stage_mlp_block": SB.launches,
+              "flash_attention": FA.launches}
+
+    env, train, cfg = res["env"], res["train"], res["cfg"]
+    chunks = math.ceil(args.episodes / args.num_envs)
+    upd_chunks = sum(1 for c in range(chunks)
+                     if c * args.num_envs >= RUN.WARMUP_EPISODES)
+    n_updates = SACConfig().updates_per_step * env.episode_len * args.num_envs
+    expect_ca = upd_chunks * (n_updates + env.episode_len) + env.episode_len
+    lens = stage_lengths(res["boundaries"])
+    per_step = args.microbatches * (2 * (cfg.num_layers - lens[-1]) + lens[-1])
+    expect = {"ca_attention": expect_ca,
+              "stage_mlp_block": args.pipeline_steps * per_step,
+              "flash_attention": cfg.num_layers}
+    if upd_chunks < 1 or len(train.metrics) != upd_chunks:
+        raise AssertionError(f"{len(train.metrics)} updating chunks, expected "
+                             f"{upd_chunks} (>= 1)")
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    if res["boundaries"][-1] != cfg.num_layers or cfg.d_model != 2048:
+        raise AssertionError(f"executed {cfg.name} {res['boundaries']}")
+    losses = res["losses"]
+    if len(losses) != args.pipeline_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"pipeline losses {losses}")
+    if not math.isfinite(res["eval_loss"]):
+        raise AssertionError(f"held-out loss {res['eval_loss']}")
+    for leaf in tree_leaves(res["params"]):
+        if leaf.device.type != "cuda" or not torch.isfinite(leaf).all():
+            raise AssertionError("trained parameter off the card or non-finite")
+
+    flash_err = _eval_flash_check(torch, res)
+    with torch.no_grad():
+        _, (dense, _) = M.loss_fn(res["params"], res["eval_batch"], cfg,
+                                  impl="dense", compute_dtype=torch.bfloat16)
+    dense = float(dense)
+    gap = abs(res["eval_loss"] - dense)
+    if gap > EVAL_ATOL:
+        raise AssertionError(f"held-out loss pallas {res['eval_loss']} vs dense "
+                             f"{dense}: |diff| {gap} > {EVAL_ATOL}")
+
+    _split_trace(torch, card, res, args)
+
+    secs = res["step_seconds"]
+    med = statistics.median(secs[1:])
+    tokens = args.batch * args.seq
+    log(f"[split] plan on the 36-layer profile: boundaries {res['plan_full']} "
+        f"devices {res['devices']}; executed at depth {cfg.num_layers}: "
+        f"{res['boundaries']} (stage lengths {lens})")
+    log(f"[split] launches in the run: {counts} (expected {expect}; "
+        f"stage_mlp_block {per_step} per step = M x (2 x (L - len_last) + "
+        f"len_last))")
+    log(f"[split] held-out loss {res['eval_loss']:.6f} (flash kernel) vs "
+        f"{dense:.6f} (dense), |diff| {gap:.3e} (limit {EVAL_ATOL:g})")
+    log(f"[time] pipelined step (bf16 compute, f32 master weights, {tokens} "
+        f"tokens): {['%.3f' % s for s in secs]} s; median after warm-up "
+        f"{med:.3f} s, {tokens / med:.1f} tokens/s; loss first {losses[0]:.4f} "
+        f"last {losses[-1]:.4f}; held-out loss call {res['eval_seconds']:.3f} s; "
+        f"whole launcher run {wall:.3f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return counts, flash_err
+
+
+def _eval_flash_check(torch, res):
+    """The flash kernel against flash_attention_ref on the q, k, v of every
+    attention call of one held-out loss call (the main path's shapes and
+    data). The calls are recorded by wrapping the kernel's entry point for
+    one more ``impl="pallas"`` loss call; its launches do not count for
+    the main path. Returns the largest error."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+
+    saved, entry = FA.launches, FA.flash_attention
+    calls = []
+
+    def recording(q, k, v, **kw):
+        out = entry(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    FA.flash_attention = recording
+    try:
+        with torch.no_grad():
+            M.loss_fn(res["params"], res["eval_batch"], res["cfg"],
+                      impl="pallas", compute_dtype=torch.bfloat16)
+    finally:
+        FA.flash_attention = entry
+        FA.launches = saved
+    if len(calls) != res["cfg"].num_layers:
+        raise AssertionError(f"{len(calls)} flash calls in one loss call")
+    worst, atol = 0.0, FLASH_ATOL["bfloat16"]
+    for n, (q, k, v, kw, out) in enumerate(calls):
+        if q.dtype != torch.bfloat16 or tuple(q.shape) != (8, 1024, 16, 128):
+            raise AssertionError(f"eval attention call {n}: q {q.dtype} "
+                                 f"{tuple(q.shape)}")
+        with torch.no_grad():
+            ref = FA.flash_attention_ref(q, k, v, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        if not torch.isfinite(out.float()).all() or err > atol:
+            raise AssertionError(f"flash_attention on eval call {n}: max|err| "
+                                 f"{err} > {atol}")
+        worst = max(worst, err)
+    log(f"[check] flash_attention on the {len(calls)} attention calls of one "
+        f"held-out loss call (q {tuple(calls[0][0].shape)}, k "
+        f"{tuple(calls[0][1].shape)}, bf16): max|err| {worst:.3e} (atol {atol:g})")
+    return worst
+
+
+def _split_trace(torch, card, res, args):
+    """A torch.profiler trace of one pipelined train step (pipeline and
+    AdamW) on the trained state: device busy share, kernels per step and
+    the stage kernel's share of the device time. Launches here do not
+    count for the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    saved = (SB.launches, FA.launches)
+    cfg = res["cfg"]
+    step = RUN.make_pipeline_train_step(cfg, res["boundaries"], args.microbatches,
+                                        res["pipe"], res["opt"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    toks, labs = (torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                                generator=gen, device="cuda") for _ in range(2))
+    params, opt_state = res["params"], res["opt_state"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, toks, labs)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    res["params"], res["opt_state"] = params, opt_state
+    SB.launches, FA.launches = saved
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    stage_us = sum(e.self_device_time_total for e in kern
+                   if any(n in e.key for n in ("rms_norm_rows", "up_act",
+                                               "down_residual")))
+    if dev_us == 0 or stage_us == 0:
+        raise AssertionError(f"the profiler saw {dev_us} us of device time, "
+                             f"{stage_us} us of it in the stage kernel, in "
+                             f"the pipelined step")
+    log(f"[trace] one pipelined train step (profiled, loss {float(loss):.4f}): "
+        f"{host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms device busy, busy "
+        f"share {dev_us / 1e6 / host_s:.3f}; {sum(e.count for e in kern)} "
+        f"kernels; stage_mlp_block's three grids {stage_us / 1e3:.3f} ms "
+        f"({stage_us / dev_us:.3f} of device time) [{card}]")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[trace]   kernel {e.key[:70]}: {e.count}x, "
+            f"{e.self_device_time_total / 1e3:.3f} ms device")
+
+
+def phase_split_parity(torch):
+    """One f32 pipelined step (stage kernel route, 2 stages of one layer)
+    against the loss and the gradients ``make_train_step`` hands its
+    optimizer, at Qwen2.5-3B widths and depth 2."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import PipelineConfig, pipeline_step_fn
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.launch import train_mhsl_rl as RUN
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    saved = SB.launches
+    cfg = RUN.executed_config("qwen2.5-3b", 2, reduced=False)
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(3), cfg,
+                           device="cuda")
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 128))).cuda()
+             for k in ("tokens", "labels")}
+    step = pipeline_step_fn(cfg, (1, 2), 2, pipe=PipelineConfig(
+        stage_impl="pallas", compute_dtype="float32"))
+    loss, grads = step(params, batch["tokens"], batch["labels"])
+
+    seen = []
+
+    class Capture:
+        """An optimizer that keeps the gradients and updates nothing."""
+
+        def update(self, g, state, params_):
+            seen.append(g)
+            return tree_map(torch.zeros_like, g), state
+
+    _, _, metrics = M.make_train_step(cfg, Capture(),
+                                      compute_dtype=torch.float32)(params, None, batch)
+    ref_loss, ref_grads = float(metrics["loss"]), seen[0]
+    if abs(float(loss) - ref_loss) > PARITY_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(f"pipelined f32 loss {float(loss)} vs {ref_loss}")
+    worst = 0.0
+    for a, r in zip(tree_leaves(grads), tree_leaves(ref_grads)):
+        top = float(r.abs().max())
+        e = float((a - r).abs().max())
+        if e > PARITY_GRAD_REL * top:
+            raise AssertionError(f"pipelined f32 grad {tuple(r.shape)}: {e} > "
+                                 f"{PARITY_GRAD_REL} x {top}")
+        worst = max(worst, e / max(top, 1e-30))
+    SB.launches = saved
+    log(f"[check] pipelined f32 step (depth 2, stages (1, 2), M = 2) vs "
+        f"make_train_step: loss {float(loss):.7f} vs {ref_loss:.7f}; grads "
+        f"max|err|/max|ref| {worst:.3e} over {len(tree_leaves(grads))} leaves "
+        f"(limit {PARITY_GRAD_REL:g})")
+
+
+# ---------------------------------------------------------------------------
+# 5b. timings of the split executor's kernels
+# ---------------------------------------------------------------------------
+
+
+def stage_bound(rows, d, f, gated, x_elt, w_elt, flops_per_s):
+    """Least time (ms) of one stage_mlp_block call: bytes (x and norm
+    weight read once, the weights read once in their stored type, the
+    output written once) over the HBM rate vs the three (two ungated)
+    products over the operands' peak; the larger wins."""
+    mats = 3 if gated else 2
+    nbytes = 2 * rows * d * x_elt + d * w_elt + mats * d * f * w_elt
+    flops = 2 * rows * d * f * mats
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def flash_bound(b, sq, skv, h, kh, hd, elt, flops_per_s, window=None,
+                q_offset=0):
+    """Least time (ms) of one flash_attention call: q, k, v read and o
+    written once over the HBM rate vs 4 hd FLOPs (q.k and p v) for each
+    (query, key) pair the causal window lets through; the larger wins."""
+    pairs = 0
+    for i in range(sq):
+        hi = min(skv, q_offset + i + 1)
+        lo = 0 if window is None else max(0, q_offset + i - window + 1)
+        pairs += max(0, hi - lo)
+    nbytes = elt * (2 * b * sq * h * hd + 2 * b * skv * kh * hd)
+    flops = 4 * hd * pairs * b * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def _compare(torch, fns, iters, reps):
+    """Graph-replay device time of each of ``fns`` in the order plain,
+    kernel, kernel, plain (and any others after); medians per name."""
+    order = ["plain", "kernel", "kernel", "plain"] + [n for n in fns
+                                                      if n not in ("plain", "kernel")]
+    times = {}
+    with torch.no_grad():
+        for name in order:
+            times.setdefault(name, []).append(
+                _time_graph_ms(torch, fns[name], iters=iters, reps=reps))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_split_timing(torch, card):
+    """Kernel, plain version and (for attention) the library yardstick at
+    the split path's shapes. Launches here leave the counters as they
+    were."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+
+    saved = (SB.launches, FA.launches)
+    out = {}
+    nw, params, x = _stage_inputs(torch, (2, 256), 2048, 11008, "swiglu",
+                                  torch.bfloat16, seed=60)
+    t = _compare(torch, {
+        "kernel": lambda: SB.stage_mlp_block(nw, params, x, activation="swiglu"),
+        "plain": lambda: SB.stage_mlp_block_ref(nw, params, x, activation="swiglu"),
+    }, iters=10, reps=5)
+    bound, by, nbytes, flops = stage_bound(512, 2048, 11008, True, 2, 4,
+                                           BF16_FLOPS_PER_S)
+    out["stage_mlp_block"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                  bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"[time] stage_mlp_block 512 rows D 2048 F 11008 swiglu, bf16 x, f32 "
+        f"weights, device (graph replay): kernel {t['kernel']:.6f} ms, plain "
+        f"{t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; {nbytes} B, "
+        f"{flops} FLOP at bf16 peak) [{card}]")
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    q = torch.randn(8, 1024, 16, 128, generator=g, device="cuda").bfloat16()
+    k = torch.randn(8, 1024, 2, 128, generator=g, device="cuda").bfloat16()
+    v = torch.randn(8, 1024, 2, 128, generator=g, device="cuda").bfloat16()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_out = library()
+        ref = FA.flash_attention_ref(q, k, v)
+    lib_err = float((lib_out.transpose(1, 2).float() - ref.float()).abs().max())
+    # SDPA rounds the probabilities to bf16 before p @ v, so it is held to
+    # the same function only loosely: a yardstick, off the port's path
+    if lib_err > 5e-2:
+        raise AssertionError(f"the SDPA yardstick computes another function "
+                             f"({lib_err})")
+    t = _compare(torch, {
+        "kernel": lambda: FA.flash_attention(q, k, v),
+        "plain": lambda: FA.flash_attention_ref(q, k, v),
+        "library": library,
+    }, iters=10, reps=5)
+    bound, by, nbytes, flops = flash_bound(8, 1024, 1024, 16, 2, 128, 2,
+                                           BF16_FLOPS_PER_S)
+    out["flash_attention"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                  bound_ms=bound, bound_by=by,
+                                  library_ms=t["library"])
+    log(f"[time] flash_attention B 8 S 1024 H 16/2 hd 128 causal bf16, device "
+        f"(graph replay): kernel {t['kernel']:.6f} ms, plain {t['plain']:.6f} "
+        f"ms, SDPA {t['library']:.6f} ms (enable_gqa, max|diff| to plain {lib_err:.3e}); bound {bound:.6f} ms ({by}; "
+        f"{nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
+    SB.launches, FA.launches = saved
+    return out
 
 
 def main() -> int:
@@ -473,10 +994,17 @@ def main() -> int:
     name, card = phase_card(torch)
     phase_build()
     worst = phase_ca_checks(torch)
+    stage_err = phase_stage_checks(torch)
+    phase_flash_checks(torch)
     launches, env, cfg, params = phase_slice(torch, card)
     phase_trace(torch, card, env, cfg, params)
+    del env, cfg, params
+    split_launches, flash_err = phase_split(torch, card)
+    phase_split_parity(torch)
+    torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
     t = timing[128]
+    split_timing = phase_split_timing(torch, card)
     kernels = [{
         "name": "ca_attention",
         "route": "cuda",
@@ -490,6 +1018,19 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
     }]
+    for kname, replaces, err in (
+            ("stage_mlp_block", "src/repro/kernels/stage_block.py:58", stage_err),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:30",
+             flash_err)):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "replaces": replaces,
+            "launches": split_launches[kname],
+            "max_abs_err": err,
+            **split_timing[kname],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,20 @@
+"""StableLM-2 1.6B [hf:stabilityai/stablelm-2-1_6b].
+
+24L d_model=2048 32H (MHA kv=32) d_ff=5632 vocab=100352.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=64,
+    d_ff=5632,
+    vocab_size=100352,
+    activation="swiglu",
+    rope_theta=1e4,
+    source="hf:stabilityai/stablelm-2-1_6b",
+)

@@ -5,7 +5,7 @@ bit-equal to the reference's). A ``LayerProfile`` gives, for each of L
 split-able layers, parameter bytes, emitted activation bytes, the
 cotangent bytes hopping back, forward/backward FLOPs and a leakage
 value. ``resnet101_profile`` is the paper's own workload;
-``transformer_profile`` needs the model-config port and comes later.
+``transformer_profile`` derives one from any zoo ``ModelConfig``.
 """
 from __future__ import annotations
 
@@ -14,6 +14,24 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+# per-block kind codes (LayerProfile.kind / ProfileTable.kind): the mixer
+# in the low bit-space, +2 when the block's FFN half is an expert bank
+KIND_ATTN = 0       # attention mixer + dense MLP
+KIND_SSM = 1        # Mamba-2 (SSD) mixer
+KIND_ATTN_MOE = 2   # attention mixer + MoE expert bank
+KIND_SSM_MOE = 3    # SSM mixer + MoE expert bank
+KIND_NAMES = {KIND_ATTN: "attn", KIND_SSM: "ssm",
+              KIND_ATTN_MOE: "attn+moe", KIND_SSM_MOE: "ssm+moe"}
+
+
+def block_kind(cfg: ModelConfig, i: int) -> int:
+    """Kind code of block ``i`` of ``cfg`` (KIND_* constants)."""
+    base = KIND_SSM if cfg.pattern[i] == "M" else KIND_ATTN
+    return base + (2 if cfg.is_moe_block(i) else 0)
+
 
 @dataclass(frozen=True)
 class LayerProfile:
@@ -108,6 +126,64 @@ def _leak_weights(L: int, floor: float = 0.3) -> np.ndarray:
     return np.linspace(1.0, floor, L)
 
 
+def transformer_profile(
+    cfg: ModelConfig, batch: int, seq: int, *, bytes_per_param: int = 4,
+    act_bytes_per_el: int = 2,
+) -> LayerProfile:
+    """Per-block profile of a zoo architecture, derived exactly from its
+    config: parameter bytes, emitted activation (plus SSM state at an 'M'
+    boundary), 2·active-params·tokens forward FLOPs plus the causal
+    attention term, backward = 2x forward, and the resident per-block
+    state (KV cache, SSM scan + conv state, MoE expert banks)."""
+    L = cfg.num_layers
+    d = cfg.d_model
+    pb = np.array([cfg.block_params(i) for i in range(L)], dtype=np.float64)
+    pb *= bytes_per_param
+    act = np.full(L, batch * seq * d * act_bytes_per_el, dtype=np.float64)
+    # SSM boundary also carries the recurrent state
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "M":
+            sc = cfg.ssm
+            nh = sc.num_heads(d)
+            act[i] += batch * nh * sc.head_dim * sc.d_state * 4
+    grad = np.full(L, batch * seq * d * act_bytes_per_el, dtype=np.float64)
+    active = np.array([cfg.active_block_params(i) for i in range(L)], dtype=np.float64)
+    fwd = 2.0 * active * batch * seq
+    # attention quadratic term (full attention; window caps it)
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "A":
+            ctx = min(seq, cfg.attention_window or seq)
+            fwd[i] += 2.0 * 2.0 * batch * seq * ctx * cfg.num_heads * cfg.head_dim * 0.5
+    bwd = 2.0 * fwd
+    leak = act * _leak_weights(L)
+    state = np.zeros(L, dtype=np.float64)
+    kinds = np.zeros(L, dtype=np.int8)
+    for i, kind in enumerate(cfg.pattern):
+        kinds[i] = block_kind(cfg, i)
+        if kind == "A":
+            ctx = min(seq, cfg.attention_window or seq)
+            state[i] += (batch * ctx * 2 * cfg.num_kv_heads * cfg.head_dim
+                         * act_bytes_per_el)
+        else:
+            sc = cfg.ssm
+            nh = sc.num_heads(d)
+            state[i] += batch * nh * sc.head_dim * sc.d_state * 4
+            state[i] += batch * (sc.d_inner(d) + 2 * sc.d_state) * (sc.d_conv - 1) * 4
+        if cfg.is_moe_block(i):
+            state[i] += cfg.mlp_params(True) * bytes_per_param
+    return LayerProfile(
+        name=cfg.name,
+        param_bytes=pb,
+        act_bytes=act,
+        grad_bytes=grad,
+        fwd_flops=fwd,
+        bwd_flops=bwd,
+        leak_value=leak,
+        state_bytes=state,
+        kind=kinds,
+    )
+
+
 # (blocks, in_ch, mid_ch, out_ch, spatial) per ResNet-101 stage @224x224
 _RESNET101_STAGES: List[Tuple[int, int, int, int, int]] = [
     (3, 64, 64, 256, 56),
@@ -155,3 +231,13 @@ def resnet101_profile(batch: int = 1, *, image: int = 224,
         bwd_flops=2 * fw,
         leak_value=ab * _leak_weights(len(pb)),
     )
+
+
+def get_profile(name: str, batch: int, seq: int = 0) -> LayerProfile:
+    """``"resnet101"`` or a zoo arch id (``transformer_profile`` at ``seq``,
+    2048 when 0)."""
+    if name == "resnet101":
+        return resnet101_profile(batch)
+    from repro_torch.configs import get_config
+
+    return transformer_profile(get_config(name), batch, seq or 2048)

@@ -1,0 +1,148 @@
+"""Causal GQA flash attention, forward only.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``_kernel``, launched by ``flash_attention``'s ``pallas_call``) with a
+CUDA C++ kernel for Hopper, ``csrc/flash_attention.cu``, built with
+``nvcc`` for ``sm_90a`` at first use and bound with :mod:`ctypes`.
+
+It computes ``kernels/ref.py``'s ``flash_attention_ref``: f32 scores and
+softmax over the keys a query may see (causal, an optional sliding
+``window``, queries at absolute positions ``q_offset + i``), the
+probabilities never rounded before ``p @ v``, the output cast to the
+input dtype. GQA maps query head ``h`` to kv head ``h // (H // KH)``.
+What bounds the call on an H100 and how the design follows is written at
+the top of the CUDA source.
+
+* :func:`flash_attention` is the wrapper. A CUDA tensor launches the
+  kernel or raises; only CPU tensors take the plain version. Every
+  launch adds one to :data:`launches`.
+* :func:`flash_attention_ref` is the plain PyTorch version. The CPU
+  path and the tests use it.
+* There is no backward, as the JAX kernel has no VJP: the wrapper raises
+  when a gradient would be required.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+# kernel launches since the last reset (a caller sets it to 0 to count a run)
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load("flash_attention")
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.flash_attention_supports_head_dim.restype = ctypes.c_int
+        lib.flash_attention_supports_head_dim.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0):
+    """Plain PyTorch version (``kernels/ref.py`` of the JAX package):
+    q (B, Sq, H, hd), k/v (B, Skv, KH, hd) -> (B, Sq, H, hd) in q's dtype."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    kr = torch.repeat_interleave(k, g, dim=2)
+    vr = torch.repeat_interleave(v, g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float())
+    s = s * (1.0 / math.sqrt(hd))
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(ok[None, None], s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, vr.float())
+    return out.to(q.dtype)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (B, Sq, H, hd) and k, v "
+                         "(B, Skv, KH, hd)")
+    b, _, h, hd = q.shape
+    kb, _, kh, khd = k.shape
+    if (kb != b or khd != hd or tuple(v.shape) != tuple(k.shape)
+            or kh == 0 or h % kh):
+        raise ValueError(f"flash_attention shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _launch(q, k, v, causal, window, q_offset):
+    """Launch the CUDA kernel on the current stream (no fallback)."""
+    global launches
+    _check(q, k, v)
+    dev = q.device
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention kernel takes f32/f16/bf16, got {q.dtype}")
+    for t in (k, v):
+        if t.device != dev or t.dtype != q.dtype:
+            raise TypeError("flash_attention kernel needs q, k, v on "
+                            f"{dev} in {q.dtype}; got {t.device} {t.dtype}")
+    for t in (q, k, v):
+        if not t.is_contiguous():
+            raise ValueError("flash_attention kernel needs contiguous inputs")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    lib = _library()
+    if not lib.flash_attention_supports_head_dim(hd):
+        raise ValueError(f"flash_attention kernel supports head_dim 16, 32, "
+                         f"64 or 128, got {hd}")
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    if skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_launch(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, sq, skv, h, kh, hd, 1.0 / math.sqrt(hd),
+            int(causal), 0 if window is None else int(window), int(q_offset),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0):
+    """Causal GQA attention, forward only: q (B, Sq, H, hd), k/v
+    (B, Skv, KH, hd), all one dtype (f32, f16 or bf16); queries sit at
+    absolute positions ``q_offset + i``. Raises if a gradient would be
+    required (the JAX kernel has no VJP either)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward (as the JAX kernel "
+                           "has no VJP); call it under torch.no_grad() or use "
+                           "impl='dense'/'chunked' for training")
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window, q_offset)
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    raise TypeError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")

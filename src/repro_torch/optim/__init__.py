@@ -1,3 +1,12 @@
-from repro_torch.optim.optimizers import OptState, adamw, apply_updates
+from repro_torch.optim.optimizers import (
+    OptState,
+    adamw,
+    apply_updates,
+    clip_by_global_norm,
+    cosine_schedule,
+    global_norm,
+    linear_warmup_cosine,
+)
 
-__all__ = ["OptState", "adamw", "apply_updates"]
+__all__ = ["OptState", "adamw", "apply_updates", "clip_by_global_norm",
+           "cosine_schedule", "global_norm", "linear_warmup_cosine"]

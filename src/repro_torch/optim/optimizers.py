@@ -13,8 +13,9 @@ Functional, like the reference: every call returns new tensors.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -37,22 +38,65 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """Scale ``tree`` so its global norm is at most ``max_norm``; returns
+    ``(clipped, norm)``."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
+
+
+def cosine_schedule(base_lr: float, total_steps: int, final_frac: float = 0.1):
+    def lr(step):
+        frac = torch.clamp(step / max(total_steps, 1), 0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(math.pi * frac))
+        return base_lr * (final_frac + (1 - final_frac) * cos)
+
+    return lr
+
+
+def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
+                         final_frac: float = 0.1):
+    cos = cosine_schedule(base_lr, max(total_steps - warmup, 1), final_frac)
+
+    def lr(step):
+        w = torch.clamp(step / max(warmup, 1), 0.0, 1.0)
+        return torch.where(step < warmup, base_lr * w, cos(step - warmup))
+
+    return lr
+
+
 def adamw(
-    lr: float = 1e-3,
+    lr: Union[float, Callable] = 1e-3,
     b1: float = 0.9,
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    max_grad_norm: Optional[float] = None,
+    state_dtype: torch.dtype = torch.float32,
 ) -> Optimizer:
+    """``lr`` is a number or a function of the (int32 tensor) step, as
+    :func:`cosine_schedule` returns; ``max_grad_norm`` clips the gradients
+    by their global norm before the moments see them."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
     def init(params):
         leaf = tree_leaves(params)[0]
         return OptState(
             step=torch.zeros((), dtype=torch.int32, device=leaf.device),
-            mu=tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params),
-            nu=tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params),
+            mu=tree_map(lambda x: torch.zeros_like(x, dtype=state_dtype), params),
+            nu=tree_map(lambda x: torch.zeros_like(x, dtype=state_dtype), params),
         )
 
     def update(grads, state: OptState, params=None):
+        if max_grad_norm is not None:
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
         step = state.step + 1
         stepf = step.float()
         bc1 = 1 - b1 ** stepf
@@ -61,11 +105,12 @@ def adamw(
                       state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(v.dtype)),
                       state.nu, grads)
+        lr_t = lr_fn(step)
 
         def upd(m, v, p):
-            u = -(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+            u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
             if weight_decay:
-                u = u - lr * weight_decay * p.to(u.dtype)
+                u = u - lr_t * weight_decay * p.to(u.dtype)
             return u.to(p.dtype)
 
         updates = tree_map(upd, mu, nu, params)

@@ -1,4 +1,4 @@
-"""Carry SAC parameters and AdamW state between the JAX package and the port.
+"""Carry parameters and AdamW state between the JAX package and the port.
 
 Both sides keep the same tree layout (nested dicts and lists, ``x @ w + b``
 with ``w`` of shape ``(d_in, d_out)``), so a conversion is a leafwise copy.
@@ -54,3 +54,31 @@ def sac_opt_state_to_numpy(opt_state: Any):
                         nu=sac_params_to_numpy(st.nu)) if len(st) else ())
         for name, st in opt_state.items()
     }
+
+
+def model_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX model params (``repro.models.init_params`` layout, numpy leaves)
+    -> the port's params on ``device``: the same tree, leaf for leaf."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: _to_torch(x, dev), np_tree)
+
+
+def model_params_to_numpy(params: Any):
+    """The port's model params -> numpy arrays in the same tree layout."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), params)
+
+
+def model_opt_state_from_jax(np_state: Any, device: DeviceLike = None):
+    """A JAX AdamW ``OptState(step, mu, nu)`` over model params (numpy
+    leaves) -> the port's."""
+    dev = resolve_device(device)
+    return OptState(step=_to_torch(np_state.step, dev).to(torch.int32),
+                    mu=model_params_from_jax(np_state.mu, dev),
+                    nu=model_params_from_jax(np_state.nu, dev))
+
+
+def model_opt_state_to_numpy(opt_state: Any):
+    """The port's AdamW state over model params -> numpy ``(step, mu, nu)``."""
+    return OptState(step=opt_state.step.cpu().numpy(),
+                    mu=model_params_to_numpy(opt_state.mu),
+                    nu=model_params_to_numpy(opt_state.nu))

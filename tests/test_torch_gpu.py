@@ -65,3 +65,124 @@ def test_ca_attention_kernel_rejects_what_it_does_not_take():
             for k in p}
     with pytest.raises(ValueError):
         CA.ca_attention(wide, obs, torch.randn(4, 3, 129, device="cuda"), mask)
+
+
+# ---------------------------------------------------------------------------
+# the split executor's kernels
+# ---------------------------------------------------------------------------
+
+
+def _stage_case(rows, d, f, activation, dtype, seed):
+    rng = np.random.default_rng(seed)
+    names = (("w_gate", (d, f)),) if activation == "swiglu" else ()
+    names += (("w_up", (d, f)), ("w_down", (f, d)))
+    params = {k: torch.from_numpy((rng.standard_normal(shape) / np.sqrt(shape[0]))
+                                  .astype(np.float32)) for k, shape in names}
+    nw = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((1, rows, d), dtype=np.float32)).to(dtype)
+    gy = torch.from_numpy(rng.standard_normal((1, rows, d), dtype=np.float32)).to(dtype)
+    return params, nw, x, gy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "gelu", "relu2", "silu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stage_mlp_block_kernel_matches_plain_on_card(activation, dtype):
+    """The hand-written kernel vs its plain version on the card at 37
+    ragged rows, D 256, F 512, f32 weights: forward f32 ``atol 1e-4``,
+    bf16 within two bf16 ulps of the largest output. Gradients through
+    the wrapper against autograd of ``mlp_block`` on the same tensors (the
+    same backward code): ``1e-5`` of each leaf's largest entry."""
+    _card()
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.models import layers as L
+
+    dt = getattr(torch, dtype)
+    params, nw, x, gy = _stage_case(37, 256, 512, activation, dt, seed=len(activation))
+    params = {k: v.cuda() for k, v in params.items()}
+    nw, x, gy = nw.cuda(), x.cuda(), gy.cuda()
+    names = sorted(params)
+
+    def grads(fn):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        n, xx = nw.detach().requires_grad_(True), x.detach().requires_grad_(True)
+        out = fn(n, p, xx)
+        return out, torch.autograd.grad(out, [n, xx] + [p[k] for k in names], gy)
+
+    before = SB.launches
+    out, gk = grads(lambda n, p, xx: SB.stage_mlp_block(n, p, xx, activation=activation))
+    torch.cuda.synchronize()
+    assert SB.launches == before + 1
+    with torch.no_grad():
+        ref = SB.stage_mlp_block_ref(nw, params, x, activation=activation)
+    top = float(ref.float().abs().max())
+    atol = 1e-4 if dtype == "float32" else 2.0 ** -6 * top
+    assert out.dtype == dt
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol)
+    _, gr = grads(lambda n, p, xx: L.mlp_block(n, p, xx, activation))
+    for a, r in zip(gk, gr):
+        r = r.float().cpu().numpy()
+        np.testing.assert_allclose(a.float().cpu().numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (2, 256, 256, 16, 2, 128, None, 0),   # GQA, Qwen head layout
+    (1, 200, 200, 4, 1, 64, None, 0),     # ragged S, MQA
+    (2, 256, 256, 8, 2, 64, 64, 0),       # sliding window
+    (2, 32, 128, 4, 2, 32, None, 96),     # queries at offset 96
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
+    """The hand-written kernel vs its plain version on the card: f32
+    ``atol 1e-5``, bf16 ``atol 2e-2``; one launch counted per call."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+
+    b, sq, skv, h, kh, hd, window, q_offset = case
+    rng = np.random.default_rng(sq + h)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dt).cuda()
+               for s in ((b, sq, h, hd), (b, skv, kh, hd), (b, skv, kh, hd)))
+    before = FA.launches
+    with torch.no_grad():
+        out = FA.flash_attention(q, k, v, window=window, q_offset=q_offset)
+        ref = FA.flash_attention_ref(q, k, v, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+def test_split_kernels_reject_what_they_do_not_take():
+    """On CUDA tensors the wrappers launch or raise: mixed dtypes,
+    non-contiguous inputs, an unsupported head dim, and a gradient
+    through flash_attention raise."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+
+    q = torch.randn(1, 8, 2, 32, device="cuda")
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        FA.flash_attention(*(torch.randn(1, 8, 2, 48, device="cuda"),) * 3)
+    with pytest.raises(RuntimeError):
+        FA.flash_attention(q.requires_grad_(True), q, q)
+    p = {"w_up": torch.randn(16, 32, device="cuda"),
+         "w_down": torch.randn(32, 16, device="cuda")}
+    x = torch.randn(2, 3, 16, device="cuda")
+    nw = torch.ones(16, device="cuda")
+    with pytest.raises(TypeError):
+        SB.stage_mlp_block(nw.half(), p, x, activation="gelu")
+    with pytest.raises(ValueError):
+        SB.stage_mlp_block(nw, p, x, activation="swiglu")  # no w_gate
+    with pytest.raises(ValueError):
+        SB.stage_mlp_block(nw, {**p, "w_up": p["w_up"].t().contiguous().t()}, x,
+                           activation="gelu")
