@@ -11,9 +11,9 @@ Phases (each raises on failure; any failure exits non-zero):
 1. card: name and power limit (``nvidia-smi``), TF32 off for matmuls and
    cuDNN so f32 means f32;
 2. build: every hand-written kernel (``ca_attention``,
-   ``stage_mlp_block``, ``flash_attention``), compiled from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
-   source, all started together);
+   ``stage_mlp_block``, ``flash_attention``, ``ssd_scan``,
+   ``grouped_moe_ffn``), compiled from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` (one process per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at its
    paths' shapes and at ragged and other-arch shapes, forward (and
    backward through autograd where the kernel has one), f32 and bf16;
@@ -29,12 +29,24 @@ Phases (each raises on failure; any failure exits non-zero):
    after; the flash kernel against its plain version on the q, k, v of
    every attention call of one held-out loss call; then one f32
    pipelined step at depth 2 against ``make_train_step``;
+4c. (A) Mamba2-370m through the launcher at full width and full depth
+   (48 layers): plan, 1F1B training through ``ssd_chunked``, and a
+   held-out loss whose 48 scans run on ``ssd_scan``; the kernel against
+   its plain version on every scan of one held-out call, and that loss
+   against the ``ssd_chunked`` route's;
+4d. (B) one Qwen3-MoE-30B-A3B MoE layer at full width on 8 x 256 bf16
+   tokens: the dropless dispatch through ``grouped_moe_ffn``, held to the
+   reference route; the capacity dispatch beside them;
+4e. (C) Qwen3-MoE-30B-A3B through the launcher at full width, depth 2 on
+   2 stages (MoE halves through the dropless reference route, the
+   held-out attention through ``flash_attention`` at GQA 32/4);
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
-   share, kernels per step); seconds per pipelined step and tokens/s;
-   each kernel, its plain version and, where one exists, the one
-   PyTorch call computing the same function, at the paths' shapes
-   (device time by CUDA-graph replay), beside each kernel's bound.
+   share, kernels per step); seconds per pipelined step and tokens/s and
+   a trace of one step for each launcher run; each kernel, its plain
+   version and, where one exists, the one PyTorch call computing the
+   same function, at the paths' shapes (device time by CUDA-graph
+   replay), beside each kernel's bound.
 
 The second-to-last line of output is the per-kernel JSON record, the
 last line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -48,7 +60,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -68,6 +79,20 @@ EVAL_EPISODES = 32
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _reset_counts(counts=None):
+    """Set every kernel wrapper's launch count to 0 (or to ``counts``)."""
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    for name, mod in RUN.KERNEL_MODULES.items():
+        mod.launches = 0 if counts is None else counts[name]
+
+
+def _counts():
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    return RUN.kernel_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -96,17 +121,13 @@ def phase_card(torch):
 # 2. build
 # ---------------------------------------------------------------------------
 
-KERNELS = ("ca_attention", "stage_mlp_block", "flash_attention")
-
-
 def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        paths = list(pool.map(_build.build, KERNELS))
+    paths = _build.build_all()
     wall = time.perf_counter() - t0
-    for name, path in zip(KERNELS, paths):
+    for name, path in zip(_build.KERNELS, paths):
         log(f"[build] {name}: {_build.BUILD_SECONDS.get(name, 0.0):.2f} s "
             f"nvcc -> {path.relative_to(ROOT)}")
         for line in _build.BUILD_LOG.get(name, "").splitlines():
@@ -345,7 +366,7 @@ def phase_slice(torch, card):
         f"{sum(env.action_dims.values()) + env.action_dims['decoys']}, "
         f"episode_len {env.episode_len}; {cfg}")
 
-    CA.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = LP.train_sac(env, cfg, episodes=EPISODES, seed=0,
                        warmup_episodes=WARMUP, num_envs=NUM_ENVS)
@@ -390,6 +411,9 @@ def phase_slice(torch, card):
                              f"{env.episode_len}")
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"non-finite evaluation {ev}")
+    others = {k: v for k, v in _counts().items() if k != "ca_attention"}
+    if any(others.values()):
+        raise AssertionError(f"the SAC slice launched {others}")
     log(f"[slice] evaluate_sac({EVAL_EPISODES}): {ev}")
 
     upd_secs = [s for s, m in zip(res.chunk_seconds, res.chunk_updated) if m]
@@ -647,50 +671,23 @@ PARITY_GRAD_REL = 1e-4
 def phase_split(torch, card):
     """The split executor's path through ``launch.train_mhsl_rl.main``,
     with every launch counter at 0 just before and read just after."""
-    from repro_torch.core.agents.sac import SACConfig
     from repro_torch.core.pipeline import stage_lengths
-    from repro_torch.kernels import ca_attention as CA
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import stage_block as SB
     from repro_torch.launch import train_mhsl_rl as RUN
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves
 
     args = RUN.parse_args(SPLIT_ARGV)
-    CA.launches = SB.launches = FA.launches = 0
-    t0 = time.perf_counter()
-    res = RUN.main(SPLIT_ARGV)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {"ca_attention": CA.launches, "stage_mlp_block": SB.launches,
-              "flash_attention": FA.launches}
-
-    env, train, cfg = res["env"], res["train"], res["cfg"]
-    chunks = math.ceil(args.episodes / args.num_envs)
-    upd_chunks = sum(1 for c in range(chunks)
-                     if c * args.num_envs >= RUN.WARMUP_EPISODES)
-    n_updates = SACConfig().updates_per_step * env.episode_len * args.num_envs
-    expect_ca = upd_chunks * (n_updates + env.episode_len) + env.episode_len
+    counts, res, wall = _run_launcher(torch, SPLIT_ARGV)
+    cfg = res["cfg"]
     lens = stage_lengths(res["boundaries"])
     per_step = args.microbatches * (2 * (cfg.num_layers - lens[-1]) + lens[-1])
-    expect = {"ca_attention": expect_ca,
+    expect = {"ca_attention": _expected_ca(res, args),
               "stage_mlp_block": args.pipeline_steps * per_step,
-              "flash_attention": cfg.num_layers}
-    if upd_chunks < 1 or len(train.metrics) != upd_chunks:
-        raise AssertionError(f"{len(train.metrics)} updating chunks, expected "
-                             f"{upd_chunks} (>= 1)")
+              "flash_attention": cfg.num_layers, "ssd_scan": 0,
+              "grouped_moe_ffn": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
-    if res["boundaries"][-1] != cfg.num_layers or cfg.d_model != 2048:
-        raise AssertionError(f"executed {cfg.name} {res['boundaries']}")
-    losses = res["losses"]
-    if len(losses) != args.pipeline_steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"pipeline losses {losses}")
-    if not math.isfinite(res["eval_loss"]):
-        raise AssertionError(f"held-out loss {res['eval_loss']}")
-    for leaf in tree_leaves(res["params"]):
-        if leaf.device.type != "cuda" or not torch.isfinite(leaf).all():
-            raise AssertionError("trained parameter off the card or non-finite")
+    _expect_config(cfg, args)
+    _check_launcher_result(torch, res, args)
 
     flash_err = _eval_flash_check(torch, res)
     with torch.no_grad():
@@ -702,9 +699,10 @@ def phase_split(torch, card):
         raise AssertionError(f"held-out loss pallas {res['eval_loss']} vs dense "
                              f"{dense}: |diff| {gap} > {EVAL_ATOL}")
 
-    _split_trace(torch, card, res, args)
+    _step_trace(torch, card, res, args, "split",
+                must_see=("rms_norm_rows", "up_act", "down_residual"))
 
-    secs = res["step_seconds"]
+    secs, losses = res["step_seconds"], res["losses"]
     med = statistics.median(secs[1:])
     tokens = args.batch * args.seq
     log(f"[split] plan on the 36-layer profile: boundaries {res['plan_full']} "
@@ -769,18 +767,93 @@ def _eval_flash_check(torch, res):
     return worst
 
 
-def _split_trace(torch, card, res, args):
-    """A torch.profiler trace of one pipelined train step (pipeline and
-    AdamW) on the trained state: device busy share, kernels per step and
-    the stage kernel's share of the device time. Launches here do not
-    count for the main path."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import stage_block as SB
+def _run_launcher(torch, argv):
+    """``launch.train_mhsl_rl.main(argv)`` with every kernel's launch count
+    set to 0 just before and read just after. Returns the counts, the
+    launcher's result and the run's wall seconds."""
     from repro_torch.launch import train_mhsl_rl as RUN
 
-    saved = (SB.launches, FA.launches)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = RUN.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = RUN.kernel_launches()
+    if counts != res["launches"]:
+        raise AssertionError(f"counters {counts} vs the launcher's "
+                             f"{res['launches']}")
+    return counts, res, wall
+
+
+def _expected_ca(res, args):
+    """ca_attention launches of a launcher run's plan phase: the batched
+    rollouts and gradient steps of ``train_sac`` and one planning episode."""
+    from repro_torch.core.agents.sac import SACConfig
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    env, train = res["env"], res["train"]
+    chunks = math.ceil(args.episodes / args.num_envs)
+    upd_chunks = sum(1 for c in range(chunks)
+                     if c * args.num_envs >= RUN.WARMUP_EPISODES)
+    if upd_chunks < 1 or len(train.metrics) != upd_chunks:
+        raise AssertionError(f"{len(train.metrics)} updating chunks, expected "
+                             f"{upd_chunks} (>= 1)")
+    n_updates = SACConfig().updates_per_step * env.episode_len * args.num_envs
+    return upd_chunks * (n_updates + env.episode_len) + env.episode_len
+
+
+def _expect_config(cfg, args, full_depth=False):
+    """The executed config is the arch's published one (every width) at
+    the run's depth, or at its full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    depth = get_config(args.arch).num_layers if full_depth else args.depth
+    if args.reduced or cfg != RUN.executed_config(args.arch, depth, reduced=False):
+        raise AssertionError(f"executed {cfg}, not {args.arch} at published "
+                             f"widths and depth {depth}")
+
+
+def _check_launcher_result(torch, res, args):
+    """The plan covers the executed depth; every step's loss, the held-out
+    loss and every trained parameter are finite, and the parameters live
+    on the card."""
+    from repro_torch.tree import tree_leaves
+
+    cfg = res["cfg"]
+    if res["boundaries"][-1] != cfg.num_layers:
+        raise AssertionError(f"executed {cfg.name} {res['boundaries']}")
+    losses = res["losses"]
+    if len(losses) != args.pipeline_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"pipeline losses {losses}")
+    if not math.isfinite(res["eval_loss"]):
+        raise AssertionError(f"held-out loss {res['eval_loss']}")
+    for leaf in tree_leaves(res["params"]):
+        if leaf.device.type != "cuda" or not torch.isfinite(leaf).all():
+            raise AssertionError("trained parameter off the card or non-finite")
+
+
+def _log_kernels(torch, prof, label, n=8):
+    """Log the top device kernels of a profile by self device time; return
+    every device kernel's record."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:n]:
+        log(f"[trace]   {label} kernel {e.key[:70]}: {e.count}x, "
+            f"{e.self_device_time_total / 1e3:.3f} ms device")
+    return kern
+
+
+def _step_trace(torch, card, res, args, label, must_see=()):
+    """A torch.profiler trace of one pipelined train step (pipeline and
+    AdamW) on the trained state: device busy share, kernels per step and
+    the share of the kernels named in ``must_see`` (which must appear).
+    Launches here do not count for the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    saved = _counts()
     cfg = res["cfg"]
     step = RUN.make_pipeline_train_step(cfg, res["boundaries"], args.microbatches,
                                         res["pipe"], res["opt"])
@@ -788,31 +861,28 @@ def _split_trace(torch, card, res, args):
     toks, labs = (torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                                 generator=gen, device="cuda") for _ in range(2))
     params, opt_state = res["params"], res["opt_state"]
+    res["params"] = res["opt_state"] = None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, toks, labs)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     res["params"], res["opt_state"] = params, opt_state
-    SB.launches, FA.launches = saved
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    _reset_counts(saved)
+    kern = _log_kernels(torch, prof, label)
     dev_us = sum(e.self_device_time_total for e in kern)
-    stage_us = sum(e.self_device_time_total for e in kern
-                   if any(n in e.key for n in ("rms_norm_rows", "up_act",
-                                               "down_residual")))
-    if dev_us == 0 or stage_us == 0:
+    seen_us = sum(e.self_device_time_total for e in kern
+                  if any(n in e.key for n in must_see))
+    if dev_us == 0 or (must_see and seen_us == 0):
         raise AssertionError(f"the profiler saw {dev_us} us of device time, "
-                             f"{stage_us} us of it in the stage kernel, in "
-                             f"the pipelined step")
-    log(f"[trace] one pipelined train step (profiled, loss {float(loss):.4f}): "
-        f"{host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms device busy, busy "
-        f"share {dev_us / 1e6 / host_s:.3f}; {sum(e.count for e in kern)} "
-        f"kernels; stage_mlp_block's three grids {stage_us / 1e3:.3f} ms "
-        f"({stage_us / dev_us:.3f} of device time) [{card}]")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[trace]   kernel {e.key[:70]}: {e.count}x, "
-            f"{e.self_device_time_total / 1e3:.3f} ms device")
+                             f"{seen_us} us of it in {must_see}, in the "
+                             f"pipelined step")
+    named = (f"; {'/'.join(must_see)} {seen_us / 1e3:.3f} ms "
+             f"({seen_us / dev_us:.3f} of device time)" if must_see else "")
+    log(f"[trace] {label}: one pipelined train step (profiled, loss "
+        f"{float(loss):.4f}): {host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms "
+        f"device busy, busy share {dev_us / 1e6 / host_s:.3f}; "
+        f"{sum(e.count for e in kern)} kernels{named} [{card}]")
 
 
 def phase_split_parity(torch):
@@ -979,6 +1049,597 @@ def phase_split_timing(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 3c. the SSM and MoE kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (label, B, S, H, P, N, chunk). The first case has the shapes of the
+# held-out evaluation's scans (Mamba2-370m, 8 x 1024 tokens).
+SSD_CASES = [
+    ("mamba2-370m", 8, 1024, 32, 64, 128, 64),
+    ("ragged S=1000", 2, 1000, 32, 64, 128, 64),
+    ("one chunk S=50", 2, 50, 32, 64, 128, 64),
+    ("reduced widths", 2, 80, 16, 32, 16, 64),
+    ("P=96 over 2 tiles", 1, 96, 2, 96, 8, 32),
+]
+# y and h_last each within SSD_REL * max|ref|. Both versions decay by
+# exp(cum_i - cum_j) with cum the in-chunk cumulative sum of dt * a, which
+# reaches ~-800 at these rates (a down to -16): the f32 rounding of cum,
+# taken by a shuffle scan here and by torch.cumsum there, is ~5e-5
+# absolute and enters the decays exponentially. Measured on an H100 80GB
+# HBM3 at 700 W: up to 2.1e-5 of max|ref| (h_last of the one-chunk case)
+SSD_REL = 1e-4
+
+# (label, tokens, D, F, E, top-k, blk, activation, dtype). The first case
+# is path (B)'s call (Qwen3-MoE-30B-A3B, 8 x 256 tokens, blocks of 128).
+MOE_CASES = [
+    ("qwen3-moe-30b-a3b", 2048, 2048, 768, 128, 8, 128, "swiglu", "bfloat16"),
+    ("qwen3-moe-30b-a3b", 2048, 2048, 768, 128, 8, 128, "swiglu", "float32"),
+    ("qwen3-moe-30b-a3b blk 32", 2048, 2048, 768, 128, 8, 32, "swiglu", "bfloat16"),
+    ("relu2", 96, 256, 384, 8, 2, 32, "relu2", "bfloat16"),
+    ("relu2", 96, 256, 384, 8, 2, 32, "relu2", "float32"),
+    ("gelu", 96, 256, 384, 8, 2, 8, "gelu", "bfloat16"),
+    ("gelu", 96, 256, 384, 8, 2, 8, "gelu", "float32"),
+    ("silu", 96, 256, 384, 8, 2, 128, "silu", "bfloat16"),
+    ("silu", 96, 256, 384, 8, 2, 128, "silu", "float32"),
+]
+# forward within MOE_REL[dtype] * max|ref|. f32: sums over D = 2048 then
+# F = 768 terms in another order. bf16: g, u, h and the output round to
+# bf16 at the Pallas points, and the kernel takes the activation in f32
+# and rounds once where the plain version rounds per operation, so an
+# element may sit one or two bf16 ulps (2^-8 relative) away.
+MOE_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# gradients through the wrapper: its backward is autograd of the plain
+# version, the code the reference differentiates, so 1e-5 per leaf
+MOE_BWD_REL = 1e-5
+
+
+def _ssd_inputs(torch, b, s, h, p, n, seed):
+    """Scan inputs as a Mamba block makes them: dt = softplus(N(0, 1)),
+    a = -linspace(1, 16, H) (``init_mamba``'s rates), x, b, c ~ N(0, 1)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device="cuda")
+    dt = F.softplus(torch.randn(b, s, h, generator=g, device="cuda"))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm = torch.randn(b, s, n, generator=g, device="cuda")
+    cm = torch.randn(b, s, n, generator=g, device="cuda")
+    return x, dt, a, bm, cm
+
+
+def _ssd_compare(torch, out, ref, what):
+    """Max |err| of the kernel's (y, h_last) against the plain version's,
+    each held to SSD_REL of its largest entry."""
+    worst = 0.0
+    for name, a, r in zip(("y", "h_last"), out, ref):
+        if a.shape != r.shape or a.dtype != torch.float32:
+            raise AssertionError(f"ssd_scan {what} {name}: {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite ssd_scan {name} ({what})")
+        err = float((a - r).abs().max())
+        lim = SSD_REL * float(r.abs().max())
+        if err > lim:
+            raise AssertionError(f"ssd_scan {what} {name}: {err} > {lim}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_ssd_checks(torch):
+    """ssd_scan kernel vs ssd_scan_ref on the card (forward only; the
+    wrapper raises under autograd). Returns the main case's max error."""
+    from repro_torch.kernels import ssd_scan as SK
+
+    saved = SK.launches
+    main_err = None
+    for n, (label, b, s, h, p, nst, chunk) in enumerate(SSD_CASES):
+        x, dt, a, bm, cm = _ssd_inputs(torch, b, s, h, p, nst, seed=70 + n)
+        with torch.no_grad():
+            before = SK.launches
+            out = SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+            ref = SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        if SK.launches != before + 1:
+            raise AssertionError("ssd_scan did not count its launch")
+        err = _ssd_compare(torch, out, ref, label)
+        main_err = err if main_err is None else main_err
+        log(f"[check] ssd_scan {label:18s} B {b} S {s} H {h} P {p} N {nst} "
+            f"chunk {chunk}: max|err| y/h {err:.3e} (limit {SSD_REL:g} x "
+            f"max|ref|; max|y| {float(ref[0].abs().max()):.3f}, max|h| "
+            f"{float(ref[1].abs().max()):.3f})")
+    x = x.requires_grad_(True)
+    try:
+        SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("ssd_scan ran under autograd")
+    SK.launches = saved
+    return main_err
+
+
+def _moe_case_config(d, f, e, k, activation):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    base = get_config("qwen3-moe-30b-a3b")
+    return replace(base, d_model=d, activation=activation,
+                   moe=replace(base.moe, num_experts=e, top_k=k, expert_d_ff=f))
+
+
+def _dropless_buffer(torch, params, x, cfg, blk):
+    """The dropless dispatch's block-padded buffer of ``x`` (T, D) under
+    ``params``' router: ``(buf, block_eid, routed rows, experts used)``."""
+    from repro_torch.models import layers as L
+
+    _, ids, _ = L._moe_route(params, x, cfg)
+    order, dest, p_rows, block_eid = L.dropless_layout(ids, cfg.moe.num_experts,
+                                                       blk)
+    buf = x.new_zeros((p_rows, x.shape[1])).index_copy(
+        0, dest, x[order // cfg.moe.top_k])
+    return buf, block_eid, ids.numel(), int(torch.unique(ids).numel())
+
+
+def phase_moe_checks(torch):
+    """grouped_moe_ffn kernel vs grouped_ffn_reference on the card, on
+    buffers laid out by a random router's routing, forward; and gradients
+    through the wrapper against autograd of the plain version. Returns the
+    main case's max error."""
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.models import layers as L
+
+    saved = MD.launches
+    main_err = None
+    for n, (label, t, d, f, e, k, blk, act, dn) in enumerate(MOE_CASES):
+        dtype = getattr(torch, dn)
+        cfg = _moe_case_config(d, f, e, k, act)
+        g = torch.Generator(device="cuda").manual_seed(80 + n)
+        params = L.init_moe(g, cfg, device="cuda")  # f32 weights
+        x = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+        buf, eid, rows, used = _dropless_buffer(torch, params, x, cfg, blk)
+        wg = params.get("w_gate")
+        with torch.no_grad():
+            before = MD.launches
+            out = MD.grouped_moe_ffn(buf, eid, params, activation=act)
+            ref = MD.grouped_ffn_reference(buf, eid, wg, params["w_up"],
+                                           params["w_down"], act)
+        torch.cuda.synchronize()
+        if MD.launches != before + 1:
+            raise AssertionError("grouped_moe_ffn did not count its launch")
+        if out.dtype != dtype or out.shape != buf.shape:
+            raise AssertionError(f"grouped_moe_ffn out {out.dtype} {tuple(out.shape)}")
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"non-finite grouped_moe_ffn output ({label})")
+        pad = buf.float().abs().sum(-1) == 0
+        if float(out[pad].float().abs().max()) != 0.0:
+            raise AssertionError("a zero (padding) row gave a non-zero output")
+        err = float((out.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        lim = MOE_REL[dn] * top
+        if err > lim:
+            raise AssertionError(f"grouped_moe_ffn {label} {dn}: {err} > {lim}")
+        main_err = err if main_err is None else main_err
+        bwd = ""
+        if d <= 256:
+            bwd = _moe_grad_check(torch, MD, buf, eid, params, act)
+        log(f"[check] grouped_moe_ffn {label:24s} {rows} routed rows in "
+            f"{buf.shape[0]} (blk {blk}, {used}/{e} experts) D {d} F {f} "
+            f"{act:6s} {dn:8s}: fwd max|err| {err:.3e} (limit {lim:.3e}, "
+            f"max|ref| {top:.3f}){bwd}")
+        del params, x, buf, out, ref
+    MD.launches = saved
+    return main_err
+
+
+def _moe_grad_check(torch, MD, buf, eid, params, act):
+    gy = torch.randn(buf.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(5), device="cuda").to(buf.dtype)
+    names = sorted(params.keys() - {"router"})
+
+    def grads(fn):
+        p = {k: params[k].detach().requires_grad_(True) for k in names}
+        b = buf.detach().requires_grad_(True)
+        return torch.autograd.grad(fn(b, p), [b] + [p[k] for k in names], gy)
+
+    gk = grads(lambda b, p: MD.grouped_moe_ffn(b, eid, p, activation=act))
+    gr = grads(lambda b, p: MD.grouped_ffn_reference(
+        b, eid, p.get("w_gate"), p["w_up"], p["w_down"], act))
+    worst = 0.0
+    for name, a, r in zip(["buf"] + names, gk, gr):
+        top = float(r.float().abs().max())
+        e = float((a.float() - r.float()).abs().max())
+        if not torch.isfinite(a.float()).all() or e > MOE_BWD_REL * top:
+            raise AssertionError(f"grouped_moe_ffn grad {name} ({act}): {e} > "
+                                 f"{MOE_BWD_REL} x {top}")
+        worst = max(worst, e / max(top, 1e-30))
+    return f"; bwd max|err|/max|ref| {worst:.3e} (limit {MOE_BWD_REL:g})"
+
+
+# ---------------------------------------------------------------------------
+# 4c. (A) Mamba2-370m through the launcher, full depth
+# ---------------------------------------------------------------------------
+
+# the launcher's arguments: Mamba2-370m at its published widths and full
+# depth (48 layers); a short SAC run on its 48-layer profile; 4 stages,
+# M = 4 microbatches of 2 x 256 tokens, 4 steps; 8 x 1024 held-out tokens
+MAMBA_ARGV = ["--arch", "mamba2-370m", "--episodes", "24", "--num-envs", "8",
+              "--pipeline-steps", "4", "--stages", "4", "--depth", "48",
+              "--microbatches", "4", "--batch", "8", "--seq", "256",
+              "--eval-batch", "8", "--eval-seq", "1024", "--seed", "0"]
+# held-out loss through the scan kernel vs the ssd_chunked route
+# (impl="auto") on the same params and tokens, bf16 compute. The two
+# scans are different f32 formulas (exp of a difference of cumulative
+# sums vs exp of segment sums), and every block rounds its scan output
+# to bf16, so an ulp-level difference flips bf16 roundings that 48
+# layers carry on: measured 3.64e-4 nats apart (of 11.04) on an H100
+# 80GB HBM3 at 700 W; held at 2e-3. The kernel itself is held to its
+# plain version on each of the 48 scans (SSD_REL).
+MAMBA_EVAL_ATOL = 2e-3
+
+
+def phase_mamba(torch, card):
+    """(A): the launcher on Mamba2-370m at full depth, counters at 0 just
+    before and read just after; the scan kernel held to its plain version
+    on every scan of one held-out call; the loss held to the ssd_chunked
+    route's."""
+    from repro_torch.launch import train_mhsl_rl as RUN
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    args = RUN.parse_args(MAMBA_ARGV)
+    torch.cuda.reset_peak_memory_stats()
+    counts, res, wall = _run_launcher(torch, MAMBA_ARGV)
+    cfg = res["cfg"]
+    expect = {"ca_attention": _expected_ca(res, args), "stage_mlp_block": 0,
+              "flash_attention": 0, "ssd_scan": cfg.num_layers,
+              "grouped_moe_ffn": 0}
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    _expect_config(cfg, args, full_depth=True)
+    _check_launcher_result(torch, res, args)
+    n_params = sum(t.numel() for t in tree_leaves(res["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    ssd_err = _eval_ssd_check(torch, res)
+    with torch.no_grad():
+        _, (chunked, _) = M.loss_fn(res["params"], res["eval_batch"], cfg,
+                                    impl="auto", compute_dtype=torch.bfloat16)
+    chunked = float(chunked)
+    gap = abs(res["eval_loss"] - chunked)
+    if gap > MAMBA_EVAL_ATOL:
+        raise AssertionError(f"held-out loss ssd_scan {res['eval_loss']} vs "
+                             f"ssd_chunked {chunked}: |diff| {gap} > "
+                             f"{MAMBA_EVAL_ATOL}")
+    _eval_trace(torch, card, res, "mamba", "ssd_scan_fwd")
+    _step_trace(torch, card, res, args, "mamba")
+
+    secs = res["step_seconds"]
+    med = statistics.median(secs[1:])
+    tokens = args.batch * args.seq
+    log(f"[mamba] plan on the 48-layer profile: boundaries {res['plan_full']} "
+        f"devices {res['devices']}; executed {res['boundaries']} of "
+        f"{cfg.num_layers} layers, {n_params} parameters")
+    log(f"[mamba] launches in the run: {counts} (expected {expect}: ssd_scan "
+        f"once per layer in the held-out loss; the pipelined steps train "
+        f"through ssd_chunked, and Mamba blocks have no MLP, so "
+        f"stage_mlp_block launches 0 times)")
+    log(f"[mamba] held-out loss {res['eval_loss']:.6f} (ssd_scan) vs "
+        f"{chunked:.6f} (ssd_chunked), |diff| {gap:.3e} (limit "
+        f"{MAMBA_EVAL_ATOL:g})")
+    log(f"[time] mamba pipelined step (bf16 compute, f32 master weights, "
+        f"{tokens} tokens): {['%.3f' % s for s in secs]} s; median after "
+        f"warm-up {med:.3f} s, {tokens / med:.1f} tokens/s; loss first "
+        f"{res['losses'][0]:.4f} last {res['losses'][-1]:.4f}; held-out loss "
+        f"call {res['eval_seconds']:.3f} s; whole launcher run {wall:.3f} s; "
+        f"peak memory {peak:.2f} GiB [{card}]")
+    return counts, ssd_err
+
+
+def _eval_ssd_check(torch, res):
+    """The scan kernel against ssd_scan_ref on the inputs of every scan of
+    one held-out loss call (the main path's shapes and data), recorded by
+    wrapping the kernel's entry point for one more ``impl="pallas"`` loss
+    call; its launches do not count for the main path. Returns the
+    largest error."""
+    from repro_torch.kernels import ssd_scan as SK
+    from repro_torch.models import model as M
+
+    saved, entry = SK.launches, SK.ssd_scan
+    calls = []
+
+    def recording(x, dt, a, b, c, **kw):
+        out = entry(x, dt, a, b, c, **kw)
+        calls.append(((x, dt, a, b, c), kw, out))
+        return out
+
+    SK.ssd_scan = recording
+    try:
+        with torch.no_grad():
+            M.loss_fn(res["params"], res["eval_batch"], res["cfg"],
+                      impl="pallas", compute_dtype=torch.bfloat16)
+    finally:
+        SK.ssd_scan = entry
+        SK.launches = saved
+    cfg = res["cfg"]
+    if len(calls) != cfg.num_layers:
+        raise AssertionError(f"{len(calls)} scans in one loss call")
+    shape = (*res["eval_batch"]["tokens"].shape, cfg.ssm.num_heads(cfg.d_model),
+             cfg.ssm.head_dim)
+    worst = 0.0
+    for n, (inputs, kw, out) in enumerate(calls):
+        if (tuple(inputs[0].shape) != shape or kw != {"chunk": cfg.ssm.chunk}
+                or inputs[0].dtype != torch.float32):
+            raise AssertionError(f"eval scan {n}: x {inputs[0].dtype} "
+                                 f"{tuple(inputs[0].shape)} {kw}")
+        with torch.no_grad():
+            ref = SK.ssd_scan_ref(*inputs, **kw)
+        worst = max(worst, _ssd_compare(torch, out, ref, f"eval scan {n}"))
+    log(f"[check] ssd_scan on the {len(calls)} scans of one held-out loss call "
+        f"(x {tuple(calls[0][0][0].shape)}, N {calls[0][0][3].shape[-1]}, f32): "
+        f"max|err| {worst:.3e} (limit {SSD_REL:g} x max|ref|)")
+    return worst
+
+
+def _eval_trace(torch, card, res, label, kernel):
+    """A torch.profiler trace of one held-out loss call: device busy share
+    and the named kernel's share of the device time. Launches here do not
+    count for the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    saved = _counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            M.loss_fn(res["params"], res["eval_batch"], res["cfg"],
+                      impl="pallas", compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    _reset_counts(saved)
+    kern = _log_kernels(torch, prof, f"{label} eval")
+    dev_us = sum(e.self_device_time_total for e in kern)
+    k_us = sum(e.self_device_time_total for e in kern if kernel in e.key)
+    if dev_us == 0 or k_us == 0:
+        raise AssertionError(f"the profiler saw {dev_us} us of device time, "
+                             f"{k_us} us of it in {kernel}, in the held-out call")
+    log(f"[trace] {label}: one held-out loss call (profiled): {host_s * 1e3:.3f} "
+        f"ms host, {dev_us / 1e3:.3f} ms device busy, busy share "
+        f"{dev_us / 1e6 / host_s:.3f}; {sum(e.count for e in kern)} kernels; "
+        f"{kernel} {k_us / 1e3:.3f} ms ({k_us / dev_us:.3f} of device time) "
+        f"[{card}]")
+
+
+# ---------------------------------------------------------------------------
+# 4d. (B) one Qwen3-MoE-30B-A3B MoE layer at full width
+# ---------------------------------------------------------------------------
+
+MOE_LAYER_TOKENS = (8, 256)
+# the two dropless routes' layer outputs (bf16) within
+# MOE_LAYER_REL * max|reference|: the grouped outputs differ by an ulp or
+# two (MOE_REL) and the combine sums 8 gated choices
+MOE_LAYER_REL = 2.0 ** -6
+
+
+def _moe_layer_inputs(torch):
+    """Path (B)'s layer: the published config, f32 expert weights and
+    router from a seed, 8 x 256 bf16 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    g = torch.Generator(device="cuda").manual_seed(90)
+    params = L.init_moe(g, cfg, device="cuda")
+    x = torch.randn(*MOE_LAYER_TOKENS, cfg.d_model, generator=g,
+                    device="cuda").bfloat16()
+    return cfg, params, x
+
+
+def phase_moe_layer(torch, card):
+    """(B): ``moe_apply_dropless(impl="pallas")`` with every counter at 0
+    just before and read just after; the reference route and the capacity
+    dispatch on the same tokens, and each route's time per call."""
+    from repro_torch.models import layers as L
+
+    cfg, params, x = _moe_layer_inputs(torch)
+    _reset_counts()
+    with torch.no_grad():
+        y_k, aux_k = L.moe_apply_dropless(params, x, cfg, impl="pallas")
+    torch.cuda.synchronize()
+    counts = _counts()
+    expect = {"ca_attention": 0, "stage_mlp_block": 0, "flash_attention": 0,
+              "ssd_scan": 0, "grouped_moe_ffn": 1}
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    with torch.no_grad():
+        y_r, aux_r = L.moe_apply_dropless(params, x, cfg, impl="reference")
+        y_c, aux_c = L.moe_apply(params, x, cfg)
+    for name, y in (("pallas", y_k), ("reference", y_r), ("capacity", y_c)):
+        if y.dtype != torch.bfloat16 or y.shape != x.shape:
+            raise AssertionError(f"MoE layer {name}: {y.dtype} {tuple(y.shape)}")
+        if not torch.isfinite(y.float()).all():
+            raise AssertionError(f"non-finite MoE layer output ({name})")
+    if float(aux_k) != float(aux_r) or not math.isfinite(float(aux_c)):
+        raise AssertionError(f"router aux {float(aux_k)} / {float(aux_r)} / "
+                             f"{float(aux_c)}")
+    top = float(y_r.float().abs().max())
+    err = float((y_k.float() - y_r.float()).abs().max())
+    lim = MOE_LAYER_REL * top
+    if err > lim:
+        raise AssertionError(f"dropless kernel route vs reference: {err} > {lim}")
+    cap = float((y_c.float() - y_r.float()).abs().max())
+    saved = _counts()
+    t = {name: _time_ms(torch, lambda impl=impl: L.moe_apply_dropless(
+        params, x, cfg, impl=impl), iters=5, reps=3)
+        for name, impl in (("pallas", "pallas"), ("reference", "reference"))}
+    t["capacity"] = _time_ms(torch, lambda: L.moe_apply(params, x, cfg),
+                             iters=5, reps=3)
+    _reset_counts(saved)
+    tokens = MOE_LAYER_TOKENS[0] * MOE_LAYER_TOKENS[1]
+    log(f"[moe-layer] Qwen3-MoE-30B-A3B layer (E {cfg.moe.num_experts}, top-"
+        f"{cfg.moe.top_k}, D {cfg.d_model}, F {cfg.moe.expert_d_ff}), {tokens} "
+        f"bf16 tokens: launches {counts} (expected {expect})")
+    log(f"[moe-layer] dropless kernel route vs reference route: max|diff| "
+        f"{err:.3e} (limit {lim:.3e}, max|ref| {top:.3f}); capacity "
+        f"(factor {cfg.moe.capacity_factor}) vs dropless: max|diff| {cap:.3e} "
+        f"(dropped choices; printed, not held); aux {float(aux_r):.6f}")
+    log(f"[time] MoE layer per call (CUDA events over back-to-back eager "
+        f"calls): dropless kernel route {t['pallas']:.3f} ms, dropless "
+        f"reference route {t['reference']:.3f} ms, capacity {t['capacity']:.3f} "
+        f"ms [{card}]")
+    return counts, err
+
+
+# ---------------------------------------------------------------------------
+# 4e. (C) Qwen3-MoE-30B-A3B through the launcher, depth 2
+# ---------------------------------------------------------------------------
+
+# Qwen3-MoE-30B-A3B at its published widths, depth cut to 2 layers on 2
+# stages: each layer holds 623 M parameters and the untied embedding and
+# head 0.62 B, and the AdamW step holds the f32 params, gradients, clipped
+# gradients, old and new moments and the updates at once (8 copies), so
+# depth 4 would need ~99 GB; depth 2 needs ~60 GB
+# (2 stages make a 3-step MHSL episode, so the plan phase takes 64 episodes
+# in chunks of 32 for its replay buffer to hold a SAC batch of 128 when
+# updates start)
+MOE_ARGV = ["--arch", "qwen3-moe-30b-a3b", "--episodes", "64", "--num-envs", "32",
+            "--pipeline-steps", "4", "--stages", "2", "--depth", "2",
+            "--microbatches", "4", "--batch", "8", "--seq", "256",
+            "--eval-batch", "8", "--eval-seq", "1024", "--seed", "0"]
+
+
+def phase_moe_model(torch, card):
+    """(C): the launcher on Qwen3-MoE-30B-A3B, counters at 0 just before
+    and read just after. Training and the held-out loss take the dropless
+    reference route (the model's default), so grouped_moe_ffn launches 0
+    times; flash_attention once per layer of the held-out loss."""
+    from repro_torch.launch import train_mhsl_rl as RUN
+    from repro_torch.tree import tree_leaves
+
+    args = RUN.parse_args(MOE_ARGV)
+    torch.cuda.reset_peak_memory_stats()
+    counts, res, wall = _run_launcher(torch, MOE_ARGV)
+    cfg = res["cfg"]
+    expect = {"ca_attention": _expected_ca(res, args), "stage_mlp_block": 0,
+              "flash_attention": cfg.num_layers, "ssd_scan": 0,
+              "grouped_moe_ffn": 0}
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    _expect_config(cfg, args)
+    _check_launcher_result(torch, res, args)
+    n_params = sum(t.numel() for t in tree_leaves(res["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _step_trace(torch, card, res, args, "moe")
+    secs = res["step_seconds"]
+    med = statistics.median(secs[1:])
+    tokens = args.batch * args.seq
+    log(f"[moe] plan on the 48-layer profile: boundaries {res['plan_full']} "
+        f"devices {res['devices']}; executed {res['boundaries']} of "
+        f"{cfg.num_layers} layers, {n_params} parameters")
+    log(f"[moe] launches in the run: {counts} (expected {expect}: the MoE "
+        f"halves take moe_apply_dropless's default reference route, so "
+        f"grouped_moe_ffn launches 0 times and the stage kernel, which only "
+        f"dense MLP halves take, 0 times)")
+    log(f"[time] moe pipelined step (bf16 compute, f32 master weights, "
+        f"{tokens} tokens): {['%.3f' % s for s in secs]} s; median after "
+        f"warm-up {med:.3f} s, {tokens / med:.1f} tokens/s; loss first "
+        f"{res['losses'][0]:.4f} last {res['losses'][-1]:.4f}; held-out loss "
+        f"{res['eval_loss']:.4f} in {res['eval_seconds']:.3f} s; whole "
+        f"launcher run {wall:.3f} s; peak memory {peak:.2f} GiB [{card}]")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 5c. timings of the SSM and MoE kernels
+# ---------------------------------------------------------------------------
+
+
+def ssd_bound(b, s, h, p, n, chunk):
+    """Least time (ms) of one ssd_scan call: x, dt, a, b, c read and y,
+    h_last written once over the HBM rate vs the least f32 work over the
+    f32 peak: C.B^T once per (batch row, chunk) and, per head, the score
+    tile times x, C.h and the state update, over causal pairs only; the
+    larger wins."""
+    macs = 0
+    for s0 in range(0, s, chunk):
+        rows = min(chunk, s - s0)
+        tri = rows * (rows + 1) // 2
+        macs += b * tri * n + b * h * (tri * p + 2 * rows * n * p)
+    nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
+                  + b * h * p * n)
+    flops = 2 * macs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def moe_bound(routed, p_rows, nb, d, f, used, gated, x_elt, w_elt, flops_per_s):
+    """Least time (ms) of one grouped_moe_ffn call: the used experts'
+    weights (in their stored type), the buffer and block ids read and the
+    output written once, over the HBM rate, vs the products of the routed
+    rows (padding rows need none) over the operands' peak; the larger
+    wins."""
+    mats = 3 if gated else 2
+    nbytes = used * mats * d * f * w_elt + 2 * p_rows * d * x_elt + 4 * nb
+    flops = 2 * routed * d * f * mats
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def phase_ssm_moe_timing(torch, card):
+    """Kernel and plain version at the paths' shapes: ssd_scan at the
+    held-out evaluation's scan, grouped_moe_ffn at path (B)'s call. No
+    single PyTorch call computes either function, so there is no library
+    yardstick. Launches here leave the counters as they were."""
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.kernels import ssd_scan as SK
+
+    saved = _counts()
+    out = {}
+    _, b, s, h, p, n, chunk = SSD_CASES[0]
+    x, dt, a, bm, cm = _ssd_inputs(torch, b, s, h, p, n, seed=95)
+    t = _compare(torch, {
+        "kernel": lambda: SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk),
+        "plain": lambda: SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk),
+    }, iters=10, reps=5)
+    bound, by, nbytes, flops = ssd_bound(b, s, h, p, n, chunk)
+    out["ssd_scan"] = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
+                           bound_by=by, library_ms=None)
+    log(f"[time] ssd_scan B {b} S {s} H {h} P {p} N {n} chunk {chunk} f32, "
+        f"device (graph replay): kernel {t['kernel']:.6f} ms, plain "
+        f"{t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; {nbytes} B, {flops} "
+        f"FLOP at the f32 peak) [{card}]")
+    del x, dt, a, bm, cm
+
+    cfg, params, xl = _moe_layer_inputs(torch)
+    buf, eid, routed, used = _dropless_buffer(
+        torch, params, xl.reshape(-1, cfg.d_model), cfg, 128)
+    act = cfg.activation
+    t = _compare(torch, {
+        "kernel": lambda: MD.grouped_moe_ffn(buf, eid, params, activation=act),
+        "plain": lambda: MD.grouped_ffn_reference(
+            buf, eid, params.get("w_gate"), params["w_up"], params["w_down"], act),
+    }, iters=3, reps=3)
+    bound, by, nbytes, flops = moe_bound(
+        routed, buf.shape[0], eid.numel(), cfg.d_model, cfg.moe.expert_d_ff,
+        used, act == "swiglu", 2, 4, BF16_FLOPS_PER_S)
+    out["grouped_moe_ffn"] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                  bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"[time] grouped_moe_ffn {routed} routed rows in {buf.shape[0]} "
+        f"({eid.numel()} blocks of 128, {used} experts) D {cfg.d_model} F "
+        f"{cfg.moe.expert_d_ff} {act}, bf16 rows, f32 weights, device (graph "
+        f"replay): kernel {t['kernel']:.6f} ms, plain {t['plain']:.6f} ms; "
+        f"bound {bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP at bf16 peak) "
+        f"[{card}]")
+    _reset_counts(saved)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -991,20 +1652,38 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
+    t_start = time.perf_counter()
     name, card = phase_card(torch)
     phase_build()
     worst = phase_ca_checks(torch)
     stage_err = phase_stage_checks(torch)
     phase_flash_checks(torch)
+    ssd_check_err = phase_ssd_checks(torch)
+    moe_check_err = phase_moe_checks(torch)
+    torch.cuda.empty_cache()
     launches, env, cfg, params = phase_slice(torch, card)
     phase_trace(torch, card, env, cfg, params)
     del env, cfg, params
     split_launches, flash_err = phase_split(torch, card)
     phase_split_parity(torch)
     torch.cuda.empty_cache()
+    mamba_launches, ssd_err = phase_mamba(torch, card)
+    torch.cuda.empty_cache()
+    moe_layer_launches, moe_err = phase_moe_layer(torch, card)
+    torch.cuda.empty_cache()
+    moe_model_launches = phase_moe_model(torch, card)
+    torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
     t = timing[128]
     split_timing = phase_split_timing(torch, card)
+    split_timing.update(phase_ssm_moe_timing(torch, card))
+    log(f"[runs] launches per path: SAC slice ca_attention {launches}; split "
+        f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
+        f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
+        f"{moe_model_launches}")
+    log(f"[runs] kernel max|err| on their main-path cases: ssd_scan checks "
+        f"{ssd_check_err:.3e}, eval scans {ssd_err:.3e}; grouped_moe_ffn "
+        f"checks {moe_check_err:.3e}, (B) layer {moe_err:.3e}")
     kernels = [{
         "name": "ca_attention",
         "route": "cuda",
@@ -1018,19 +1697,26 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
     }]
-    for kname, replaces, err in (
-            ("stage_mlp_block", "src/repro/kernels/stage_block.py:58", stage_err),
+    for kname, replaces, err, n in (
+            ("stage_mlp_block", "src/repro/kernels/stage_block.py:58", stage_err,
+             split_launches["stage_mlp_block"]),
             ("flash_attention", "src/repro/kernels/flash_attention.py:30",
-             flash_err)):
+             flash_err, split_launches["flash_attention"]),
+            ("ssd_scan", "src/repro/kernels/ssd_scan.py:26", ssd_err,
+             mamba_launches["ssd_scan"]),
+            ("grouped_moe_ffn", "src/repro/kernels/moe_dispatch.py:80",
+             moe_check_err, moe_layer_launches["grouped_moe_ffn"])):
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": replaces,
-            "launches": split_launches[kname],
+            "launches": n,
             "max_abs_err": err,
             **split_timing[kname],
         })
+    log(f"[runs] chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

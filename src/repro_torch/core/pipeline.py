@@ -24,13 +24,15 @@ schedules tick for tick:
   gradient; with tied embeddings the head gradient adds to it.
 
 Each stage runs only its own layers, so uneven splits need no padding
-blocks. ``PipelineConfig.transport`` keeps the reference's two values:
-the reference's ``"overlap"`` issues a tick's hops before its compute and
-``"sync"`` after it, but both hand each buffer over exactly one tick
-after it was made, so in one process they are the same schedule.
+blocks. Every period-1 config runs (attention blocks with a dense MLP or
+an MoE, or Mamba blocks); as in the reference, the stage loss drops the
+MoE router's ``aux``. ``PipelineConfig.transport`` keeps the reference's
+two values: the reference's ``"overlap"`` issues a tick's hops before its
+compute and ``"sync"`` after it, but both hand each buffer over exactly
+one tick after it was made, so in one process they are the same schedule.
 Not in this slice (they raise ``NotImplementedError``): ``env_axis`` data
-parallelism, the union layout for mixed block kinds, pipelined serving
-(``pipeline_serve_fns``) and stage hops across cards.
+parallelism, the union layout for mixed block periods (Jamba), pipelined
+serving (``pipeline_serve_fns``) and stage hops across cards.
 """
 from __future__ import annotations
 
@@ -131,6 +133,19 @@ def stage_lengths(boundaries: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def _period_one(cfg: ModelConfig) -> None:
+    """Every layer has one block signature (attention with a dense MLP or
+    MoE, or Mamba); mixed periods need the union layout, not ported."""
+    period = M.find_period(M.signature(cfg))
+    if period > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: period-{period} block patterns need the union layout "
+            "(a per-slot switch), which is not ported; the executor runs "
+            "period-1 configs")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
+
+
 def _stage_ranges(cfg: ModelConfig, boundaries: Sequence[int],
                   env_axis) -> List[Tuple[int, int]]:
     """Checked ``[lo, hi)`` layer ranges of the stages."""
@@ -138,7 +153,7 @@ def _stage_ranges(cfg: ModelConfig, boundaries: Sequence[int],
         raise NotImplementedError(
             "env_axis (data parallelism across stage replicas) is not ported; "
             "the executor runs every stage in one process")
-    M._slot_signature(cfg)  # period-1 attention blocks only
+    _period_one(cfg)
     _check_boundaries(boundaries, num_layers=cfg.num_layers)
     bl = [int(b) for b in boundaries]
     return list(zip([0] + bl[:-1], bl))

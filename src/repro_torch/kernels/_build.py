@@ -17,8 +17,13 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
+
+# every hand-written kernel of the port, one source each
+KERNELS = ("ca_attention", "stage_mlp_block", "flash_attention", "ssd_scan",
+           "grouped_moe_ffn")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -78,6 +83,13 @@ def build(name: str) -> Path:
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stderr
     return out
+
+
+def build_all() -> List[Path]:
+    """Build every kernel of :data:`KERNELS`, one ``nvcc`` process per
+    source, all started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return list(pool.map(build, KERNELS))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,159 @@
+"""Mamba-2 SSD chunk recurrence (forward only), from a zero state.
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (``_kernel``,
+launched by ``ssd_scan``'s ``pallas_call``) with a CUDA C++ kernel for
+Hopper, ``csrc/ssd_scan.cu``, built with ``nvcc`` for ``sm_90a`` at first
+use and bound with :mod:`ctypes`.
+
+For each chunk of ``L`` steps, with ``da_cum`` the inclusive cumulative
+sum of ``dt * a`` inside the chunk, it computes
+
+    y_i = sum_{j<=i} (C_i . B_j) exp(da_cum_i - da_cum_j) dt_j x_j
+          + exp(da_cum_i) (C_i . h)
+    h  <- exp(da_cum_{L-1}) h + sum_l exp(da_cum_{L-1} - da_cum_l) dt_l x_l B_l^T
+
+and returns ``y`` and the final state ``h`` (f32), as the Pallas body
+does. Steps past ``S`` count as ``dt = 0``, ``x = 0`` (the reference's zero
+padding). What bounds the call on an H100 and how the design follows is
+written at the top of the CUDA source.
+
+* :func:`ssd_scan` is the wrapper. A CUDA tensor launches the kernel or
+  raises; only CPU tensors take the plain version. Every launch adds one
+  to :data:`launches`.
+* :func:`ssd_scan_ref` is the plain PyTorch version, the Pallas body's
+  arithmetic chunk by chunk. The CPU path and the tests use it.
+* There is no backward and no initial state, as the JAX kernel has
+  neither: the wrapper raises when a gradient would be required.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches since the last reset (a caller sets it to 0 to count a run)
+launches = 0
+
+# the kernel's tile limits: chunk rows, head_dim columns per block (larger
+# head_dim is split over blocks), state width
+MAX_CHUNK = 64
+P_TILE = 64
+MAX_STATE = 128
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load("ssd_scan")
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        _lib = lib
+    return _lib
+
+
+def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 64):
+    """Plain PyTorch version of the kernel (the Pallas body, batched over
+    batch rows and heads): x (B, S, H, P), dt (B, S, H), a (H,), b/c
+    (B, S, N) -> ``(y (B, S, H, P) in x's dtype, h_last (B, H, P, N) f32)``."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((bsz, pad, *t.shape[2:]))], dim=1)
+        return t.reshape(bsz, nc, chunk, *t.shape[2:])
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(b), chunks(c)
+    a = a.float()
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    hs = x.new_zeros((bsz, h, p, n), dtype=torch.float32)
+    ys = []
+    for z in range(nc):
+        xz, dtz, bz, cz = xc[:, z], dtc[:, z], bc[:, z], cc[:, z]
+        da_cum = torch.cumsum(dtz * a, dim=1)  # (B, L, H)
+        seg = da_cum[:, :, None, :] - da_cum[:, None, :, :]  # (B, i, j, H)
+        decay = torch.where(tril[None, :, :, None], torch.exp(seg),
+                            torch.zeros((), device=x.device))
+        scores = torch.einsum("bin,bjn->bij", cz, bz)[..., None] * decay
+        y_diag = torch.einsum("bijh,bjhp->bihp", scores * dtz[:, None, :, :], xz)
+        y_off = (torch.einsum("bin,bhpn->bihp", cz, hs)
+                 * torch.exp(da_cum)[..., None])
+        ys.append(y_diag + y_off)
+        w = torch.exp(da_cum[:, -1:, :] - da_cum) * dtz  # (B, L, H)
+        upd = torch.einsum("blhp,bln->bhpn", xz * w[..., None], bz)
+        hs = hs * torch.exp(da_cum[:, -1, :])[:, :, None, None] + upd
+    y = torch.stack(ys, dim=1).reshape(bsz, nc * chunk, h, p)[:, :s]
+    return y.to(x.dtype), hs
+
+
+def _check(x, dt, a, b, c, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3:
+        raise ValueError("ssd_scan takes x (B, S, H, P), dt (B, S, H), a (H,), "
+                         "b and c (B, S, N)")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b.shape) != (bsz, s, n) or tuple(c.shape) != (bsz, s, n)):
+        raise ValueError(
+            f"ssd_scan shapes disagree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+            f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def _launch(x, dt, a, b, c, chunk):
+    """Launch the CUDA kernel on the current stream (no fallback)."""
+    global launches
+    _check(x, dt, a, b, c, chunk)
+    dev = x.device
+    for t in (x, dt, a, b, c):
+        if t.device != dev or t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan kernel takes f32 tensors on {dev}; got "
+                            f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("ssd_scan kernel needs contiguous inputs")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if chunk > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"ssd_scan kernel takes chunk <= {MAX_CHUNK} and "
+                         f"d_state <= {MAX_STATE}; got chunk {chunk}, N {n}")
+    y = torch.empty_like(x)
+    h_last = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    if y.numel() == 0 or h_last.numel() == 0:
+        return y, h_last.zero_()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                                  b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                                  h_last.data_ptr(), bsz, s, h, p, n, chunk,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    launches += 1
+    return y, h_last
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 64):
+    """SSD chunk scan from a zero state: x (B, S, H, P), dt (B, S, H),
+    a (H,), b/c (B, S, N), f32 on the card. Returns ``(y, h_last)``.
+    Raises if a gradient would be required (the JAX kernel has no VJP)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        raise RuntimeError("ssd_scan has no backward (as the JAX kernel has no "
+                           "VJP); call it under torch.no_grad() or use "
+                           "ssd_chunked for training")
+    if x.device.type == "cuda":
+        return _launch(x, dt, a, b, c, chunk)
+    if x.device.type == "cpu":
+        _check(x, dt, a, b, c, chunk)
+        return ssd_scan_ref(x, dt, a, b, c, chunk=chunk)
+    raise TypeError(f"ssd_scan runs on cuda or cpu tensors, got {x.device}")

@@ -4,12 +4,21 @@
    chosen architecture's full-depth layer profile;
 2. roll out the learned policy -> a split plan (boundaries + devices);
 3. execute that plan, rescaled to the executed depth, as 1F1B pipelined
-   training of the model (every stage on this card, stage MLP halves
-   through the hand-written stage kernel by default);
+   training of the model (every stage on this card; dense MLP halves
+   through the hand-written stage kernel, Mamba halves through
+   ``ssd_chunked``, MoE halves through the dropless reference route);
 4. evaluate the trained model's loss on held-out tokens (attention
-   through the hand-written flash-attention kernel by default).
+   through the hand-written flash-attention kernel, Mamba scans through
+   the hand-written SSD scan kernel).
 
     PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl --arch qwen2.5-3b
+    PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl \
+        --arch mamba2-370m --depth 48
+    PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl \
+        --arch qwen3-moe-30b-a3b --depth 2 --stages 2
+
+Every period-1 arch of the zoo runs (attention with a dense MLP or an
+MoE, or Mamba); hybrids (Jamba) and modality frontends raise.
 
 Counterpart of the JAX package's ``examples/train_mhsl_rl.py``, with its
 arguments plus ``--reduced`` (the arch's tiny ``reduced()`` widths, for
@@ -41,18 +50,33 @@ from repro_torch.core.env import MHSLEnv
 from repro_torch.core.pipeline import PipelineConfig, pipeline_step_fn
 from repro_torch.core.profiles import transformer_profile
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ca_attention, flash_attention, moe_dispatch
+from repro_torch.kernels import ssd_scan, stage_block
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import adamw, apply_updates
 
 # episodes of random-policy rollouts before SAC updates start (the
 # example's value)
 WARMUP_EPISODES = 10
-# stage MLP halves through the stage kernel, held-out attention through the
-# flash kernel, bf16 compute over f32 master weights, AdamW at 3e-4
+# stage dense MLP halves through the stage kernel; the held-out loss's
+# attention through the flash kernel and its Mamba scans through the SSD
+# scan kernel; bf16 compute over f32 master weights, AdamW at 3e-4
 STAGE_IMPL = "pallas"
 EVAL_IMPL = "pallas"
 COMPUTE_DTYPE = "bfloat16"
 LR = 3e-4
+
+# the five kernel wrappers' modules, by kernel name
+KERNEL_MODULES = {"ca_attention": ca_attention,
+                  "stage_mlp_block": stage_block,
+                  "flash_attention": flash_attention,
+                  "ssd_scan": ssd_scan,
+                  "grouped_moe_ffn": moe_dispatch}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each kernel wrapper's launch count, by kernel name."""
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
 
 
 def rollout_plan(env: MHSLEnv, params, cfg: SACConfig, gen: torch.Generator):
@@ -148,10 +172,12 @@ def parse_args(argv=None):
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run plan -> pipelined training -> held-out loss; print progress and
     return what was measured (plan, per-step losses and seconds, the eval
-    loss and its seconds) and what was built (the executed config, the
-    trained params, optimizer and its state, the eval batch)."""
+    loss and its seconds, each kernel's launches in this run) and what was
+    built (the executed config, the trained params, optimizer and its
+    state, the eval batch)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    launches0 = kernel_launches()
 
     # 1) RL controller on the FULL architecture's layer profile
     prof = transformer_profile(get_config(args.arch), batch=1, seq=128)
@@ -216,9 +242,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     eval_loss = float(eval_loss)  # waits for the call
     eval_seconds = time.perf_counter() - t0
     print(f"[4/4] held-out loss ({args.eval_batch}x{args.eval_seq} tokens, "
-          f"attention impl {EVAL_IMPL!r}): {eval_loss:.4f} "
+          f"block impl {EVAL_IMPL!r}): {eval_loss:.4f} "
           f"({eval_seconds:.3f} s)", flush=True)
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    print(f"      kernel launches in this run: {launches}", flush=True)
     return {"plan_full": boundaries_full, "devices": devices,
+            "launches": launches,
             "boundaries": boundaries, "losses": losses,
             "step_seconds": seconds, "eval_loss": eval_loss,
             "eval_seconds": eval_seconds, "cfg": cfg, "params": params,

@@ -1,11 +1,12 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention, MLPs.
+"""Core transformer layers: RMSNorm, RoPE, GQA attention, MLPs, MoE.
 
 Port of ``repro.models.layers``, cache-free paths only. Everything is
 functional: ``init_*`` returns a dict of tensors, the ``*_apply``-style
 functions consume it. Activations run in their own dtype (bf16 in
-production) with f32 norm, rope and softmax arithmetic, and every
-rounding point sits where the reference puts it. Cached decode,
-``flash_decode`` and MoE come with the serving and SSM/MoE slices.
+production) with f32 norm, rope, softmax and router arithmetic, and
+every rounding point sits where the reference puts it. Cached decode and
+``flash_decode`` come with the serving slice; the all-to-all MoE across
+cards (``moe_a2a``) with the multi-card work.
 """
 from __future__ import annotations
 
@@ -277,3 +278,230 @@ def mlp_block(norm_w: Tensor, params, x: Tensor, activation: str,
     computes the same function with fewer roundings; its backward is
     autograd of THIS function, as the JAX kernel's custom VJP is."""
     return x + mlp_apply(params, rms_norm(x, norm_w, eps), activation)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing; capacity, dense-reference and dropless dispatch)
+# ---------------------------------------------------------------------------
+
+DROPLESS_IMPLS = ("reference", "pallas")
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             device: DeviceLike = None):
+    """``router`` (D, E) in f32; expert stacks ``w_up``/``w_gate`` (E, D, F)
+    and ``w_down`` (E, F, D) in ``dtype`` (``w_gate`` for swiglu only)."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.expert_d_ff, m.num_experts
+    dev = resolve_device(device)
+
+    def stack(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / math.sqrt(fan_in)).to(dtype)
+
+    p = {"router": init_dense(gen, d, e, torch.float32, device=dev),
+         "w_up": stack((e, d, f), d),
+         "w_down": stack((e, f, d), f)}
+    if cfg.activation == "swiglu":
+        p["w_gate"] = stack((e, d, f), d)
+    return p
+
+
+def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    c = int(math.ceil(tokens_per_group * m.top_k * m.capacity_factor
+                      / m.num_experts))
+    return max(c, 1)
+
+
+def _router_probs(params, xt: Tensor) -> Tensor:
+    """Softmax of the f32 router logits over the experts."""
+    return torch.softmax(xt.float() @ params["router"].float(), dim=-1)
+
+
+def _topk_gates(probs: Tensor, k: int):
+    """Top-k experts (descending, as ``lax.top_k``) and their gates
+    renormalized to sum to one."""
+    gates, ids = torch.topk(probs, k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, ids
+
+
+def _load_balance_aux(probs: Tensor, ids: Tensor, cfg: ModelConfig) -> Tensor:
+    """Switch load-balance loss ``E * sum_e f_e P_e * weight``, with f_e
+    the share of tokens whose first choice is e; means over every axis
+    but the experts'."""
+    e = cfg.moe.num_experts
+    dims = tuple(range(probs.dim() - 1))
+    f_e = torch.mean(F.one_hot(ids[..., 0], e).float(), dim=dims)
+    p_e = torch.mean(probs, dim=dims)
+    return e * torch.sum(f_e * p_e) * cfg.moe.router_aux_weight
+
+
+def expert_ffn(x: Tensor, w_gate, w_up: Tensor, w_down: Tensor,
+               activation: str) -> Tensor:
+    """An expert's FFN over rows ``x`` (batched over leading dims of both).
+    Each product is taken in f32 on the operands rounded to ``x.dtype``
+    and rounded back, the reference's ``preferred_element_type=f32``; the
+    activation runs in ``x.dtype``."""
+    dt = x.dtype
+
+    def mm(a, w):
+        return (a.float() @ w.to(dt).float()).to(dt)
+
+    u = mm(x, w_up)
+    h = F.silu(mm(x, w_gate)) * u if activation == "swiglu" else \
+        activation_fn(activation)(u)
+    return mm(h, w_down)
+
+
+def moe_apply(params, x: Tensor, cfg: ModelConfig):
+    """Capacity-bounded MoE, x (B, S, D) -> ``(y, aux)``. Dispatch by
+    scatter-add into an (E, C, D) buffer per group (= batch row); choices
+    past an expert's capacity are dropped."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    c = moe_capacity(s, cfg)
+    dt = x.dtype
+
+    probs = _router_probs(params, x)
+    gate_vals, expert_ids = _topk_gates(probs, k)  # (B, S, k)
+
+    # position of each (token, choice) within its expert, per group
+    flat = expert_ids.reshape(b, s * k)  # token-major
+    onehot = F.one_hot(flat, e)  # (B, S*k, E)
+    pos = torch.cumsum(onehot, dim=1) - 1
+    pos_in_expert = torch.gather(pos, 2, flat[..., None])[..., 0].reshape(b, s, k)
+    keep = pos_in_expert < c
+    slot = expert_ids * c + torch.clamp(pos_in_expert, max=c - 1)  # (B, S, k)
+
+    # k separate scatters into the flattened (B * E * C, D) buffer
+    group = (torch.arange(b, device=x.device) * (e * c))[:, None]
+    buf = x.new_zeros((b * e * c, d))
+    for j in range(k):
+        src = x * keep[:, :, j:j + 1].to(dt)
+        buf = buf.index_add(0, (slot[:, :, j] + group).reshape(-1),
+                            src.reshape(-1, d))
+    buf = buf.reshape(b, e, c, d)
+
+    if cfg.activation == "swiglu":
+        g = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt))
+        u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+        hcurr = F.silu(g) * u
+    else:
+        u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+        hcurr = activation_fn(cfg.activation)(u)
+    out = torch.einsum("becf,efd->becd", hcurr, params["w_down"].to(dt))
+    out = out.reshape(b, e * c, d)
+
+    got = out[torch.arange(b, device=x.device)[:, None],
+              slot.reshape(b, s * k)].reshape(b, s, k, d)
+    w = (gate_vals * keep).to(dt)
+    y = torch.einsum("bskd,bsk->bsd", got, w)
+    return y, _load_balance_aux(probs, expert_ids, cfg)
+
+
+def _moe_route(params, xt: Tensor, cfg: ModelConfig):
+    """Token routing shared by the dropless and dense-reference paths:
+    xt (T, D) -> ``(gates (T, k) f32, expert_ids (T, k), aux)``."""
+    probs = _router_probs(params, xt)
+    gates, ids = _topk_gates(probs, cfg.moe.top_k)
+    return gates, ids, _load_balance_aux(probs, ids, cfg)
+
+
+def _moe_combine(out_choices: Tensor, gates: Tensor, dtype) -> Tensor:
+    """(T, k, D) per-choice expert outputs and (T, k) gates -> (T, D),
+    through one einsum on both the dropless and the dense side."""
+    return torch.einsum("tkd,tk->td", out_choices, gates.to(dtype))
+
+
+def moe_apply_dense(params, x: Tensor, cfg: ModelConfig):
+    """Dense per-expert reference: every expert's FFN over every token,
+    then the routed outputs are picked and combined. O(T * E) rows: the
+    ground truth the dropless dispatch is held to, never a production
+    path."""
+    b, s, d = x.shape
+    e = cfg.moe.num_experts
+    xt = x.reshape(b * s, d)
+    gates, ids, aux = _moe_route(params, xt, cfg)
+    stacked = torch.stack([
+        expert_ffn(xt, params["w_gate"][j] if "w_gate" in params else None,
+                   params["w_up"][j], params["w_down"][j], cfg.activation)
+        for j in range(e)])  # (E, T, D)
+    got = stacked[ids, torch.arange(b * s, device=x.device)[:, None]]
+    y = _moe_combine(got, gates, x.dtype)
+    return y.reshape(b, s, d), aux
+
+
+def dropless_layout(expert_ids: Tensor, num_experts: int, block_size: int):
+    """The dropless dispatch's padded layout for (T, k) routed choices.
+
+    The T*k flat choices are stably sorted by expert and packed into
+    per-expert regions padded to ``block_size`` rows, within the static
+    bound ``ceil((T*k + E*(block_size-1)) / block_size) * block_size``.
+    Returns ``(order, dest, p_rows, block_eid)``: the sort permutation,
+    each sorted choice's buffer row, the buffer's row count and the
+    owning expert of every block (int32; trailing empty blocks name the
+    last expert)."""
+    t, k = expert_ids.shape
+    e, blk = num_experts, block_size
+    dev = expert_ids.device
+    flat = expert_ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)  # ties keep token order
+    sorted_eids = flat[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
+        0, flat, torch.ones_like(flat))
+    padded = ((counts + blk - 1) // blk) * blk
+    ends = torch.cumsum(padded, dim=0)
+    starts = ends - padded
+    excl = torch.cumsum(counts, dim=0) - counts
+    pos_in_expert = torch.arange(t * k, device=dev) - excl[sorted_eids]
+    dest = starts[sorted_eids] + pos_in_expert  # unique rows
+    p_rows = -(-(t * k + e * (blk - 1)) // blk) * blk
+    block_eid = torch.clamp(
+        torch.searchsorted(ends, torch.arange(p_rows // blk, device=dev) * blk,
+                           right=True), max=e - 1).to(torch.int32)
+    return order, dest, p_rows, block_eid
+
+
+def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
+                       impl: str = "reference", block_size: int = 128):
+    """Dropless MoE dispatch: every routed (token, choice) is computed.
+
+    x (B, S, D) -> ``(y, aux)``. The choices are gathered into the
+    block-padded expert-sorted buffer of :func:`dropless_layout`, the
+    expert FFN runs over it block by block, and the outputs are gathered
+    back through the inverse permutation and combined with one einsum.
+    ``impl="reference"`` runs ``grouped_ffn_reference`` (a batched einsum
+    over gathered weights); ``impl="pallas"`` the hand-written grouped
+    kernel (:mod:`repro_torch.kernels.moe_dispatch`), whose activation
+    rounds once where the reference rounds per operation. Padding rows are
+    zero and never gathered back."""
+    from repro_torch.kernels.moe_dispatch import (
+        grouped_ffn_reference, grouped_moe_ffn,
+    )
+
+    if impl not in DROPLESS_IMPLS:
+        raise ValueError(f"unknown dropless impl {impl!r}; have {DROPLESS_IMPLS}")
+    m = cfg.moe
+    b, s, d = x.shape
+    k = m.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    gates, ids, aux = _moe_route(params, xt, cfg)
+    order, dest, p_rows, block_eid = dropless_layout(ids, m.num_experts,
+                                                     block_size)
+    pbuf = x.new_zeros((p_rows, d)).index_copy(0, dest, xt[order // k])
+    if impl == "reference":
+        out_p = grouped_ffn_reference(pbuf, block_eid, params.get("w_gate"),
+                                      params["w_up"], params["w_down"],
+                                      cfg.activation)
+    else:
+        out_p = grouped_moe_ffn(pbuf, block_eid, params,
+                                activation=cfg.activation)
+    out_sorted = out_p[dest]
+    inv = torch.argsort(order)  # flat choice -> sorted row
+    got = out_sorted[inv].reshape(t, k, d)
+    y = _moe_combine(got, gates, x.dtype)
+    return y.reshape(b, s, d), aux

@@ -1,13 +1,15 @@
 """Decoder LM assembly: embedding -> layer stack -> logits.
 
-Port of ``repro.models.model`` for attention blocks with a dense MLP
-(period-1 architectures). The param tree keeps the reference's layout,
-so weights carry over leaf for leaf: ``{"embed": (V, D), "final_norm":
-(D,), "slots": (block,), ["lm_head": (D, V)]}``, where ``block`` holds
-every layer's tensors stacked on a leading ``(L,)`` axis. The forward
-is a Python loop over the layers (the reference's ``lax.scan``).
-Hybrid SSM and MoE periods come with the SSM/MoE slice; caches with
-serving.
+Port of ``repro.models.model``, cache-free. The per-layer ``signature``
+(block kind A/M, MoE flag, MLP presence) is derived from the config and
+the layers are grouped into the smallest repeating period, as the
+reference groups them for its ``lax.scan``. The param tree keeps the
+reference's layout, so weights carry over leaf for leaf: ``{"embed":
+(V, D), "final_norm": (D,), "slots": (slot_0, ..., slot_{p-1}),
+["lm_head": (D, V)]}``, where slot ``i`` holds the tensors of layers
+``i, i + p, i + 2p, ...`` stacked on a leading axis. The forward is a
+Python loop over the layers. Modality frontends and caches (serving) are
+not ported and raise.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -52,19 +55,9 @@ def find_period(sig) -> int:
     return n
 
 
-def _slot_signature(cfg: ModelConfig):
-    """The one block signature of a period-1 attention/dense-MLP config;
-    anything else raises."""
-    sig = signature(cfg)
-    period = find_period(sig)
-    if period > 1 or sig[0][0] != "A" or sig[0][1]:
-        raise NotImplementedError(
-            f"{cfg.name}: only period-1 attention blocks with a dense MLP are "
-            f"ported (period {period}, first block {sig[0]}); SSM, hybrid and "
-            "MoE blocks come with the SSM/MoE slice")
+def _no_frontend(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
-    return sig[0]
 
 
 # ---------------------------------------------------------------------------
@@ -75,15 +68,19 @@ def _slot_signature(cfg: ModelConfig):
 def init_block(gen: torch.Generator, cfg: ModelConfig, slot_sig,
                dtype=torch.float32, device: DeviceLike = None):
     kind, is_moe, has_mlp = slot_sig
-    if kind != "A" or is_moe:
-        raise NotImplementedError("SSM and MoE blocks come with the SSM/MoE slice")
     dev = resolve_device(device)
     p: Dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
-    p["attn"] = L.init_attention(gen, cfg, dtype, device=dev)
+    if kind == "A":
+        p["attn"] = L.init_attention(gen, cfg, dtype, device=dev)
+    else:
+        p["mamba"] = S.init_mamba(gen, cfg, dtype, device=dev)
     if has_mlp:
         p["norm2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype,
-                              device=dev)
+        if is_moe:
+            p["moe"] = L.init_moe(gen, cfg, dtype, device=dev)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                  dtype, device=dev)
     return p
 
 
@@ -92,31 +89,43 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
     """One residual block. Returns ``(x, new_cache, aux)``.
 
     ``impl="pallas_stage"`` (the split executor's
-    ``PipelineConfig.stage_impl="pallas"``) routes the residual MLP
-    half-block through the hand-written stage kernel and leaves the
-    attention half on ``"auto"``; every other ``impl`` goes to
-    ``attention_apply`` and the MLP half takes ``mlp_block``."""
+    ``PipelineConfig.stage_impl="pallas"``) routes a dense MLP half-block
+    through the hand-written stage kernel and leaves the attention or
+    Mamba half on ``"auto"``; ``impl="pallas"`` takes the attention half
+    through the flash kernel and the Mamba half through the scan kernel.
+    An MoE half-block takes the config's dispatch whatever ``impl`` is:
+    ``moe_apply_dropless`` with its default route, or ``moe_apply``."""
     kind, is_moe, has_mlp = slot_sig
-    if kind != "A" or is_moe:
-        raise NotImplementedError("SSM and MoE blocks come with the SSM/MoE slice")
-    if cache is not None:
+    if cache is not None or cache_index is not None:
         raise NotImplementedError("cached blocks come with the serving slice")
     if impl not in BLOCK_IMPLS:
         raise ValueError(f"unknown block impl {impl!r}; have {BLOCK_IMPLS}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     half_impl = "auto" if impl == "pallas_stage" else impl
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, _ = L.attention_apply(p["attn"], h, cfg, positions=positions,
-                               impl=half_impl)
+    if kind == "A":
+        out, _ = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                                   impl=half_impl)
+    else:
+        out, _ = S.mamba_apply(p["mamba"], h, cfg,
+                               use_pallas=half_impl == "pallas")
     x = x + out
     if has_mlp:
-        if impl == "pallas_stage":
+        if is_moe:
+            h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+            if cfg.moe.dispatch == "dropless":
+                y, aux = L.moe_apply_dropless(p["moe"], h2, cfg)
+            else:
+                y, aux = L.moe_apply(p["moe"], h2, cfg)
+            x = x + y
+        elif impl == "pallas_stage":
             from repro_torch.kernels.stage_block import stage_mlp_block
 
             x = stage_mlp_block(p["norm2"], p["mlp"], x,
                                 activation=cfg.activation, eps=cfg.norm_eps)
         else:
             x = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps)
-    return x, {}, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {}, aux
 
 
 # ---------------------------------------------------------------------------
@@ -127,18 +136,25 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 device: DeviceLike = None):
     """Random weights from ``gen`` (a generator on ``device``), in the
-    reference's layout with the layers stacked on a leading axis."""
-    slot_sig = _slot_signature(cfg)
+    reference's layout: one slot per position in the period, each with
+    its layers stacked on a leading axis."""
+    _no_frontend(cfg)
+    sig = signature(cfg)
+    period = find_period(sig)
+    repeats = cfg.num_layers // period
     dev = resolve_device(device)
-    blocks = [init_block(gen, cfg, slot_sig, dtype, device=dev)
-              for _ in range(cfg.num_layers)]
+    slots = []
+    for si in range(period):
+        blocks = [init_block(gen, cfg, sig[si], dtype, device=dev)
+                  for _ in range(repeats)]
+        slots.append(tree_map(lambda *xs: torch.stack(xs), blocks[0], *blocks[1:]))
+        del blocks
     params = {
         "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                               device=dev) * 0.02).to(dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "slots": (tree_map(lambda *xs: torch.stack(xs), blocks[0], *blocks[1:]),),
+        "slots": tuple(slots),
     }
-    del blocks
     if not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                          generator=gen, device=dev)
@@ -147,7 +163,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def layer_params(slot, i: int):
-    """Layer ``i``'s block params: views into the stacked slot."""
+    """Repeat ``i``'s block params: views into the stacked slot."""
     return tree_map(lambda a: a[i], slot)
 
 
@@ -159,32 +175,37 @@ def layer_params(slot, i: int):
 def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
             cache_index=None, frontend_feats=None, impl: str = "auto",
             remat: bool = False, compute_dtype=torch.bfloat16):
-    """tokens: (B, S) int. Returns ``(logits, None, aux)``.
+    """tokens: (B, S) int. Returns ``(logits, None, aux)``, ``aux`` the sum
+    of the MoE blocks' router losses.
 
-    ``remat`` recomputes each block in the backward pass
+    ``remat`` recomputes each period of blocks in the backward pass
     (``torch.utils.checkpoint``); the value is the same either way."""
     if caches is not None or cache_index is not None:
         raise NotImplementedError("cached forward comes with the serving slice")
     if frontend_feats is not None:
         raise NotImplementedError("modality frontends are not ported")
-    slot_sig = _slot_signature(cfg)
+    _no_frontend(cfg)
+    sig = signature(cfg)
+    period = find_period(sig)
     x = params["embed"].to(compute_dtype)[tokens]
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    slot = params["slots"][0]
 
-    def run(blk, xact):
-        return block_apply(blk, xact, cfg, slot_sig, positions=positions,
-                           impl=impl)[0]
+    def run(blocks, xact, aux):
+        for si in range(period):
+            xact, _, a = block_apply(blocks[si], xact, cfg, sig[si],
+                                     positions=positions, impl=impl)
+            aux = aux + a
+        return xact, aux
 
-    for i in range(cfg.num_layers):
-        blk = layer_params(slot, i)
+    for r in range(cfg.num_layers // period):
+        blocks = [layer_params(slot, r) for slot in params["slots"]]
         if remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(run, blk, x, use_reentrant=False)
+            x, aux = checkpoint(run, blocks, x, aux, use_reentrant=False)
         else:
-            x = run(blk, x)
+            x, aux = run(blocks, x, aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = x @ head.to(compute_dtype)

@@ -3,7 +3,11 @@
 Both sides keep the same tree layout (nested dicts and lists, ``x @ w + b``
 with ``w`` of shape ``(d_in, d_out)``), so a conversion is a leafwise copy.
 The JAX side is handed over as numpy arrays (``jax.tree.map(np.asarray,
-tree)``); this module imports neither JAX nor the JAX package.
+tree)``); this module imports neither JAX nor the JAX package. Every
+leaf keeps its dtype: a bf16 model keeps its f32 leaves (a Mamba block's
+``a_log``, ``dt_bias`` and ``d_skip``, an MoE router) in f32. bf16 leaves
+come as numpy's ``bfloat16`` extension dtype and are carried exactly;
+numpy has no bf16 of its own, so the way back gives them as f32.
 """
 from __future__ import annotations
 
@@ -19,7 +23,14 @@ from repro_torch.tree import tree_map
 
 def _to_torch(x, dev):
     arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":  # exact: bf16 -> f32 -> bf16
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, torch.bfloat16)
     return torch.from_numpy(arr.copy()).to(dev)
+
+
+def _to_numpy(x):
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def sac_params_from_jax(np_tree: Any, device: DeviceLike = None):
@@ -30,7 +41,7 @@ def sac_params_from_jax(np_tree: Any, device: DeviceLike = None):
 
 def sac_params_to_numpy(params: Any):
     """The port's params -> numpy arrays in the same tree layout."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), params)
+    return tree_map(_to_numpy, params)
 
 
 def sac_opt_state_from_jax(np_tree: Any, device: DeviceLike = None):
@@ -58,14 +69,17 @@ def sac_opt_state_to_numpy(opt_state: Any):
 
 def model_params_from_jax(np_tree: Any, device: DeviceLike = None):
     """JAX model params (``repro.models.init_params`` layout, numpy leaves)
-    -> the port's params on ``device``: the same tree, leaf for leaf."""
+    -> the port's params on ``device``: the same tree, leaf for leaf, for
+    every block kind (attention, Mamba, dense MLP, MoE) and each slot of
+    the period."""
     dev = resolve_device(device)
     return tree_map(lambda x: _to_torch(x, dev), np_tree)
 
 
 def model_params_to_numpy(params: Any):
-    """The port's model params -> numpy arrays in the same tree layout."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), params)
+    """The port's model params -> numpy arrays in the same tree layout
+    (bf16 leaves as f32)."""
+    return tree_map(_to_numpy, params)
 
 
 def model_opt_state_from_jax(np_state: Any, device: DeviceLike = None):

@@ -186,3 +186,153 @@ def test_split_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         SB.stage_mlp_block(nw, {**p, "w_up": p["w_up"].t().contiguous().t()}, x,
                            activation="gelu")
+
+
+# ---------------------------------------------------------------------------
+# the SSM and MoE kernels
+# ---------------------------------------------------------------------------
+
+
+def _ssd_case(b, s, h, p, n, seed):
+    """SSD inputs as a Mamba block makes them: dt = softplus(N(0, 1)),
+    a = -linspace(1, 16, H) (``init_mamba``'s rates), x, b, c ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.standard_normal((b, s, h, p)).astype(f)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(f)
+    a = (-np.linspace(1.0, 16.0, h)).astype(f)
+    bm = rng.standard_normal((b, s, n)).astype(f)
+    cm = rng.standard_normal((b, s, n)).astype(f)
+    return [torch.from_numpy(t).cuda() for t in (x, dt, a, bm, cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (2, 256, 4, 64, 128, 64),   # Mamba2-370m head and state widths
+    (1, 200, 2, 64, 128, 64),   # ragged S: the last chunk has 8 rows
+    (1, 50, 3, 32, 16, 64),     # one partial chunk, reduced widths
+    (1, 96, 2, 96, 8, 32),      # P split over two blocks of columns
+])
+def test_ssd_scan_kernel_matches_plain_on_card(case):
+    """The hand-written kernel vs its plain version on the card, ``y`` and
+    ``h_last``, within ``1e-4`` of each one's largest entry (the in-chunk
+    cumulative decay reaches ~-800 at these rates, so its f32 rounding,
+    taken in another order, enters exp(); ``chip_smoke.SSD_REL``); one
+    launch counted per call; no backward."""
+    _card()
+    from repro_torch.kernels import ssd_scan as SK
+
+    *shape, chunk = case
+    x, dt, a, bm, cm = _ssd_case(*shape, seed=sum(case))
+    before = SK.launches
+    with torch.no_grad():
+        y, hl = SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        yr, hr = SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.launches == before + 1
+    for out, ref in ((y, yr), (hl, hr)):
+        ref = ref.cpu().numpy()
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max())
+    with pytest.raises(RuntimeError):
+        SK.ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=chunk)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_rejects_what_it_does_not_take():
+    _card()
+    from repro_torch.kernels import ssd_scan as SK
+
+    x, dt, a, bm, cm = _ssd_case(1, 64, 2, 16, 8, seed=0)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            SK.ssd_scan(x.double(), dt, a, bm, cm)
+        with pytest.raises(ValueError):
+            SK.ssd_scan(x, dt, a, bm, cm, chunk=128)
+        with pytest.raises(ValueError):
+            SK.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a,
+                        bm, cm)
+        big = torch.randn(1, 64, 256, device="cuda")
+        with pytest.raises(ValueError):
+            SK.ssd_scan(x, dt, a, big, big)
+
+
+def _grouped_case(activation, nb, blk, d, f, e, dtype, seed):
+    rng = np.random.default_rng(seed)
+    eid = torch.from_numpy(np.sort(rng.integers(0, e, nb)).astype(np.int32)).cuda()
+    buf = rng.standard_normal((nb * blk, d)).astype(np.float32)
+    buf.reshape(nb, blk, d)[:, blk // 2:] = 0.0  # padding rows
+    names = (("w_gate", (e, d, f)),) if activation == "swiglu" else ()
+    names += (("w_up", (e, d, f)), ("w_down", (e, f, d)))
+    params = {k: torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1]))
+                                  .astype(np.float32)).cuda() for k, s in names}
+    return torch.from_numpy(buf).to(dtype).cuda(), eid, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "gelu", "relu2", "silu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blk", [8, 32, 128])
+def test_grouped_moe_ffn_kernel_matches_plain_on_card(activation, dtype, blk):
+    """The hand-written kernel vs ``grouped_ffn_reference`` on the card
+    (D 256, F 384, 6 experts, f32 weights): f32 within ``1e-5`` of the
+    largest output, bf16 within 2^-6 of it (the kernel rounds the
+    activation once, the plain version per operation); padding rows
+    exactly zero. Gradients through the wrapper against autograd of the
+    plain version (the same backward code): ``1e-5`` of each leaf's
+    largest entry."""
+    _card()
+    from repro_torch.kernels import moe_dispatch as MD
+
+    dt = getattr(torch, dtype)
+    nb = max(2, 512 // blk)
+    buf, eid, params = _grouped_case(activation, nb, blk, 256, 384, 6, dt,
+                                     seed=blk + len(activation))
+    gy = torch.randn(buf.shape, device="cuda").to(dt)
+    names = sorted(params)
+
+    def grads(fn):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        b = buf.detach().requires_grad_(True)
+        out = fn(b, p)
+        return out, torch.autograd.grad(out, [b] + [p[k] for k in names], gy)
+
+    before = MD.launches
+    out, gk = grads(lambda b, p: MD.grouped_moe_ffn(b, eid, p, activation=activation))
+    torch.cuda.synchronize()
+    assert MD.launches == before + 1
+    _, gr = grads(lambda b, p: MD.grouped_ffn_reference(
+        b, eid, p.get("w_gate"), p["w_up"], p["w_down"], activation))
+    with torch.no_grad():
+        ref = MD.grouped_ffn_reference(buf, eid, params.get("w_gate"),
+                                       params["w_up"], params["w_down"], activation)
+    ref = ref.float().cpu().numpy()
+    top = np.abs(ref).max()
+    assert out.dtype == dt
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(), ref, rtol=0,
+                               atol=(1e-5 if dtype == "float32" else 2.0 ** -6) * top)
+    assert float(out.detach().reshape(nb, blk, -1)[:, blk // 2:].abs().max()) == 0.0
+    for a, r in zip(gk, gr):
+        r = r.float().cpu().numpy()
+        np.testing.assert_allclose(a.float().cpu().numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.gpu
+def test_grouped_moe_ffn_kernel_rejects_what_it_does_not_take():
+    _card()
+    from repro_torch.kernels import moe_dispatch as MD
+
+    buf, eid, params = _grouped_case("swiglu", 4, 8, 64, 96, 3, torch.float32, 0)
+    with torch.no_grad():
+        with pytest.raises(ValueError):  # blocks of 12 rows: no row tile
+            MD.grouped_moe_ffn(buf[:24], eid[:2], params, activation="swiglu")
+        with pytest.raises(TypeError):
+            MD.grouped_moe_ffn(buf, eid.long(), params, activation="swiglu")
+        with pytest.raises(TypeError):
+            MD.grouped_moe_ffn(buf.half(), eid, {k: v.bfloat16() for k, v in
+                                                 params.items()}, activation="swiglu")
+        with pytest.raises(ValueError):
+            MD.grouped_moe_ffn(buf.t().contiguous().t(), eid, params,
+                               activation="swiglu")

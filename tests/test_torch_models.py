@@ -346,10 +346,21 @@ def test_bf16_loss_fn_matches_jax_default():
 
 
 def test_model_refuses_unported_blocks():
-    for arch in ("jamba-v0.1-52b", "mamba2-370m", "qwen3-moe-30b-a3b"):
+    """Every block kind is ported (attention, Mamba, dense MLP, MoE, and
+    hybrid periods); what is not (modality frontends, caches) raises."""
+    for arch in ("pixtral-12b", "musicgen-large"):
         with pytest.raises(NotImplementedError):
             TM.init_params(torch.Generator().manual_seed(0),
                            TC.get_config(arch).reduced(), device="cpu")
+    cfg = TC.get_config("qwen2.5-3b").reduced()
+    tp = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError):
+        TM.forward(tp, tok, cfg, caches=())
+    with pytest.raises(NotImplementedError):
+        TM.block_apply(TM.layer_params(tp["slots"][0], 0),
+                       torch.zeros((1, 4, cfg.d_model)), cfg, TM.signature(cfg)[0],
+                       positions=torch.arange(4), cache={})
 
 
 def test_init_params_has_the_reference_layout():
