@@ -13,10 +13,13 @@ Phases (each raises on failure; any failure exits non-zero):
 2. build: every hand-written kernel (``ca_attention``,
    ``stage_mlp_block``, ``flash_attention``, ``ssd_scan``,
    ``grouped_moe_ffn``), compiled from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (one process per source, all started together);
+   with ``nvcc`` (one process per source, all started together); where
+   ``cuobjdump`` is found, the HGMMA (``wgmma``) instructions of each
+   tensor-core kernel are counted and a kernel with none fails;
 3. each kernel against its plain PyTorch version on the card, at its
    paths' shapes and at ragged and other-arch shapes, forward (and
-   backward through autograd where the kernel has one), f32 and bf16;
+   backward through autograd where the kernel has one), f32 and bf16
+   (and f16 for the two kernels with a tensor-core body);
 4. the SAC slice: ``train_sac`` through two updating chunks and
    ``evaluate_sac`` at the repo's SAC configuration on the ResNet-101
    MHSL env, with the launch counter reset just before and read just
@@ -27,8 +30,10 @@ Phases (each raises on failure; any failure exits non-zero):
    ``stage_mlp_block``) and a held-out loss (attention through
    ``flash_attention``), every counter reset just before and read just
    after; the flash kernel against its plain version on the q, k, v of
-   every attention call of one held-out loss call; then one f32
-   pipelined step at depth 2 against ``make_train_step``;
+   every attention call of one held-out loss call; traces of one step
+   (the stage calls on the tensor-core GEMMs, no FMA grid) and of one
+   held-out call (the 8 attention calls on ``flash_fwd_tc``); then one
+   f32 pipelined step at depth 2 against ``make_train_step``;
 4c. (A) Mamba2-370m through the launcher at full width and full depth
    (48 layers): plan, 1F1B training through ``ssd_chunked``, and a
    held-out loss whose 48 scans run on ``ssd_scan``; the kernel against
@@ -130,10 +135,79 @@ def phase_build():
     for name, path in zip(_build.KERNELS, paths):
         log(f"[build] {name}: {_build.BUILD_SECONDS.get(name, 0.0):.2f} s "
             f"nvcc -> {path.relative_to(ROOT)}")
+        entry = None
         for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else None
+            elif "registers" in line or "spill" in line:
+                log(f"[build]   {entry}: {line.strip()}")
     log(f"[build] all kernels built in {wall:.2f} s")
+    _count_hgmma(dict(zip(_build.KERNELS, paths)))
+    _log_tc_smem()
+
+
+def _log_tc_smem():
+    """Dynamic shared memory of the tensor-core bodies, as they launch."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+
+    flib, slib = FA._library(), SB._library()
+    log("[build] flash_fwd_tc dynamic shared memory: " + ", ".join(
+        f"hd {hd} {flib.flash_attention_wgmma_smem(hd)} B" for hd in (16, 32, 64, 128)))
+    names = {0: "f32", 1: "f16", 2: "bf16"}
+    log("[build] gemm_tc dynamic shared memory: " + ", ".join(
+        f"x {names[x]} w {names[w]} {slib.stage_mlp_block_wgmma_smem(x, w)} B"
+        for x in (2, 1) for w in (0, 1, 2)))
+
+
+# the tensor-core kernels (substrings of their mangled names) by library
+TC_KERNELS = {"flash_attention": ("flash_fwd_tc",),
+              "stage_mlp_block": ("gemm_tc",)}
+
+
+def _cuobjdump():
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path("/usr/local/cuda/bin/cuobjdump")]
+    try:
+        import triton
+
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+                     / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(c) for c in cands if c.is_file()), None)
+
+
+def _count_hgmma(paths):
+    """HGMMA instructions in each tensor-core kernel's SASS (cuobjdump),
+    so that a body that compiled without wgmma cannot pass unseen."""
+    tool = _cuobjdump()
+    if tool is None:
+        log("[build] cuobjdump not found (PATH, /usr/local/cuda/bin, triton's "
+            "backends/nvidia/bin): HGMMA counts not taken")
+        return
+    for lib, subs in TC_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(paths[lib])], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ", 1)[1].strip()
+                if any(s in fn for s in subs):
+                    counts[fn] = 0
+                else:
+                    fn = None
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+        if not counts or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: tensor-core kernels without HGMMA: "
+                                 f"{[f for f, n in counts.items() if n == 0] or subs}")
+        for fn, n in sorted(counts.items()):
+            log(f"[build] {lib}: {n:4d} HGMMA in {fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -502,11 +576,14 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 # (label, (B, S), D, F, activation, x dtype); weights are f32 master
 # weights, as on the split executor's path. The first case is the main
-# path's call (a 2x256-token microbatch of Qwen2.5-3B).
+# path's call (a 2x256-token microbatch of Qwen2.5-3B). f16 and bf16 take
+# the tensor-core body, f32 the FMA body.
 STAGE_CASES = [
     ("qwen2.5-3b", (2, 256), 2048, 11008, "swiglu", "bfloat16"),
     ("qwen2.5-3b", (2, 256), 2048, 11008, "swiglu", "float32"),
+    ("qwen2.5-3b", (2, 256), 2048, 11008, "swiglu", "float16"),
     ("minitron-4b ragged", (1, 130), 3072, 9216, "relu2", "bfloat16"),
+    ("minitron-4b ragged", (1, 130), 3072, 9216, "relu2", "float16"),
     ("gelu", (1, 37), 256, 512, "gelu", "float32"),
     ("gelu", (1, 37), 256, 512, "gelu", "bfloat16"),
     ("silu", (1, 37), 256, 512, "silu", "float32"),
@@ -515,15 +592,17 @@ STAGE_CASES = [
 # stated tolerances, forward: f32 max|err| <= 1e-4 (f32 sums of up to
 # 11008 terms taken in another order than cuBLAS's); bf16 max|err| <=
 # 2^-6 max|ref|, two bf16 ulps at the largest output (a reordered f32 sum
-# can land on the other side of a bf16 rounding of h, hc or the output).
+# can land on the other side of a bf16 rounding of h, hc or the output);
+# f16 max|err| <= 2^-9 max|ref|, the same two ulps of f16's 3 more bits.
 # Backward: the wrapper's backward is autograd of mlp_block, the same code
 # the plain route differentiates, so max|err| <= 1e-5 max|ref| per leaf.
 STAGE_FWD_F32_ATOL = 1e-4
-STAGE_FWD_BF16_REL = 2.0 ** -6
+STAGE_FWD_REL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
 STAGE_BWD_REL = 1e-5
 
-# (label, B, Sq, Skv, H, KH, hd, window, q_offset); each in f32 and bf16.
-# The first case has the shapes of the held-out evaluation's calls.
+# (label, B, Sq, Skv, H, KH, hd, window, q_offset); each in f32 (FMA
+# body), bf16 and f16 (tensor-core body). The first case has the shapes
+# of the held-out evaluation's calls.
 FLASH_CASES = [
     ("qwen2.5-3b", 8, 1024, 1024, 16, 2, 128, None, 0),
     ("ragged S=200", 2, 200, 200, 16, 2, 128, None, 0),
@@ -532,8 +611,11 @@ FLASH_CASES = [
     ("stablelm-1.6b MHA hd=64", 2, 512, 512, 32, 32, 64, None, 0),
 ]
 # forward max|err|: f32 1e-5, bf16 2e-2 (one bf16 ulp of outputs below
-# 4), as the CPU parity tests hold the plain version to the JAX kernel
-FLASH_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# 4), as the CPU parity tests hold the plain version to the JAX kernel;
+# f16 4e-3 (two f16 ulps of outputs below 4). The tensor-core body feeds
+# the probabilities to p @ v as two terms in the input dtype, which keeps
+# it to the f32 sums' order, inside these gates.
+FLASH_ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3}
 
 
 def _stage_inputs(torch, rows, d, f, activation, dtype, seed):
@@ -571,7 +653,7 @@ def phase_stage_checks(torch):
             raise AssertionError(f"non-finite stage_mlp_block output ({label})")
         err = float((out.float() - ref.float()).abs().max())
         top = float(ref.float().abs().max())
-        lim = STAGE_FWD_F32_ATOL if dn == "float32" else STAGE_FWD_BF16_REL * top
+        lim = STAGE_FWD_F32_ATOL if dn == "float32" else STAGE_FWD_REL[dn] * top
         if err > lim:
             raise AssertionError(f"stage_mlp_block fwd {label} {dn}: {err} > {lim}")
         if n == 0:
@@ -620,7 +702,7 @@ def phase_flash_checks(torch):
         q32 = torch.randn(b, sq, h, hd, generator=g, device="cuda")
         k32 = torch.randn(b, skv, kh, hd, generator=g, device="cuda")
         v32 = torch.randn(b, skv, kh, hd, generator=g, device="cuda")
-        for dn in ("float32", "bfloat16"):
+        for dn in ("float32", "bfloat16", "float16"):
             dtype = getattr(torch, dn)
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             with torch.no_grad():
@@ -658,8 +740,9 @@ SPLIT_ARGV = ["--arch", "qwen2.5-3b", "--episodes", "24", "--num-envs", "8",
 # held-out loss through the flash kernel vs impl="dense" on the same
 # tokens, a secondary check (the kernel is held to its plain version on
 # the eval call's own q, k, v): bf16 compute, and dense rounds the softmax
-# weights to bf16 where the kernel does not; |difference| <= 1e-4 nats,
-# about 8x the 1.3e-5 read on an H100 80GB HBM3 at 700 W
+# weights to bf16 where the kernel carries them as two bf16 terms;
+# |difference| <= 1e-4 nats, about 7x the 1.3e-5 to 1.5e-5 read on an
+# H100 80GB HBM3 at 700 W
 EVAL_ATOL = 1e-4
 # f32 depth-2 pipelined step vs make_train_step on the card: loss rtol
 # 1e-5; gradients max|err| <= 1e-4 max|ref| per leaf (f32 sums over up
@@ -699,8 +782,13 @@ def phase_split(torch, card):
         raise AssertionError(f"held-out loss pallas {res['eval_loss']} vs dense "
                              f"{dense}: |diff| {gap} > {EVAL_ATOL}")
 
+    # bf16 stage calls take the tensor-core body: its GEMMs and no FMA grid
     _step_trace(torch, card, res, args, "split",
-                must_see=("rms_norm_rows", "up_act", "down_residual"))
+                must_see=("rms_norm_rows", "gemm_tc", "split_k_sum"),
+                must_not_see=("up_act", "down_residual"))
+    # the held-out call's 8 attention calls on the tensor-core body
+    _eval_trace(torch, card, res, "split", "flash_fwd_tc",
+                count=cfg.num_layers, must_not_see=("flash_fwd<",))
 
     secs, losses = res["step_seconds"], res["losses"]
     med = statistics.median(secs[1:])
@@ -844,11 +932,12 @@ def _log_kernels(torch, prof, label, n=8):
     return kern
 
 
-def _step_trace(torch, card, res, args, label, must_see=()):
+def _step_trace(torch, card, res, args, label, must_see=(), must_not_see=()):
     """A torch.profiler trace of one pipelined train step (pipeline and
     AdamW) on the trained state: device busy share, kernels per step and
-    the share of the kernels named in ``must_see`` (which must appear).
-    Launches here do not count for the main path."""
+    the share of the kernels named in ``must_see`` (each must appear;
+    none named in ``must_not_see`` may). Launches here do not count for
+    the main path."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train_mhsl_rl as RUN
@@ -873,10 +962,12 @@ def _step_trace(torch, card, res, args, label, must_see=()):
     dev_us = sum(e.self_device_time_total for e in kern)
     seen_us = sum(e.self_device_time_total for e in kern
                   if any(n in e.key for n in must_see))
-    if dev_us == 0 or (must_see and seen_us == 0):
-        raise AssertionError(f"the profiler saw {dev_us} us of device time, "
-                             f"{seen_us} us of it in {must_see}, in the "
-                             f"pipelined step")
+    missing = [n for n in must_see if not any(n in e.key for e in kern)]
+    banned = sorted({e.key for e in kern if any(n in e.key for n in must_not_see)})
+    if dev_us == 0 or missing or banned:
+        raise AssertionError(f"the profiler saw {dev_us} us of device time in "
+                             f"the pipelined step; missing {missing}, present "
+                             f"but not allowed {banned}")
     named = (f"; {'/'.join(must_see)} {seen_us / 1e3:.3f} ms "
              f"({seen_us / dev_us:.3f} of device time)" if must_see else "")
     log(f"[trace] {label}: one pipelined train step (profiled, loss "
@@ -1009,9 +1100,10 @@ def phase_split_timing(torch, card):
     out["stage_mlp_block"] = dict(ms=t["kernel"], plain_ms=t["plain"],
                                   bound_ms=bound, bound_by=by, library_ms=None)
     log(f"[time] stage_mlp_block 512 rows D 2048 F 11008 swiglu, bf16 x, f32 "
-        f"weights, device (graph replay): kernel {t['kernel']:.6f} ms, plain "
-        f"{t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; {nbytes} B, "
-        f"{flops} FLOP at bf16 peak) [{card}]")
+        f"weights, device (graph replay): kernel {t['kernel']:.6f} ms "
+        f"({flops / t['kernel'] / 1e9:.1f} TFLOP/s, {bound / t['kernel']:.3f} of "
+        f"the bound), plain {t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; "
+        f"{nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
 
     g = torch.Generator(device="cuda").manual_seed(61)
     q = torch.randn(8, 1024, 16, 128, generator=g, device="cuda").bfloat16()
@@ -1042,9 +1134,12 @@ def phase_split_timing(torch, card):
                                   bound_ms=bound, bound_by=by,
                                   library_ms=t["library"])
     log(f"[time] flash_attention B 8 S 1024 H 16/2 hd 128 causal bf16, device "
-        f"(graph replay): kernel {t['kernel']:.6f} ms, plain {t['plain']:.6f} "
-        f"ms, SDPA {t['library']:.6f} ms (enable_gqa, max|diff| to plain {lib_err:.3e}); bound {bound:.6f} ms ({by}; "
-        f"{nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
+        f"(graph replay): kernel {t['kernel']:.6f} ms ({flops / t['kernel'] / 1e9:.1f} "
+        f"TFLOP/s, {bound / t['kernel']:.3f} of the bound, "
+        f"{t['kernel'] / t['library']:.2f}x SDPA), plain {t['plain']:.6f} ms, "
+        f"SDPA {t['library']:.6f} ms (enable_gqa, max|diff| to plain "
+        f"{lib_err:.3e}); bound {bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP "
+        f"at bf16 peak) [{card}]")
     SB.launches, FA.launches = saved
     return out
 
@@ -1382,10 +1477,12 @@ def _eval_ssd_check(torch, res):
     return worst
 
 
-def _eval_trace(torch, card, res, label, kernel):
+def _eval_trace(torch, card, res, label, kernel, count=None, must_not_see=()):
     """A torch.profiler trace of one held-out loss call: device busy share
-    and the named kernel's share of the device time. Launches here do not
-    count for the main path."""
+    and the named kernel's share of the device time; with ``count``, the
+    number of its launches must be that, and no kernel named in
+    ``must_not_see`` may run. Launches here do not count for the main
+    path."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
@@ -1402,14 +1499,18 @@ def _eval_trace(torch, card, res, label, kernel):
     kern = _log_kernels(torch, prof, f"{label} eval")
     dev_us = sum(e.self_device_time_total for e in kern)
     k_us = sum(e.self_device_time_total for e in kern if kernel in e.key)
-    if dev_us == 0 or k_us == 0:
+    k_n = sum(e.count for e in kern if kernel in e.key)
+    banned = sorted({e.key for e in kern if any(n in e.key for n in must_not_see)})
+    if dev_us == 0 or k_us == 0 or (count is not None and k_n != count) or banned:
         raise AssertionError(f"the profiler saw {dev_us} us of device time, "
-                             f"{k_us} us of it in {kernel}, in the held-out call")
+                             f"{k_us} us of it in {k_n} launches of {kernel} "
+                             f"(expected {count}), not allowed: {banned}, in the "
+                             f"held-out call")
     log(f"[trace] {label}: one held-out loss call (profiled): {host_s * 1e3:.3f} "
         f"ms host, {dev_us / 1e3:.3f} ms device busy, busy share "
         f"{dev_us / 1e6 / host_s:.3f}; {sum(e.count for e in kern)} kernels; "
-        f"{kernel} {k_us / 1e3:.3f} ms ({k_us / dev_us:.3f} of device time) "
-        f"[{card}]")
+        f"{kernel} {k_n}x, {k_us / 1e3:.3f} ms ({k_us / dev_us:.3f} of device "
+        f"time) [{card}]")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface (the
+tensor-core bodies include the shared ``csrc/hopper.cuh``) and is
 compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library that :mod:`ctypes` loads; no PyTorch headers are involved, so a
 build takes seconds. Libraries are keyed by a hash of their source and
@@ -51,8 +52,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.blake2b(src.read_bytes() + " ".join(NVCC_FLAGS).encode(),
+    """The library of ``csrc/<name>.cu``, keyed by its source, the shared
+    headers ``csrc/*.cuh`` and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.blake2b(text + " ".join(NVCC_FLAGS).encode(),
                              digest_size=8).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -25,24 +25,54 @@
 // The TPU kernel keeps the whole (D, F) weights in VMEM; on Hopper they
 // do not fit in a block's 227 KB, so the work is tiled over F and the
 // row tile's (rows, D) down-product accumulator is not kept on chip.
-// This first version is three simple launches on one stream:
-//   1. rms_norm_rows: one block per row, f32 statistics, writes h (R, D)
-//      in T (R*D*sizeof(T) bytes, 2 MB at the shape above);
+// Two bodies; the activation dtype picks one (a fixed route, not a
+// fallback). Both start with rms_norm_rows, one block per row, f32
+// statistics, writing h (R, D) in T (2 MB at the shape above).
+//
+// * f16 / bf16 activations: the tensor-core body, namespace tc. Two
+//   warp-specialised wgmma GEMMs, each CTA two consumer warpgroups of
+//   2 x 64 rows (256 rows a CTA) and one producer warp that keeps TMA
+//   loads in flight through a ring of stages (mbarriers `full` on the TMA
+//   bytes, `empty` on the consumer warps' release):
+//   1. up + activation, h (R, D) x [w_gate | w_up] (D, F): one m64n128k16
+//      per 64 rows and k16 step covers 64 gate and 64 up columns (B's two
+//      64-column chunks), so A is read once for both. The activation runs
+//      in f32 on the accumulators and hc (R, F) is rounded to T once.
+//      Blocks walk row tiles fastest, so the two row tiles that share a
+//      weight tile run together and the weights cross HBM about once.
+//   2. down, hc (R, F) x w_down (F, D): 128-column tiles with F split into
+//      contiguous runs of 64-deep k-tiles (kernels/stage_block.py
+//      split_k_plan: at the shape above only 32 output tiles exist, so F
+//      is split 8 ways, 256 CTAs); each split writes its f32 partial sum
+//      to scratch, and split_k_sum adds the splits in a fixed order, adds
+//      x32 and rounds once. No atomics: the result does not vary from run
+//      to run.
+//   A tiles come by TMA with the 128-byte swizzle (K-major). Weights come
+//   in their stored type W: when W is T, TMA writes the swizzled MN-major
+//   B tile directly; otherwise (f32 master weights) TMA stages the raw
+//   tile and both consumer warpgroups convert it to T into the swizzled B
+//   tile, each stage's conversion overlapping the previous stage's wgmma,
+//   so every weight element is read from HBM once and rounded once. The
+//   rounding points are the plain version's; only the order of the f32
+//   sums differs. Ragged R, D and F: TMA fills out-of-range rows and
+//   columns with zeros and the epilogues store in-range elements only.
+//   TMA needs 16-byte aligned bases and row strides (D and F multiples of
+//   8 for 16-bit, of 4 for f32 weights); the wrapper checks them.
+// * f32 activations: the f32 FMA body (TF32 would not meet the f32 gate of
+//   1e-4), three launches on one stream:
+//   1. rms_norm_rows as above;
 //   2. up_act: a 64x64 output tile of g and u per block over the (R, F)
 //      grid, K = D, f32 FMA on operands rounded to T, the activation in
-//      the epilogue, writes hc (R, F) in T (11 MB);
+//      the epilogue, writes hc (R, F) in T;
 //   3. down_residual: a 64x64 tile of (R, D), K = F, adds x32 in the
 //      epilogue and writes out in T.
-// Blocks walk row tiles fastest so the blocks that share a weight tile
-// run together and hit it in L2; weights cross HBM about once. hc and h
-// cost ~26 MB of extra traffic (10% of the weights). The products run on
-// the f32 FMA units (bf16 products are exact in f32), not the tensor
-// cores: simple and right first; wgmma/TMA tiles are later work.
-// Ragged R, D and F take guards, not padding.
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
+//   Blocks walk row tiles fastest so the blocks that share a weight tile
+//   run together and hit it in L2. Ragged R, D and F take guards.
 #include <math.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -306,25 +336,399 @@ cudaError_t launch_w(int wdtype, int act, const void* x, const void* nw,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core body (f16 / bf16 activations): TMA-fed, warp-specialised
+// wgmma GEMMs. The tile sizes here and kernels/stage_block.py's
+// TC_TILE / split_k_plan must agree.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kMB = 2;                     // m64 row blocks per warpgroup
+constexpr int kBM = 2 * kMB * 64;          // rows per CTA (two warpgroups)
+constexpr int kBN = 128;                   // B tile columns = wgmma N
+constexpr int kBK = 64;                    // reduction depth per stage
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+constexpr int kRow = 128;                  // bytes of a swizzled 64-wide T row
+
+enum Mode { kUpGated = 0, kUpPlain = 1, kDown = 2 };
+
+// Shared memory: a ring of kStages stages, each the A tile and the weight
+// tile as TMA brings it (the swizzled B tile itself when W is T, else the
+// raw W tile in 128-byte swizzled boxes), then, when W is not T, two
+// converted B tiles (the one wgmma reads, the one being converted).
+template <typename T, typename W> struct Cfg {
+  static constexpr bool kConvert = !std::is_same<T, W>::value;
+  static constexpr int kABytes = kBM * kBK * 2;          // (kBM, kBK) in T
+  static constexpr int kBBytes = kBK * kBN * 2;          // (kBK, kBN) in T, 2 chunks
+  static constexpr int kWCols = 128 / (int)sizeof(W);    // columns of a staging box
+  static constexpr int kWBoxes = kBN / kWCols;
+  static constexpr int kWBytes = kConvert ? kBK * kBN * (int)sizeof(W) : kBBytes;
+  static constexpr int kStageBytes = kABytes + kWBytes;
+  static constexpr int kBBufs = kConvert ? 2 : 0;
+  // as many stages (at most 4) as the 227 KB a block may have allow
+  static constexpr int kBudget = 232448 - 1024 - 256 - kBBufs * kBBytes;
+  static constexpr int kStages = kBudget / kStageBytes < 4 ? kBudget / kStageBytes : 4;
+  static constexpr size_t kSmem =
+      1024 + (size_t)kStages * kStageBytes + (size_t)kBBufs * kBBytes + 16 * kStages;
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// One CTA computes a (kBM rows) x (kBN columns of B) product over its
+// k-tiles [kt0, kt1): A (rows, K) in T, K-major; B = the weights (K, N)
+// as stored, MN-major. Modes:
+//   kUpGated: B = [w_gate | w_up] columns n0 .. n0 + 63 of each;
+//             hc[:, n0 .. n0 + 63] = T(act(gate, up))
+//   kUpPlain: B = w_up columns n0 .. n0 + 127; hc = T(act(up))
+//   kDown:    B = w_down columns n0 .. n0 + 127; part[z] = the f32 sum of
+//             split z's k-tiles (no atomics: a later pass sums the splits)
+template <typename T, typename W, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_tc(const __grid_constant__ CUtensorMap amap,
+        const __grid_constant__ CUtensorMap w0map,
+        const __grid_constant__ CUtensorMap w1map, T* __restrict__ hc,
+        float* __restrict__ part, int rows, int n_out, int k_tiles,
+        int tiles_per_split, int act) {
+  using C = Cfg<T, W>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);  // per stage: A | W (or B)
+  uint8_t* bconv = base + C::kStages * C::kStageBytes;  // converted B tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(bconv + C::kBBufs * C::kBBytes);
+  uint64_t* empty = full + C::kStages;
+
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * (MODE == kUpGated ? kBN / 2 : kBN);
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int n_k = min(k_tiles, kt0 + tiles_per_split) - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    // producer warp: one lane issues every load
+    if (lane == 0) {
+      prefetch_map(&amap);
+      prefetch_map(&w0map);
+      if (MODE == kUpGated) prefetch_map(&w1map);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % C::kStages;
+        uint8_t* st = base + s * C::kStageBytes;
+        mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kStageBytes);
+        const int k = (kt0 + i) * kBK;
+        tma_load_2d(st, &amap, &full[s], k, m0);
+        // the weights in their stored type, 128-byte swizzled boxes (when W
+        // is T, box q is column chunk q of the B tile itself)
+        for (int q = 0; q < C::kWBoxes; ++q) {
+          const int half = C::kWBoxes / 2;
+          const bool second = MODE == kUpGated && q >= half;
+          const int col = MODE == kUpGated ? n0 + (q % half) * C::kWCols
+                                           : n0 + q * C::kWCols;
+          tma_load_2d(st + C::kABytes + q * kBK * 128, second ? &w1map : &w0map,
+                      &full[s], col, k);
+        }
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x;    // 0 .. 255
+  const int g = warp / 4;       // consumer warpgroup
+  float acc[kMB][kBN / 2];
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) acc[mb][j] = 0.0f;
+
+  // the raw W tile of k-tile i -> converted B tile i % 2: the swizzled,
+  // MN-major B tile in T. Both warpgroups; a thread takes 8 columns of a
+  // row per step, the 8 lanes of a shared memory phase 8 consecutive rows,
+  // so the swizzle spreads their reads and writes over all banks.
+  auto convert = [&](int i) {
+    const uint8_t* raw = base + (i % C::kStages) * C::kStageBytes + C::kABytes;
+    uint8_t* dst = bconv + (i % 2) * C::kBBytes;
+    // not unrolled: the wgmma in flight hides the latency, and the
+    // accumulators leave few registers
+#pragma unroll 1
+    for (int it = 0; it < kBK * kBN / 8 / kConsumers; ++it) {
+      const int item = t + it * kConsumers;
+      const int k = item % kBK, col = item / kBK * 8;
+      const uint8_t* row = raw + (col / C::kWCols) * kBK * 128 + k * 128;
+      constexpr int kGroups = 8 * (int)sizeof(W) / 16;  // 16-byte groups of 8 W
+      uint4 in[kGroups];
+#pragma unroll
+      for (int u = 0; u < kGroups; ++u) {
+        const int grp = (col % C::kWCols) * (int)sizeof(W) / 16 + u;
+        in[u] = *reinterpret_cast<const uint4*>(row + ((grp ^ (k & 7)) * 16));
+      }
+      const W* e = reinterpret_cast<const W*>(in);
+      uint4 packed;
+      packed.x = pack<T>(to_f32(e[0]), to_f32(e[1]));
+      packed.y = pack<T>(to_f32(e[2]), to_f32(e[3]));
+      packed.z = pack<T>(to_f32(e[4]), to_f32(e[5]));
+      packed.w = pack<T>(to_f32(e[6]), to_f32(e[7]));
+      const int grp = (col % 64) / 8;
+      *reinterpret_cast<uint4*>(dst + (col / 64) * kBK * kRow + k * kRow
+                                + ((grp ^ (k & 7)) * 16)) = packed;
+    }
+    fence_proxy_async();
+  };
+
+  if (C::kConvert && n_k > 0) {
+    mbar_wait(&full[0], 0);
+    convert(0);
+    named_sync(1, kConsumers);
+  }
+  for (int i = 0; i < n_k; ++i) {
+    const int s = i % C::kStages;
+    uint8_t* st = base + s * C::kStageBytes;
+    const uint8_t* btile = C::kConvert ? bconv + (i % 2) * C::kBBytes : st + C::kABytes;
+    if (!C::kConvert) mbar_wait(&full[s], (i / C::kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t da = make_desc(st + (g * kMB + mb) * 64 * kRow + kk * 32, 16,
+                                      8 * kRow, 128);
+        const uint64_t db = make_desc(btile + kk * 16 * kRow, kBK * kRow, 8 * kRow, 128);
+        Wgmma<T, kBN>::template ss<1>(acc[mb], da, db, 1);
+      }
+    }
+    wgmma_commit();
+    // convert the next k-tile's weights while the tensor cores run
+    if (C::kConvert && i + 1 < n_k) {
+      mbar_wait(&full[(i + 1) % C::kStages], ((i + 1) / C::kStages) & 1);
+      convert(i + 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb) fence_regs<kBN / 2>(acc[mb]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    // both warpgroups' halves of the next B tile are written, and both
+    // are done reading this one
+    if (C::kConvert) named_sync(1, kConsumers);
+  }
+
+  const int t4 = lane % 4;
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int row = m0 + (g * kMB + mb) * 64 + 16 * (warp % 4) + lane / 4 + 8 * i2;
+      if (row >= rows) continue;
+      if (MODE == kUpGated) {
+#pragma unroll
+        for (int c = 0; c < kBN / 16; ++c) {
+          const int col = n0 + 8 * c + 2 * t4;
+          if (col >= n_out) continue;
+          const int gi = 4 * c + 2 * i2, ui = gi + 4 * (kBN / 16);
+          *reinterpret_cast<uint32_t*>(hc + (size_t)row * n_out + col) =
+              pack<T>(activate(act, acc[mb][gi], acc[mb][ui]),
+                      activate(act, acc[mb][gi + 1], acc[mb][ui + 1]));
+        }
+      } else if (MODE == kUpPlain) {
+#pragma unroll
+        for (int c = 0; c < kBN / 8; ++c) {
+          const int col = n0 + 8 * c + 2 * t4;
+          if (col >= n_out) continue;
+          const int ui = 4 * c + 2 * i2;
+          *reinterpret_cast<uint32_t*>(hc + (size_t)row * n_out + col) =
+              pack<T>(activate(act, 0.0f, acc[mb][ui]),
+                      activate(act, 0.0f, acc[mb][ui + 1]));
+        }
+      } else {
+        float* dst = part + ((size_t)blockIdx.z * rows + row) * n_out;
+#pragma unroll
+        for (int c = 0; c < kBN / 8; ++c) {
+          const int col = n0 + 8 * c + 2 * t4;
+          if (col >= n_out) continue;
+          *reinterpret_cast<float2*>(dst + col) =
+              make_float2(acc[mb][4 * c + 2 * i2], acc[mb][4 * c + 2 * i2 + 1]);
+        }
+      }
+    }
+  }
+}
+
+// out = T(x32 + sum over the splits of part), the splits summed in order
+template <typename T>
+__global__ void __launch_bounds__(256)
+split_k_sum(const float* __restrict__ part, const T* __restrict__ x,
+            T* __restrict__ out, int splits, size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 y = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 p = *reinterpret_cast<const float4*>(part + z * n + i);
+    y.x += p.x; y.y += p.y; y.z += p.z; y.w += p.w;
+  }
+  out[i] = from_f32<T>(to_f32(x[i]) + y.x);
+  out[i + 1] = from_f32<T>(to_f32(x[i + 1]) + y.y);
+  out[i + 2] = from_f32<T>(to_f32(x[i + 2]) + y.z);
+  out[i + 3] = from_f32<T>(to_f32(x[i + 3]) + y.w);
+}
+
+// a (rows, cols) row-major matrix as a 2-D tensor map with a box of
+// (box_rows, 128 bytes of columns) in the 128-byte swizzle
+template <typename E>
+bool matrix_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * sizeof(E)};
+  const uint32_t box[2] = {128 / (uint32_t)sizeof(E), (uint32_t)box_rows};
+  return make_map(map, MapType<E>::v, 2, p, dims, strides, box, 128);
+}
+
+template <typename T, typename W, int MODE>
+cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& w0,
+                 const CUtensorMap& w1, T* hc, float* part, int rows, int n_out,
+                 int k_tiles, int splits, int tiles_per_split, int act,
+                 cudaStream_t stream) {
+  using C = Cfg<T, W>;
+  // opt in to more than 48 KB of dynamic shared memory once per
+  // instantiation, outside any stream capture that follows
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_tc<T, W, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)C::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int bn = MODE == kUpGated ? kBN / 2 : kBN;
+  const dim3 grid((rows + kBM - 1) / kBM, (n_out + bn - 1) / bn, splits);
+  gemm_tc<T, W, MODE><<<grid, kThreads, C::kSmem, stream>>>(
+      a, w0, w1, hc, part, rows, n_out, k_tiles, tiles_per_split, act);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W>
+cudaError_t launch(int act, const void* x, const void* nw, const void* wg,
+                   const void* wu, const void* wd, void* h, void* hc,
+                   void* part, void* out, int rows, int d, int f, float eps,
+                   int splits, int tiles_per_split, cudaStream_t stream) {
+  const int k_down = (f + kBK - 1) / kBK;
+  if (splits < 1 || tiles_per_split < 1 || (splits - 1) * tiles_per_split >= k_down
+      || splits * tiles_per_split < k_down)
+    return cudaErrorInvalidValue;
+  // A tiles (kBM rows x kBK) and weight boxes (kBK rows x 128 bytes)
+  const bool gated = act == kSwiglu;
+  CUtensorMap hmap, hcmap, gmap, umap, dmap;
+  if (!matrix_map<T>(&hmap, h, rows, d, kBM) || !matrix_map<T>(&hcmap, hc, rows, f, kBM)
+      || !matrix_map<W>(&umap, wu, d, f, kBK)
+      || (gated && !matrix_map<W>(&gmap, wg, d, f, kBK))
+      || !matrix_map<W>(&dmap, wd, f, d, kBK))
+    return cudaErrorInvalidValue;
+
+  const T* xt = static_cast<const T*>(x);
+  T* hct = static_cast<T*>(hc);
+  rms_norm_rows<T, W><<<rows, ::kThreads, 0, stream>>>(
+      xt, static_cast<const W*>(nw), static_cast<T*>(h), d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int k_up = (d + kBK - 1) / kBK;
+  err = gated ? gemm<T, W, kUpGated>(hmap, gmap, umap, hct, nullptr, rows, f,
+                                     k_up, 1, k_up, act, stream)
+              : gemm<T, W, kUpPlain>(hmap, umap, umap, hct, nullptr, rows, f,
+                                     k_up, 1, k_up, act, stream);
+  if (err != cudaSuccess) return err;
+  float* pt = static_cast<float*>(part);
+  err = gemm<T, W, kDown>(hcmap, dmap, dmap, nullptr, pt, rows, d, k_down,
+                          splits, tiles_per_split, act, stream);
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)rows * d;
+  split_k_sum<T><<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+      pt, xt, static_cast<T*>(out), splits, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_w(int wdtype, int act, const void* x, const void* nw,
+                     const void* wg, const void* wu, const void* wd, void* h,
+                     void* hc, void* part, void* out, int rows, int d, int f,
+                     float eps, int splits, int tiles_per_split, cudaStream_t s) {
+  switch (wdtype) {
+    case 0: return launch<T, float>(act, x, nw, wg, wu, wd, h, hc, part, out, rows, d, f, eps, splits, tiles_per_split, s);
+    case 1: return launch<T, __half>(act, x, nw, wg, wu, wd, h, hc, part, out, rows, d, f, eps, splits, tiles_per_split, s);
+    case 2: return launch<T, __nv_bfloat16>(act, x, nw, wg, wu, wd, h, hc, part, out, rows, d, f, eps, splits, tiles_per_split, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype codes: 0 = f32, 1 = f16, 2 = bf16; act codes as enum Act. h
-// (rows, d) and hc (rows, f) are caller-allocated scratch in the
-// activation type. w_gate is read only for swiglu. Returns the
-// cudaGetLastError() after the launches.
-extern "C" int stage_mlp_block_launch(int dtype, int wdtype, int act,
-                                      const void* x, const void* norm_w,
-                                      const void* w_gate, const void* w_up,
-                                      const void* w_down, void* h, void* hc,
-                                      void* out, int rows, int d, int f,
-                                      float eps, void* stream) {
+// The f32 FMA body (x in f32). Weight dtype codes: 0 = f32, 1 = f16,
+// 2 = bf16; act codes as enum Act. h (rows, d) and hc (rows, f) are
+// caller-allocated scratch in f32. w_gate is read only for swiglu.
+// Returns the cudaGetLastError() after the launches.
+extern "C" int stage_mlp_block_fma(int wdtype, int act, const void* x,
+                                   const void* norm_w, const void* w_gate,
+                                   const void* w_up, const void* w_down,
+                                   void* h, void* hc, void* out, int rows,
+                                   int d, int f, float eps, void* stream) {
+  if (rows <= 0 || d <= 0 || f <= 0 || act < kSwiglu || act > kSilu)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_w<float>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h,
+                              hc, out, rows, d, f, eps,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// dynamic shared memory (bytes) of the tensor-core GEMMs for activation
+// and weight dtype codes as below
+extern "C" int stage_mlp_block_wgmma_smem(int dtype, int wdtype) {
+  if (dtype == 2) {
+    switch (wdtype) {
+      case 0: return (int)tc::Cfg<__nv_bfloat16, float>::kSmem;
+      case 1: return (int)tc::Cfg<__nv_bfloat16, __half>::kSmem;
+      case 2: return (int)tc::Cfg<__nv_bfloat16, __nv_bfloat16>::kSmem;
+    }
+  } else if (dtype == 1) {
+    switch (wdtype) {
+      case 0: return (int)tc::Cfg<__half, float>::kSmem;
+      case 1: return (int)tc::Cfg<__half, __half>::kSmem;
+      case 2: return (int)tc::Cfg<__half, __nv_bfloat16>::kSmem;
+    }
+  }
+  return 0;
+}
+
+// The tensor-core body; activation dtype codes 1 = f16, 2 = bf16, weight
+// codes as above. Scratch from the caller: h (rows, d) and hc (rows, f)
+// in the activation type, part (splits, rows, d) in f32. The down product
+// runs as `splits` splits of `tiles_per_split` 64-deep k-tiles of f, which
+// must cover [0, f) exactly once. TMA needs 16-byte aligned bases and row
+// strides. Returns the cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue if the plan or a tensor map is refused.
+extern "C" int stage_mlp_block_wgmma(int dtype, int wdtype, int act,
+                                     const void* x, const void* norm_w,
+                                     const void* w_gate, const void* w_up,
+                                     const void* w_down, void* h, void* hc,
+                                     void* part, void* out, int rows, int d,
+                                     int f, float eps, int splits,
+                                     int tiles_per_split, void* stream) {
   if (rows <= 0 || d <= 0 || f <= 0 || act < kSwiglu || act > kSilu)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_w<float>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h, hc, out, rows, d, f, eps, s);
-    case 1: return (int)launch_w<__half>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h, hc, out, rows, d, f, eps, s);
-    case 2: return (int)launch_w<__nv_bfloat16>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h, hc, out, rows, d, f, eps, s);
+    case 1: return (int)tc::launch_w<__half>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h, hc, part, out, rows, d, f, eps, splits, tiles_per_split, s);
+    case 2: return (int)tc::launch_w<__nv_bfloat16>(wdtype, act, x, norm_w, w_gate, w_up, w_down, h, hc, part, out, rows, d, f, eps, splits, tiles_per_split, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

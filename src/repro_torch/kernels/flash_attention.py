@@ -7,15 +7,21 @@ CUDA C++ kernel for Hopper, ``csrc/flash_attention.cu``, built with
 
 It computes ``kernels/ref.py``'s ``flash_attention_ref``: f32 scores and
 softmax over the keys a query may see (causal, an optional sliding
-``window``, queries at absolute positions ``q_offset + i``), the
-probabilities never rounded before ``p @ v``, the output cast to the
-input dtype. GQA maps query head ``h`` to kv head ``h // (H // KH)``.
-What bounds the call on an H100 and how the design follows is written at
-the top of the CUDA source.
+``window``, queries at absolute positions ``q_offset + i``), the output
+cast to the input dtype. GQA maps query head ``h`` to kv head
+``h // (H // KH)``. What bounds the call on an H100 and how the design
+follows is written at the top of the CUDA source.
 
 * :func:`flash_attention` is the wrapper. A CUDA tensor launches the
   kernel or raises; only CPU tensors take the plain version. Every
   launch adds one to :data:`launches`.
+* The input dtype fixes the kernel body (:func:`body`), with no option
+  and no fallback between them: f16 and bf16 take ``"wgmma"``, the
+  tensor-core body (TMA-fed ``wgmma``; the probabilities enter ``p @ v``
+  as two terms in the input dtype, ``T(p) + T(p - T(p))``, and the row
+  sums come from the unrounded f32 values); f32 takes ``"fma"``, the f32
+  FMA body (nothing rounded before the output). The tensor-core body's
+  tensors must suit TMA (16-byte aligned bases).
 * :func:`flash_attention_ref` is the plain PyTorch version. The CPU
   path and the tests use it.
 * There is no backward, as the JAX kernel has no VJP: the wrapper raises
@@ -29,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._tma import check_tma
+
 # kernel launches since the last reset (a caller sets it to 0 to count a run)
 launches = 0
 
@@ -37,18 +45,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _lib = None
 
 
+def body(dtype) -> str:
+    """The kernel body that inputs of ``dtype`` take: ``"wgmma"`` (tensor
+    cores) for f16 and bf16, ``"fma"`` (f32 FMA units) for f32."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"flash_attention kernel takes f32/f16/bf16, got {dtype}")
+
+
 def _library():
     global _lib
     if _lib is None:
         from repro_torch.kernels import _build
 
         lib = _build.load("flash_attention")
-        lib.flash_attention_launch.restype = ctypes.c_int
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        tail = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.flash_attention_fma.restype = ctypes.c_int
+        lib.flash_attention_fma.argtypes = tail
+        lib.flash_attention_wgmma.restype = ctypes.c_int
+        lib.flash_attention_wgmma.argtypes = [ctypes.c_int] + tail
         lib.flash_attention_supports_head_dim.restype = ctypes.c_int
         lib.flash_attention_supports_head_dim.argtypes = [ctypes.c_int]
+        lib.flash_attention_wgmma_smem.restype = ctypes.c_int
+        lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -94,8 +116,7 @@ def _launch(q, k, v, causal, window, q_offset):
     global launches
     _check(q, k, v)
     dev = q.device
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention kernel takes f32/f16/bf16, got {q.dtype}")
+    route = body(q.dtype)
     for t in (k, v):
         if t.device != dev or t.dtype != q.dtype:
             raise TypeError("flash_attention kernel needs q, k, v on "
@@ -116,13 +137,23 @@ def _launch(q, k, v, causal, window, q_offset):
         return out
     if skv == 0:
         raise ValueError("flash_attention needs at least one key")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, h, kh, hd, 1.0 / math.sqrt(hd), int(causal),
+            0 if window is None else int(window), int(q_offset))
+    if route == "wgmma":
+        # the tensor maps' strides, innermost first: a row, a head's rows,
+        # a batch row
+        es = q.element_size()
+        for name, t, n_heads, seq in (("q", q, h, sq), ("k", k, kh, skv),
+                                      ("v", v, kh, skv)):
+            check_tma(f"flash_attention {name}", t.data_ptr(),
+                      [hd * es, n_heads * hd * es, seq * n_heads * hd * es])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, skv, h, kh, hd, 1.0 / math.sqrt(hd),
-            int(causal), 0 if window is None else int(window), int(q_offset),
-            stream)
+        if route == "wgmma":
+            err = lib.flash_attention_wgmma(_DTYPE_CODE[q.dtype], *args, stream)
+        else:
+            err = lib.flash_attention_fma(*args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
@@ -133,8 +164,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0):
     """Causal GQA attention, forward only: q (B, Sq, H, hd), k/v
     (B, Skv, KH, hd), all one dtype (f32, f16 or bf16); queries sit at
-    absolute positions ``q_offset + i``. Raises if a gradient would be
-    required (the JAX kernel has no VJP either)."""
+    absolute positions ``q_offset + i``. On CUDA tensors f16/bf16 run the
+    tensor-core body and f32 the FMA body (:func:`body`). Raises if a
+    gradient would be required (the JAX kernel has no VJP either)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward (as the JAX kernel "
                            "has no VJP); call it under torch.no_grad() or use "

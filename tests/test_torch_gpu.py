@@ -84,13 +84,20 @@ def _stage_case(rows, d, f, activation, dtype, seed):
     return params, nw, x, gy
 
 
+# forward gates of the stage kernel: f32 (FMA body) absolute; f16 and
+# bf16 (tensor-core body) relative to max|ref|, two ulps at the largest
+# output
+STAGE_ATOL_F32 = 1e-4
+STAGE_REL = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("activation", ["swiglu", "gelu", "relu2", "silu"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_stage_mlp_block_kernel_matches_plain_on_card(activation, dtype):
     """The hand-written kernel vs its plain version on the card at 37
     ragged rows, D 256, F 512, f32 weights: forward f32 ``atol 1e-4``,
-    bf16 within two bf16 ulps of the largest output. Gradients through
+    bf16 / f16 within two ulps of the largest output. Gradients through
     the wrapper against autograd of ``mlp_block`` on the same tensors (the
     same backward code): ``1e-5`` of each leaf's largest entry."""
     _card()
@@ -116,7 +123,7 @@ def test_stage_mlp_block_kernel_matches_plain_on_card(activation, dtype):
     with torch.no_grad():
         ref = SB.stage_mlp_block_ref(nw, params, x, activation=activation)
     top = float(ref.float().abs().max())
-    atol = 1e-4 if dtype == "float32" else 2.0 ** -6 * top
+    atol = STAGE_ATOL_F32 if dtype == "float32" else STAGE_REL[dtype] * top
     assert out.dtype == dt
     np.testing.assert_allclose(out.detach().float().cpu().numpy(),
                                ref.float().cpu().numpy(), atol=atol)
@@ -128,33 +135,83 @@ def test_stage_mlp_block_kernel_matches_plain_on_card(activation, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("activation,rows,d,f,dtype,wdtype", [
+    ("swiglu", 512, 2048, 11008, "bfloat16", "float32"),   # the Split call
+    ("swiglu", 512, 2048, 11008, "float16", "float32"),
+    ("relu2", 130, 3072, 9216, "bfloat16", "float32"),     # Minitron, ragged
+    ("relu2", 130, 3072, 9216, "float16", "float32"),
+    ("swiglu", 300, 512, 1024, "bfloat16", "bfloat16"),    # W == T
+    ("gelu", 300, 512, 1024, "float16", "float16"),        # W == T
+    ("silu", 77, 256, 768, "bfloat16", "float16"),         # W a 16-bit other
+])
+def test_stage_mlp_block_tensor_core_body_on_card(activation, rows, d, f, dtype,
+                                                  wdtype):
+    """The tensor-core body at the Split shape, the ragged Minitron shape
+    and with weights already in the activation dtype (no conversion),
+    forward against the plain version: two ulps of the largest output."""
+    _card()
+    from repro_torch.kernels import stage_block as SB
+
+    dt, wt = getattr(torch, dtype), getattr(torch, wdtype)
+    assert SB.body(dt) == "wgmma"
+    params, nw, x, _ = _stage_case(rows, d, f, activation, dt, seed=rows + d)
+    params = {k: v.to(wt).cuda() for k, v in params.items()}
+    nw, x = nw.to(wt).cuda(), x.cuda()
+    before = SB.launches
+    with torch.no_grad():
+        out = SB.stage_mlp_block(nw, params, x, activation=activation)
+        ref = SB.stage_mlp_block_ref(nw, params, x, activation=activation)
+    torch.cuda.synchronize()
+    assert SB.launches == before + 1
+    assert out.dtype == dt and out.shape == x.shape
+    top = float(ref.float().abs().max())
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=STAGE_REL[dtype] * top)
+
+
+# forward gates of the flash kernel: f32 (FMA body) 1e-5; bf16 2e-2 and
+# f16 4e-3 (tensor-core body, P as two terms in the input dtype): about
+# one bf16 / two f16 ulps of outputs below 4
+FLASH_ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", [
     (2, 256, 256, 16, 2, 128, None, 0),   # GQA, Qwen head layout
     (1, 200, 200, 4, 1, 64, None, 0),     # ragged S, MQA
     (2, 256, 256, 8, 2, 64, 64, 0),       # sliding window
     (2, 32, 128, 4, 2, 32, None, 96),     # queries at offset 96
+    (2, 100, 100, 4, 2, 16, None, 0),     # head dim 16, ragged
+    (8, 1024, 1024, 16, 2, 128, None, 0),  # the held-out call's shape
+    (2, 512, 512, 32, 32, 64, None, 0),   # MHA, head dim 64
+    (1, 96, 160, 4, 2, 64, None, None),   # not causal, Skv > Sq
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
     """The hand-written kernel vs its plain version on the card: f32
-    ``atol 1e-5``, bf16 ``atol 2e-2``; one launch counted per call."""
+    ``atol 1e-5``, bf16 ``atol 2e-2``, f16 ``atol 4e-3``; one launch
+    counted per call. ``q_offset`` None means a non-causal call."""
     _card()
     from repro_torch.kernels import flash_attention as FA
 
     b, sq, skv, h, kh, hd, window, q_offset = case
+    causal = q_offset is not None
+    q_offset = q_offset or 0
     rng = np.random.default_rng(sq + h)
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dt).cuda()
                for s in ((b, sq, h, hd), (b, skv, kh, hd), (b, skv, kh, hd)))
     before = FA.launches
     with torch.no_grad():
-        out = FA.flash_attention(q, k, v, window=window, q_offset=q_offset)
-        ref = FA.flash_attention_ref(q, k, v, window=window, q_offset=q_offset)
+        out = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+        ref = FA.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     torch.cuda.synchronize()
     assert FA.launches == before + 1
     assert out.dtype == dt and out.shape == q.shape
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
-                               atol=1e-5 if dtype == "float32" else 2e-2)
+                               atol=FLASH_ATOL[dtype])
 
 
 @pytest.mark.gpu
@@ -186,6 +243,37 @@ def test_split_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         SB.stage_mlp_block(nw, {**p, "w_up": p["w_up"].t().contiguous().t()}, x,
                            activation="gelu")
+
+
+@pytest.mark.gpu
+def test_tensor_core_bodies_reject_what_tma_cannot_take():
+    """The f16/bf16 bodies load by TMA: a base off 16 bytes or a row
+    stride that is not a multiple of 16 bytes raises a ValueError in the
+    wrapper, before any launch; the f32 bodies take the same shapes."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import stage_block as SB
+
+    q = torch.randn(1, 8, 2, 32, device="cuda").bfloat16()
+    off = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)[1:].view(q.shape)
+    off.copy_(q)
+    before = FA.launches
+    with pytest.raises(ValueError, match="TMA"):
+        FA.flash_attention(off, q, q)
+    assert FA.launches == before
+    # D = 20: 40-byte bf16 rows of h cannot be a tensor map; f32 is fine
+    p = {"w_up": torch.randn(20, 32, device="cuda"),
+         "w_down": torch.randn(32, 20, device="cuda")}
+    x = torch.randn(2, 3, 20, device="cuda")
+    nw = torch.ones(20, device="cuda")
+    before = SB.launches
+    with pytest.raises(ValueError, match="TMA"):
+        SB.stage_mlp_block(nw, p, x.bfloat16(), activation="gelu")
+    assert SB.launches == before
+    out = SB.stage_mlp_block(nw, p, x, activation="gelu")
+    ref = SB.stage_mlp_block_ref(nw, p, x, activation="gelu")
+    np.testing.assert_allclose(out.detach().cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
