@@ -14,12 +14,14 @@ Phases (each raises on failure; any failure exits non-zero):
    ``stage_mlp_block``, ``flash_attention``, ``ssd_scan``,
    ``grouped_moe_ffn``), compiled from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, all started together); where
-   ``cuobjdump`` is found, the HGMMA (``wgmma``) instructions of each
-   tensor-core kernel are counted and a kernel with none fails;
+   ``cuobjdump`` is found, the tensor-core instructions of each
+   tensor-core kernel are counted (HGMMA for ``wgmma``, HMMA for the scan's
+   TF32 ``mma.sync``) and a kernel with none fails, as does the scan's
+   retired FMA kernel if it is still in the library;
 3. each kernel against its plain PyTorch version on the card, at its
    paths' shapes and at ragged and other-arch shapes, forward (and
    backward through autograd where the kernel has one), f32 and bf16
-   (and f16 for the two kernels with a tensor-core body);
+   (and f16 for the three kernels with a 16-bit tensor-core body);
 4. the SAC slice: ``train_sac`` through two updating chunks and
    ``evaluate_sac`` at the repo's SAC configuration on the ResNet-101
    MHSL env, with the launch counter reset just before and read just
@@ -38,10 +40,13 @@ Phases (each raises on failure; any failure exits non-zero):
    (48 layers): plan, 1F1B training through ``ssd_chunked``, and a
    held-out loss whose 48 scans run on ``ssd_scan``; the kernel against
    its plain version on every scan of one held-out call, and that loss
-   against the ``ssd_chunked`` route's;
+   against the ``ssd_chunked`` route's; a trace of one held-out call (the
+   48 scans on the 3xTF32 kernel ``ssd_scan_tc``);
 4d. (B) one Qwen3-MoE-30B-A3B MoE layer at full width on 8 x 256 bf16
    tokens: the dropless dispatch through ``grouped_moe_ffn``, held to the
-   reference route; the capacity dispatch beside them;
+   reference route; the capacity dispatch beside them; a trace of one
+   kernel-route call (the ``wgmma`` GEMMs ``grouped_gemm_tc``, no FMA
+   grid);
 4e. (C) Qwen3-MoE-30B-A3B through the launcher at full width, depth 2 on
    2 stages (MoE halves through the dropless reference route, the
    held-out attention through ``flash_attention`` at GQA 32/4);
@@ -74,6 +79,7 @@ SRC = ROOT / "src"
 # f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense TF32 tensor-core peak
 
 # the slice's configuration (SACConfig defaults, ResNet-101 MHSL env)
 NUM_ENVS = 32
@@ -142,27 +148,39 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 log(f"[build]   {entry}: {line.strip()}")
     log(f"[build] all kernels built in {wall:.2f} s")
-    _count_hgmma(dict(zip(_build.KERNELS, paths)))
+    _count_tc(dict(zip(_build.KERNELS, paths)))
     _log_tc_smem()
 
 
 def _log_tc_smem():
     """Dynamic shared memory of the tensor-core bodies, as they launch."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.kernels import ssd_scan as SK
     from repro_torch.kernels import stage_block as SB
 
-    flib, slib = FA._library(), SB._library()
+    flib, slib, mlib = FA._library(), SB._library(), MD._library()
     log("[build] flash_fwd_tc dynamic shared memory: " + ", ".join(
         f"hd {hd} {flib.flash_attention_wgmma_smem(hd)} B" for hd in (16, 32, 64, 128)))
     names = {0: "f32", 1: "f16", 2: "bf16"}
     log("[build] gemm_tc dynamic shared memory: " + ", ".join(
         f"x {names[x]} w {names[w]} {slib.stage_mlp_block_wgmma_smem(x, w)} B"
         for x in (2, 1) for w in (0, 1, 2)))
+    log("[build] grouped_gemm_tc dynamic shared memory: " + ", ".join(
+        f"x {names[x]} w {names[w]} {mlib.grouped_moe_ffn_wgmma_smem(x, w)} B"
+        for x in (2, 1) for w in (0, x)))
+    log(f"[build] ssd_scan_tc dynamic shared memory: "
+        f"{SK._library().ssd_scan_smem()} B (ssd_cb_tc: none)")
 
 
-# the tensor-core kernels (substrings of their mangled names) by library
-TC_KERNELS = {"flash_attention": ("flash_fwd_tc",),
-              "stage_mlp_block": ("gemm_tc",)}
+# the tensor-core kernels (substrings of their mangled names) by library,
+# and their tensor-core instruction: HGMMA for wgmma, HMMA for mma.sync
+TC_KERNELS = {"flash_attention": (("flash_fwd_tc",), "HGMMA"),
+              "stage_mlp_block": (("gemm_tc",), "HGMMA"),
+              "grouped_moe_ffn": (("grouped_gemm_tc",), "HGMMA"),
+              "ssd_scan": (("ssd_scan_tc", "ssd_cb_tc"), "HMMA")}
+# kernels that a redesign retired: they must no longer be built
+RETIRED = {"ssd_scan": ("ssd_scan_fwd",)}
 
 
 def _cuobjdump():
@@ -182,32 +200,38 @@ def _cuobjdump():
     return next((str(c) for c in cands if c.is_file()), None)
 
 
-def _count_hgmma(paths):
-    """HGMMA instructions in each tensor-core kernel's SASS (cuobjdump),
-    so that a body that compiled without wgmma cannot pass unseen."""
+def _count_tc(paths):
+    """Tensor-core instructions in each tensor-core kernel's SASS
+    (cuobjdump), so that a body that compiled without them cannot pass
+    unseen; and no retired kernel left in its library."""
     tool = _cuobjdump()
     if tool is None:
         log("[build] cuobjdump not found (PATH, /usr/local/cuda/bin, triton's "
-            "backends/nvidia/bin): HGMMA counts not taken")
+            "backends/nvidia/bin): tensor-core instruction counts not taken")
         return
-    for lib, subs in TC_KERNELS.items():
+    for lib, (subs, instr) in TC_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(paths[lib])], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        counts, fn = {}, None
+        counts, fn, functions = {}, None, []
         for line in sass.splitlines():
             if "Function : " in line:
                 fn = line.split("Function : ", 1)[1].strip()
+                functions.append(fn)
                 if any(s in fn for s in subs):
                     counts[fn] = 0
                 else:
                     fn = None
-            elif fn is not None and "HGMMA" in line:
+            elif fn is not None and instr in line:
                 counts[fn] += 1
-        if not counts or min(counts.values()) == 0:
-            raise AssertionError(f"{lib}: tensor-core kernels without HGMMA: "
-                                 f"{[f for f, n in counts.items() if n == 0] or subs}")
+        missing = [s for s in subs if not any(s in f for f in counts)]
+        if missing or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: tensor-core kernels without {instr}: "
+                                 f"{[f for f, n in counts.items() if n == 0] or missing}")
+        retired = [f for f in functions for r in RETIRED.get(lib, ()) if r in f]
+        if retired:
+            raise AssertionError(f"{lib}: retired kernels still built: {retired}")
         for fn, n in sorted(counts.items()):
-            log(f"[build] {lib}: {n:4d} HGMMA in {fn}")
+            log(f"[build] {lib}: {n:4d} {instr} in {fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -1177,13 +1201,16 @@ MOE_CASES = [
     ("gelu", 96, 256, 384, 8, 2, 8, "gelu", "float32"),
     ("silu", 96, 256, 384, 8, 2, 128, "silu", "bfloat16"),
     ("silu", 96, 256, 384, 8, 2, 128, "silu", "float32"),
+    ("gelu f16", 96, 256, 384, 8, 2, 32, "gelu", "float16"),
+    ("swiglu f16", 96, 256, 384, 8, 2, 8, "swiglu", "float16"),
 ]
 # forward within MOE_REL[dtype] * max|ref|. f32: sums over D = 2048 then
 # F = 768 terms in another order. bf16: g, u, h and the output round to
 # bf16 at the Pallas points, and the kernel takes the activation in f32
 # and rounds once where the plain version rounds per operation, so an
-# element may sit one or two bf16 ulps (2^-8 relative) away.
-MOE_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# element may sit one or two bf16 ulps (2^-8 relative) away; f16 the same
+# in f16 ulps (2^-11).
+MOE_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
 # gradients through the wrapper: its backward is autograd of the plain
 # version, the code the reference differentiates, so 1e-5 per leaf
 MOE_BWD_REL = 1e-5
@@ -1407,7 +1434,8 @@ def phase_mamba(torch, card):
         raise AssertionError(f"held-out loss ssd_scan {res['eval_loss']} vs "
                              f"ssd_chunked {chunked}: |diff| {gap} > "
                              f"{MAMBA_EVAL_ATOL}")
-    _eval_trace(torch, card, res, "mamba", "ssd_scan_fwd")
+    _eval_trace(torch, card, res, "mamba", "ssd_scan_tc", count=cfg.num_layers,
+                must_not_see=RETIRED["ssd_scan"])
     _step_trace(torch, card, res, args, "mamba")
 
     secs = res["step_seconds"]
@@ -1590,7 +1618,41 @@ def phase_moe_layer(torch, card):
         f"calls): dropless kernel route {t['pallas']:.3f} ms, dropless "
         f"reference route {t['reference']:.3f} ms, capacity {t['capacity']:.3f} "
         f"ms [{card}]")
+    _moe_layer_trace(torch, card, params, x, cfg)
     return counts, err
+
+
+def _moe_layer_trace(torch, card, params, x, cfg):
+    """A torch.profiler trace of one kernel-route layer call: the grouped
+    FFN runs as the two ``wgmma`` GEMM grids (up + activation, down) and
+    none of the FMA body's grids. Launches here do not count for the main
+    path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers as L
+
+    saved = _counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            L.moe_apply_dropless(params, x, cfg, impl="pallas")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    _reset_counts(saved)
+    kern = _log_kernels(torch, prof, "moe-layer")
+    dev_us = sum(e.self_device_time_total for e in kern)
+    tc = [e for e in kern if "grouped_gemm_tc" in e.key]
+    tc_us = sum(e.self_device_time_total for e in tc)
+    fma = sorted({e.key for e in kern if "::up_act<" in e.key or "::down<" in e.key})
+    if dev_us == 0 or sum(e.count for e in tc) != 2 or fma:
+        raise AssertionError(f"the profiler saw {dev_us} us of device time, "
+                             f"{sum(e.count for e in tc)} grouped_gemm_tc launches "
+                             f"(expected 2), FMA grids {fma}, in the (B) call")
+    log(f"[trace] moe-layer: one dropless kernel-route call (profiled): "
+        f"{host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms device busy; "
+        f"{sum(e.count for e in kern)} kernels; grouped_gemm_tc 2x, "
+        f"{tc_us / 1e3:.3f} ms ({tc_us / dev_us:.3f} of device time); no "
+        f"up_act/down grid [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1658,11 +1720,13 @@ def phase_moe_model(torch, card):
 
 
 def ssd_bound(b, s, h, p, n, chunk):
-    """Least time (ms) of one ssd_scan call: x, dt, a, b, c read and y,
-    h_last written once over the HBM rate vs the least f32 work over the
-    f32 peak: C.B^T once per (batch row, chunk) and, per head, the score
-    tile times x, C.h and the state update, over causal pairs only; the
-    larger wins."""
+    """Least time (ms) of one ssd_scan call on its fastest route: x, dt, a,
+    b, c read and y, h_last written once over the HBM rate vs the least
+    work, C.B^T once per (batch row, chunk) and, per head, the score tile
+    times x, C.h and the state update, over causal pairs only, taken as
+    3xTF32 (three TF32 products per product: one pass would miss the f32
+    gate) over the TF32 tensor-core peak; the larger wins. Also returns the
+    same work's time at the f32 FMA peak (the earlier body's bound)."""
     macs = 0
     for s0 in range(0, s, chunk):
         rows = min(chunk, s - s0)
@@ -1672,9 +1736,10 @@ def ssd_bound(b, s, h, p, n, chunk):
                   + b * h * p * n)
     flops = 2 * macs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    t_fma = max(t_bytes, flops / F32_FLOPS_PER_S * 1e3)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, flops)
+            nbytes, flops, t_fma)
 
 
 def moe_bound(routed, p_rows, nb, d, f, used, gated, x_elt, w_elt, flops_per_s):
@@ -1708,13 +1773,15 @@ def phase_ssm_moe_timing(torch, card):
         "kernel": lambda: SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk),
         "plain": lambda: SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk),
     }, iters=10, reps=5)
-    bound, by, nbytes, flops = ssd_bound(b, s, h, p, n, chunk)
+    bound, by, nbytes, flops, t_fma = ssd_bound(b, s, h, p, n, chunk)
     out["ssd_scan"] = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
                            bound_by=by, library_ms=None)
     log(f"[time] ssd_scan B {b} S {s} H {h} P {p} N {n} chunk {chunk} f32, "
-        f"device (graph replay): kernel {t['kernel']:.6f} ms, plain "
-        f"{t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; {nbytes} B, {flops} "
-        f"FLOP at the f32 peak) [{card}]")
+        f"device (graph replay): kernel {t['kernel']:.6f} ms "
+        f"({3 * flops / t['kernel'] / 1e9:.1f} TFLOP/s of 3xTF32 work), plain "
+        f"{t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; {nbytes} B, 3 x "
+        f"{flops} FLOP at the TF32 tensor-core peak; the same work at the f32 "
+        f"FMA peak {t_fma:.6f} ms) [{card}]")
     del x, dt, a, bm, cm
 
     cfg, params, xl = _moe_layer_inputs(torch)
@@ -1731,12 +1798,16 @@ def phase_ssm_moe_timing(torch, card):
         used, act == "swiglu", 2, 4, BF16_FLOPS_PER_S)
     out["grouped_moe_ffn"] = dict(ms=t["kernel"], plain_ms=t["plain"],
                                   bound_ms=bound, bound_by=by, library_ms=None)
+    sched = MD.device_tile_schedule(buf, eid, 128, cfg.moe.num_experts)
+    tiles = int((sched[:, 1] < sched[:, 2]).sum())
+    live = int(sched[:, 3].sum())
     log(f"[time] grouped_moe_ffn {routed} routed rows in {buf.shape[0]} "
         f"({eid.numel()} blocks of 128, {used} experts) D {cfg.d_model} F "
         f"{cfg.moe.expert_d_ff} {act}, bf16 rows, f32 weights, device (graph "
-        f"replay): kernel {t['kernel']:.6f} ms, plain {t['plain']:.6f} ms; "
-        f"bound {bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP at bf16 peak) "
-        f"[{card}]")
+        f"replay): kernel {t['kernel']:.6f} ms ({flops / t['kernel'] / 1e9:.1f} "
+        f"TFLOP/s of routed-row work; {live} of {tiles} row tiles live, the "
+        f"rest all zero and skipped), plain {t['plain']:.6f} ms; bound "
+        f"{bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
     _reset_counts(saved)
     return out
 

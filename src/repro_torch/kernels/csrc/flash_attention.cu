@@ -277,11 +277,6 @@ template <int HD> struct Geo {
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (1 + 2 * kStages);
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,

@@ -156,6 +156,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -446,5 +457,67 @@ template <> struct Wgmma<__half, 128> {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
+
+// ---------------------------------------------------------------------------
+// shared by the TMA-fed wgmma GEMMs (stage_mlp_block.cu, grouped_moe_ffn.cu)
+// ---------------------------------------------------------------------------
+
+// a (rows, cols) row-major matrix as a 2-D tensor map with a box of
+// (box_rows, 128 bytes of columns) in the 128-byte swizzle
+template <typename E>
+inline bool matrix_map(CUtensorMap* map, const void* p, int rows, int cols,
+                       int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * sizeof(E)};
+  const uint32_t box[2] = {128 / (uint32_t)sizeof(E), (uint32_t)box_rows};
+  return make_map(map, MapType<E>::v, 2, p, dims, strides, box, 128);
+}
+
+// the first 1024-byte boundary at or after p (swizzled tiles start there)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// A raw weight tile of BK rows and BN columns in its stored type W, as TMA
+// brings it in 128-byte swizzled boxes of 128 / sizeof(W) columns ->
+// the swizzled, MN-major B tile in T that wgmma reads (column chunks of
+// 64), each element rounded to T once. THREADS threads share it, thread t
+// taking 8 columns of a row per step; the 8 lanes of a shared memory phase
+// take 8 consecutive rows, so the swizzle spreads their reads and writes
+// over all banks.
+template <typename T, typename W, int BK, int BN, int THREADS>
+__device__ __forceinline__ void convert_b_tile(const uint8_t* raw, uint8_t* dst, int t) {
+  constexpr int kWCols = 128 / (int)sizeof(W);
+  // not unrolled: the wgmma in flight hides the latency, and the
+  // accumulators leave few registers
+#pragma unroll 1
+  for (int it = 0; it < BK * BN / 8 / THREADS; ++it) {
+    const int item = t + it * THREADS;
+    const int k = item % BK, col = item / BK * 8;
+    const uint8_t* row = raw + (col / kWCols) * BK * 128 + k * 128;
+    constexpr int kGroups = 8 * (int)sizeof(W) / 16;  // 16-byte groups of 8 W
+    uint4 in[kGroups];
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const int grp = (col % kWCols) * (int)sizeof(W) / 16 + u;
+      in[u] = *reinterpret_cast<const uint4*>(row + ((grp ^ (k & 7)) * 16));
+    }
+    const W* e = reinterpret_cast<const W*>(in);
+    uint4 packed;
+    packed.x = pack<T>(to_float(e[0]), to_float(e[1]));
+    packed.y = pack<T>(to_float(e[2]), to_float(e[3]));
+    packed.z = pack<T>(to_float(e[4]), to_float(e[5]));
+    packed.w = pack<T>(to_float(e[6]), to_float(e[7]));
+    const int grp = (col % 64) / 8;
+    *reinterpret_cast<uint4*>(dst + (col / 64) * BK * 128 + k * 128
+                              + ((grp ^ (k & 7)) * 16)) = packed;
+  }
+  fence_proxy_async();
+}
 
 }  // namespace hopper

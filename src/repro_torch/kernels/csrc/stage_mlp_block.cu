@@ -376,11 +376,6 @@ template <typename T, typename W> struct Cfg {
       1024 + (size_t)kStages * kStageBytes + (size_t)kBBufs * kBBytes + 16 * kStages;
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
 // One CTA computes a (kBM rows) x (kBN columns of B) product over its
 // k-tiles [kt0, kt1): A (rows, K) in T, K-major; B = the weights (K, N)
 // as stored, MN-major. Modes:
@@ -454,38 +449,12 @@ gemm_tc(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
     for (int j = 0; j < kBN / 2; ++j) acc[mb][j] = 0.0f;
 
-  // the raw W tile of k-tile i -> converted B tile i % 2: the swizzled,
-  // MN-major B tile in T. Both warpgroups; a thread takes 8 columns of a
-  // row per step, the 8 lanes of a shared memory phase 8 consecutive rows,
-  // so the swizzle spreads their reads and writes over all banks.
+  // the raw W tile of k-tile i -> converted B tile i % 2, by both
+  // consumer warpgroups
   auto convert = [&](int i) {
-    const uint8_t* raw = base + (i % C::kStages) * C::kStageBytes + C::kABytes;
-    uint8_t* dst = bconv + (i % 2) * C::kBBytes;
-    // not unrolled: the wgmma in flight hides the latency, and the
-    // accumulators leave few registers
-#pragma unroll 1
-    for (int it = 0; it < kBK * kBN / 8 / kConsumers; ++it) {
-      const int item = t + it * kConsumers;
-      const int k = item % kBK, col = item / kBK * 8;
-      const uint8_t* row = raw + (col / C::kWCols) * kBK * 128 + k * 128;
-      constexpr int kGroups = 8 * (int)sizeof(W) / 16;  // 16-byte groups of 8 W
-      uint4 in[kGroups];
-#pragma unroll
-      for (int u = 0; u < kGroups; ++u) {
-        const int grp = (col % C::kWCols) * (int)sizeof(W) / 16 + u;
-        in[u] = *reinterpret_cast<const uint4*>(row + ((grp ^ (k & 7)) * 16));
-      }
-      const W* e = reinterpret_cast<const W*>(in);
-      uint4 packed;
-      packed.x = pack<T>(to_f32(e[0]), to_f32(e[1]));
-      packed.y = pack<T>(to_f32(e[2]), to_f32(e[3]));
-      packed.z = pack<T>(to_f32(e[4]), to_f32(e[5]));
-      packed.w = pack<T>(to_f32(e[6]), to_f32(e[7]));
-      const int grp = (col % 64) / 8;
-      *reinterpret_cast<uint4*>(dst + (col / 64) * kBK * kRow + k * kRow
-                                + ((grp ^ (k & 7)) * 16)) = packed;
-    }
-    fence_proxy_async();
+    convert_b_tile<T, W, kBK, kBN, kConsumers>(
+        base + (i % C::kStages) * C::kStageBytes + C::kABytes,
+        bconv + (i % 2) * C::kBBytes, t);
   };
 
   if (C::kConvert && n_k > 0) {
@@ -582,16 +551,6 @@ split_k_sum(const float* __restrict__ part, const T* __restrict__ x,
   out[i + 1] = from_f32<T>(to_f32(x[i + 1]) + y.y);
   out[i + 2] = from_f32<T>(to_f32(x[i + 2]) + y.z);
   out[i + 3] = from_f32<T>(to_f32(x[i + 3]) + y.w);
-}
-
-// a (rows, cols) row-major matrix as a 2-D tensor map with a box of
-// (box_rows, 128 bytes of columns) in the 128-byte swizzle
-template <typename E>
-bool matrix_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
-  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
-  const uint64_t strides[1] = {(uint64_t)cols * sizeof(E)};
-  const uint32_t box[2] = {128 / (uint32_t)sizeof(E), (uint32_t)box_rows};
-  return make_map(map, MapType<E>::v, 2, p, dims, strides, box, 128);
 }
 
 template <typename T, typename W, int MODE>

@@ -19,7 +19,13 @@ written at the top of the CUDA source.
 
 * :func:`ssd_scan` is the wrapper. A CUDA tensor launches the kernel or
   raises; only CPU tensors take the plain version. Every launch adds one
-  to :data:`launches`.
+  to :data:`launches` (one launch = one call, two grids on the current
+  stream: ``C . B^T`` once per batch row and chunk into scratch, then the
+  chunk recurrence).
+* The scan takes f32 only, so one body serves it (:func:`body`):
+  ``"mma"``, every product on the tensor cores as 3xTF32 ``mma.sync``
+  (each operand split into two TF32 terms, three products summed in f32),
+  which holds the f32 gate that one TF32 product would miss.
 * :func:`ssd_scan_ref` is the plain PyTorch version, the Pallas body's
   arithmetic chunk by chunk. The CPU path and the tests use it.
 * There is no backward and no initial state, as the JAX kernel has
@@ -51,9 +57,20 @@ def _library():
         lib = _build.load("ssd_scan")
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.ssd_scan_smem.restype = ctypes.c_int
+        lib.ssd_scan_smem.argtypes = []
         _lib = lib
     return _lib
+
+
+def body(dtype) -> str:
+    """The kernel body that inputs of ``dtype`` take: ``"mma"`` (3xTF32
+    ``mma.sync`` on the tensor cores) for f32, the only dtype the scan
+    takes."""
+    if dtype == torch.float32:
+        return "mma"
+    raise TypeError(f"ssd_scan kernel takes f32, got {dtype}")
 
 
 def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 64):
@@ -116,7 +133,8 @@ def _launch(x, dt, a, b, c, chunk):
     _check(x, dt, a, b, c, chunk)
     dev = x.device
     for t in (x, dt, a, b, c):
-        if t.device != dev or t.dtype != torch.float32:
+        body(t.dtype)
+        if t.device != dev:
             raise TypeError(f"ssd_scan kernel takes f32 tensors on {dev}; got "
                             f"{t.dtype} on {t.device}")
         if not t.is_contiguous():
@@ -130,13 +148,16 @@ def _launch(x, dt, a, b, c, chunk):
     h_last = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0 or h_last.numel() == 0:
         return y, h_last.zero_()
+    # C . B^T of every (batch row, chunk), in the kernel's 64 x 64 tiles
+    cb = torch.empty((bsz, -(-s // chunk), MAX_CHUNK, MAX_CHUNK),
+                     dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ssd_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                                  b.data_ptr(), c.data_ptr(), y.data_ptr(),
-                                  h_last.data_ptr(), bsz, s, h, p, n, chunk,
-                                  stream)
+                                  b.data_ptr(), c.data_ptr(), cb.data_ptr(),
+                                  y.data_ptr(), h_last.data_ptr(), bsz, s, h,
+                                  p, n, chunk, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     launches += 1

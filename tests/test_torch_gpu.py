@@ -328,6 +328,24 @@ def test_ssd_scan_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.gpu
+def test_ssd_scan_kernel_at_the_held_out_shape_on_card():
+    """The 3xTF32 body at the shape of the held-out evaluation's scans
+    (Mamba2-370m, 8 x 1024 tokens: H 32, P 64, N 128, chunk 64), y and
+    h_last within 1e-4 of each one's largest entry of the plain version."""
+    _card()
+    from repro_torch.kernels import ssd_scan as SK
+
+    x, dt, a, bm, cm = _ssd_case(8, 1024, 32, 64, 128, seed=1)
+    with torch.no_grad():
+        out = SK.ssd_scan(x, dt, a, bm, cm, chunk=64)
+        ref = SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=64)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        assert float((o - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.gpu
 def test_ssd_scan_kernel_rejects_what_it_does_not_take():
     _card()
     from repro_torch.kernels import ssd_scan as SK
@@ -358,18 +376,25 @@ def _grouped_case(activation, nb, blk, d, f, e, dtype, seed):
     return torch.from_numpy(buf).to(dtype).cuda(), eid, params
 
 
+# forward tolerance of the grouped FFN per row dtype, of max|ref|: f32 sums
+# in another order; f16/bf16 round g, u, h and the output at the Pallas
+# points, and the kernel takes the activation in f32 and rounds once where
+# the plain version rounds per operation (one or two ulps)
+GROUPED_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("activation", ["swiglu", "gelu", "relu2", "silu"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("blk", [8, 32, 128])
 def test_grouped_moe_ffn_kernel_matches_plain_on_card(activation, dtype, blk):
     """The hand-written kernel vs ``grouped_ffn_reference`` on the card
-    (D 256, F 384, 6 experts, f32 weights): f32 within ``1e-5`` of the
-    largest output, bf16 within 2^-6 of it (the kernel rounds the
-    activation once, the plain version per operation); padding rows
-    exactly zero. Gradients through the wrapper against autograd of the
-    plain version (the same backward code): ``1e-5`` of each leaf's
-    largest entry."""
+    (D 256, F 384, 6 experts, f32 weights): f32 rows (the FMA body) within
+    ``1e-5`` of the largest output, bf16 and f16 rows (the ``wgmma`` body)
+    within 2^-6 and 2^-9 of it (the kernel rounds the activation once, the
+    plain version per operation); padding rows exactly zero. Gradients
+    through the wrapper against autograd of the plain version (the same
+    backward code): ``1e-5`` of each leaf's largest entry."""
     _card()
     from repro_torch.kernels import moe_dispatch as MD
 
@@ -399,12 +424,108 @@ def test_grouped_moe_ffn_kernel_matches_plain_on_card(activation, dtype, blk):
     top = np.abs(ref).max()
     assert out.dtype == dt
     np.testing.assert_allclose(out.detach().float().cpu().numpy(), ref, rtol=0,
-                               atol=(1e-5 if dtype == "float32" else 2.0 ** -6) * top)
+                               atol=GROUPED_REL[dtype] * top)
     assert float(out.detach().reshape(nb, blk, -1)[:, blk // 2:].abs().max()) == 0.0
     for a, r in zip(gk, gr):
         r = r.float().cpu().numpy()
         np.testing.assert_allclose(a.float().cpu().numpy(), r, rtol=0,
                                    atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("blk", [8, 32, 128])
+def test_grouped_moe_ffn_weights_in_the_row_dtype_on_card(dtype, blk):
+    """Weights stored in the rows' dtype go to the ``wgmma`` body's B tiles
+    by TMA with no conversion: the same result as the plain version within
+    the row dtype's tolerance, padding rows exactly zero, one launch."""
+    _card()
+    from repro_torch.kernels import moe_dispatch as MD
+
+    dt = getattr(torch, dtype)
+    nb = max(2, 512 // blk)
+    buf, eid, params = _grouped_case("swiglu", nb, blk, 256, 384, 6, dt, seed=blk)
+    params = {k: v.to(dt) for k, v in params.items()}
+    before = MD.launches
+    with torch.no_grad():
+        out = MD.grouped_moe_ffn(buf, eid, params, activation="swiglu")
+        ref = MD.grouped_ffn_reference(buf, eid, params["w_gate"], params["w_up"],
+                                       params["w_down"], "swiglu")
+    torch.cuda.synchronize()
+    assert MD.launches == before + 1 and out.dtype == dt
+    ref = ref.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref, rtol=0,
+                               atol=GROUPED_REL[dtype] * np.abs(ref).max())
+    assert float(out.reshape(nb, blk, -1)[:, blk // 2:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_grouped_moe_ffn_at_the_moe_layer_shape_on_card():
+    """Path (B)'s call: one Qwen3-MoE-30B-A3B layer's dropless buffer of
+    2 048 bf16 tokens (top-8 of 128 experts, blocks of 128; D 2048, F 768,
+    SwiGLU, f32 weights) through the ``wgmma`` body, within 2^-6 of the
+    largest output of the plain version; padding rows exactly zero; the
+    tile schedule computed on the card is its plain version's."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    g = torch.Generator(device="cuda").manual_seed(90)
+    params = L.init_moe(g, cfg, device="cuda")
+    x = torch.randn(2048, cfg.d_model, generator=g, device="cuda").bfloat16()
+    _, ids, _ = L._moe_route(params, x, cfg)
+    order, dest, p_rows, eid = L.dropless_layout(ids, cfg.moe.num_experts, 128)
+    buf = x.new_zeros((p_rows, cfg.d_model)).index_copy(0, dest,
+                                                        x[order // cfg.moe.top_k])
+    sched = MD.device_tile_schedule(buf, eid, 128, cfg.moe.num_experts)
+    assert torch.equal(sched.cpu(), MD.tile_schedule(
+        buf.cpu(), eid.cpu(), 128, cfg.moe.num_experts))
+    with torch.no_grad():
+        out = MD.grouped_moe_ffn(buf, eid, params, activation="swiglu")
+        ref = MD.grouped_ffn_reference(buf, eid, params["w_gate"], params["w_up"],
+                                       params["w_down"], "swiglu")
+    torch.cuda.synchronize()
+    top = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 2.0 ** -6 * top
+    pad = buf.float().abs().sum(-1) == 0
+    assert bool(pad.any()) and float(out[pad].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blk", [8, 32, 128])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "empty experts"])
+def test_device_tile_schedule_matches_plain_on_card(blk, kind):
+    """The two schedule grids give ``tile_schedule``'s table exactly, on a
+    dropless layout of uniform, skewed (most choices on two experts) and
+    sparse (odd experts get no rows) routing, with some routed rows and a
+    whole expert's rows zero and a NaN row."""
+    _card()
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.models import layers as L
+
+    e, t, k, d = 16, 300, 4, 64
+    g = torch.Generator().manual_seed(blk)
+    ids = torch.randint(0, e, (t, k), generator=g)
+    if kind == "skewed":
+        ids[: 3 * t // 4, 0] = 1
+        ids[: t // 2, 1] = e - 1
+    elif kind == "empty experts":
+        ids = (ids // 2) * 2
+    order, dest, p_rows, eid = L.dropless_layout(ids, e, blk)
+    buf = torch.zeros(p_rows, d)
+    buf[dest] = torch.randn(dest.numel(), d, generator=g)
+    buf[dest[:5]] = 0.0
+    buf[dest[-1], 3] = float("nan")
+    plain = MD.tile_schedule(buf.bfloat16(), eid, blk, e)
+    _, first, end, _ = plain[1].tolist()
+    buf[first:end] = 0.0
+    plain = MD.tile_schedule(buf.bfloat16(), eid, blk, e)
+    got = MD.device_tile_schedule(buf.bfloat16().cuda(), eid.cuda(), blk, e)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), plain)
+    assert int(plain[:, 3].sum()) < int((plain[:, 1] < plain[:, 2]).sum())
 
 
 @pytest.mark.gpu

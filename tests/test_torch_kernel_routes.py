@@ -1,11 +1,14 @@
-"""Host-side logic of the tensor-core bodies of the split executor's
-kernels, on the CPU: which body a dtype takes, the split-K plan of the
-stage kernel's down product, and the check of what TMA can take.
+"""Host-side logic of the port's tensor-core bodies, on the CPU: which
+body a dtype takes, the split-K plan of the stage kernel's down product,
+the check of what TMA can take, the grouped FFN's tile schedule (held to
+``dropless_layout``), and an emulation of the SSD scan's TF32 numerics.
 
-These are pure functions of shapes, dtypes and addresses; the kernels
-themselves run only on the card (``tests/test_torch_gpu.py``)."""
+These are pure functions of shapes, dtypes, addresses and data; the
+kernels themselves run only on the card (``tests/test_torch_gpu.py``).
+This file imports no JAX."""
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -100,3 +103,187 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_dtype():
     nw = torch.ones(20)
     out = SB.stage_mlp_block(nw, p, x, activation="gelu")
     assert torch.equal(out, SB.stage_mlp_block_ref(nw, p, x, activation="gelu"))
+
+
+# ---------------------------------------------------------------------------
+# the SSM and MoE kernels' tensor-core bodies
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import moe_dispatch as MD  # noqa: E402
+from repro_torch.kernels import ssd_scan as SK  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype,expect", [
+    (torch.bfloat16, "wgmma"), (torch.float16, "wgmma"), (torch.float32, "fma")])
+def test_grouped_moe_ffn_dtype_fixes_the_body(dtype, expect):
+    assert MD.body(dtype) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.float8_e4m3fn])
+def test_grouped_moe_ffn_no_body_for_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        MD.body(dtype)
+
+
+def test_ssd_scan_has_one_tensor_core_body_for_f32():
+    """The scan takes f32 only: one body, 3xTF32 ``mma.sync``."""
+    assert SK.body(torch.float32) == "mma"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64,
+                                   torch.int32])
+def test_ssd_scan_no_body_for_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        SK.body(dtype)
+
+
+def _routing(kind, t, k, e, seed):
+    """(T, k) expert ids: uniform, skewed (most choices on two experts), or
+    with experts that get no rows (only the even ones are chosen)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, e, (t, k), generator=g)
+    if kind == "skewed":
+        ids[: 3 * t // 4, 0] = 1
+        ids[: t // 2, 1 % k] = e - 1
+    elif kind == "empty experts":
+        ids = (ids // 2) * 2
+    return ids
+
+
+@pytest.mark.parametrize("blk", [8, 32, 128])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "empty experts"])
+def test_tile_schedule_covers_every_row_once_with_its_expert(blk, kind):
+    """Against ``dropless_layout``: the tensor-core body's 128-row tiles
+    cover every buffer row exactly once, each tile rows of one expert
+    only; every routed row lands in a tile of its own expert; no more
+    tiles than ``max_tiles``."""
+    e, t, k = 16, 150, 4
+    ids = _routing(kind, t, k, e, seed=blk)
+    order, dest, p_rows, block_eid = L.dropless_layout(ids, e, blk)
+    buf = torch.ones(p_rows, 8)
+    sched = MD.tile_schedule(buf, block_eid, blk, e)
+    assert sched.dtype == torch.int32 and sched.shape == (
+        MD.max_tiles(p_rows, blk, e), 4)
+    cover = torch.zeros(p_rows, dtype=torch.long)
+    owner = torch.full((p_rows,), -1, dtype=torch.long)
+    for ex, first, end, live in sched.tolist():
+        if first >= end:
+            continue
+        stop = min(first + MD.TC_ROWS, end)
+        cover[first:stop] += 1
+        owner[first:stop] = ex
+        assert live == 1
+    assert bool((cover == 1).all())
+    assert torch.equal(owner, block_eid.long().repeat_interleave(blk))
+    assert torch.equal(owner[dest], ids.reshape(-1)[order])
+    # the tiles come in expert order, each expert's from its range's start
+    live = sched[sched[:, 1] < sched[:, 2]]
+    assert bool((live[1:, 0] >= live[:-1, 0]).all())
+
+
+def test_tile_schedule_marks_all_zero_tiles():
+    """A tile is live iff one of its rows is not all zero (padding rows
+    are zero; a NaN row counts as live)."""
+    e, t, k, blk = 8, 40, 2, 8
+    ids = _routing("uniform", t, k, e, seed=3)
+    order, dest, p_rows, block_eid = L.dropless_layout(ids, e, blk)
+    g = torch.Generator().manual_seed(4)
+    buf = torch.zeros(p_rows, 16)
+    buf[dest] = torch.randn(dest.numel(), 16, generator=g)
+    buf[dest[:3]] = 0.0  # routed rows that are zero count as zero
+    buf[dest[-1], 5] = float("nan")
+    # one expert's whole range zero: its tile is not live
+    _, first, end, _ = MD.tile_schedule(buf, block_eid, blk, e)[1].tolist()
+    buf[first:end] = 0.0
+    sched = MD.tile_schedule(buf, block_eid, blk, e)
+    for ex, first, end, live in sched.tolist():
+        if first >= end:
+            continue
+        rows = buf[first:min(first + MD.TC_ROWS, end)]
+        assert live == int(bool((rows != 0).any()) or bool(rows.isnan().any()))
+    assert int(sched[:, 3].sum()) < int((sched[:, 1] < sched[:, 2]).sum())
+
+
+# ---------------------------------------------------------------------------
+# why the scan's tensor-core body pays three TF32 products
+# ---------------------------------------------------------------------------
+
+
+def _tf32(v):
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does (nearest, ties away
+    from zero): add half of the 13 dropped mantissa bits, then clear them."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(terms):
+    """``a @ b`` with TF32 operands and f32 sums: ``terms`` 1 takes one
+    product of the rounded operands, 3 the split hi.hi + hi.lo + lo.hi."""
+    def mm(a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = ah @ bh
+        if terms == 3:
+            out = _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + out
+        return out
+    return mm
+
+
+def _ssd_emulated(x, dt, a, b, c, chunk, mm):
+    """The kernel's chunk recurrence (one batch row), each of its four
+    products through ``mm``; decays, dt and cum in the inputs' dtype."""
+    s, h, p = x.shape
+    n = b.shape[-1]
+    state = x.new_zeros((h, p, n))
+    ys = []
+    for s0 in range(0, s, chunk):
+        xz, dz, bz, cz = (t[s0:s0 + chunk] for t in (x, dt, b, c))
+        cum = torch.cumsum(dz * a, 0)  # (L, H)
+        tril = torch.tril(torch.ones(len(xz), len(xz), dtype=torch.bool))
+        cb = mm(cz, bz.T)  # (L, L), once per chunk, not per head
+        y = []
+        for hh in range(h):
+            seg = cum[:, None, hh] - cum[None, :, hh]
+            sc = torch.where(tril, cb * torch.exp(torch.where(tril, seg, 0)), 0)
+            sc = sc * dz[None, :, hh]
+            y_h = mm(sc, xz[:, hh]) + mm(cz * torch.exp(cum[:, hh])[:, None],
+                                         state[hh].T)
+            w = torch.exp(cum[-1, hh] - cum[:, hh]) * dz[:, hh]
+            state[hh] = (torch.exp(cum[-1, hh]) * state[hh]
+                         + mm(xz[:, hh].T, bz * w[:, None]))
+            y.append(y_h)
+        ys.append(torch.stack(y, 1))
+    return torch.cat(ys, 0), state
+
+
+def test_one_tf32_pass_misses_the_scan_gate_and_3xtf32_meets_it():
+    """At a Mamba-like shape (H 4, P 32, N 64, chunk 64, Mamba's rates a =
+    -linspace(1, 16)), every product of the scan taken with TF32 operands
+    (10-bit mantissa) misses the card's gate of 1e-4 x max|ref| (the f32
+    reference, here in f64), while the 3xTF32 split of each operand meets
+    it with room: the tensor-core body pays three products for that."""
+    rng = np.random.default_rng(0)
+    s, h, p, n, chunk = 256, 4, 32, 64, 64
+    x = torch.from_numpy(rng.standard_normal((s, h, p)).astype(np.float32))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((s, h)))).astype(np.float32))
+    a = torch.from_numpy((-np.linspace(1.0, 16.0, h)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((s, n)).astype(np.float32))
+    ref = _ssd_emulated(*(t.double() for t in (x, dt, a, b, c)), chunk,
+                        lambda u, v: u @ v)
+    # the emulation is the kernel's product structure; in f64 it gives the
+    # plain version's answer (which computes in f32: its cum rounding
+    # moves outputs by ~1e-5 of their largest)
+    plain = SK.ssd_scan_ref(x[None], dt[None], a, b[None], c[None], chunk=chunk)
+    for got, want in zip(ref, plain):
+        want = want[0].double()
+        assert float((got - want).abs().max()) < 1e-4 * float(want.abs().max())
+
+    def rel(terms):
+        out = _ssd_emulated(x, dt, a, b, c, chunk, _product(terms))
+        return max(float((o.double() - r).abs().max() / r.abs().max())
+                   for o, r in zip(out, ref))
+
+    one, three = rel(1), rel(3)
+    assert one > 1e-4
+    assert three < 1e-5
