@@ -15,17 +15,23 @@ Phases (each raises on failure; any failure exits non-zero):
    ``grouped_moe_ffn``), compiled from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, all started together); where
    ``cuobjdump`` is found, the tensor-core instructions of each
-   tensor-core kernel are counted (HGMMA for ``wgmma``, HMMA for the scan's
-   TF32 ``mma.sync``) and a kernel with none fails, as does the scan's
-   retired FMA kernel if it is still in the library;
+   tensor-core kernel are counted (HGMMA for ``wgmma``, HMMA for the TF32
+   ``mma.sync`` of the scan and of ``ca_attention``) and a kernel with
+   none fails, as does a retired kernel still in its library (the scan's
+   FMA kernel, the PR 11 ``ca_attention`` kernel);
 3. each kernel against its plain PyTorch version on the card, at its
    paths' shapes and at ragged and other-arch shapes, forward (and
-   backward through autograd where the kernel has one), f32 and bf16
-   (and f16 for the three kernels with a 16-bit tensor-core body);
+   backward through autograd where the kernel has one), f32, bf16 and
+   f16; among them the shapes the kernels once refused: ``ca_attention``
+   at I 16, pair_dim 132 and C 256 (weights and history streamed),
+   ``flash_attention`` at head dims 80 (padded), 96, 192 and 256,
+   ``ssd_scan`` at chunk 128 and d_state 256;
 4. the SAC slice: ``train_sac`` through two updating chunks and
    ``evaluate_sac`` at the repo's SAC configuration on the ResNet-101
    MHSL env, with the launch counter reset just before and read just
    after, checked against the count the path must give;
+   then a short ``train_sac`` at ``NetworkConfig(num_devices=22)`` with
+   ``hist_len`` 16 (obs_dim 76, pair_dim 132), its launches checked;
 4b. the split slice, through ``launch.train_mhsl_rl.main``: a plan
    learned on the 36-layer Qwen2.5-3B profile, 1F1B pipelined training
    of Qwen2.5-3B at full width and depth 8 (stage MLP halves through
@@ -56,7 +62,9 @@ Phases (each raises on failure; any failure exits non-zero):
    a trace of one step for each launcher run; each kernel, its plain
    version and, where one exists, the one PyTorch call computing the
    same function, at the paths' shapes (device time by CUDA-graph
-   replay), beside each kernel's bound.
+   replay), beside each kernel's bound; the launch floor (an empty
+   kernel) and ``ca_attention``'s cycles per phase (a ``-DCA_STAMPS``
+   build); flash at head dim 192 beside SDPA.
 
 The second-to-last line of output is the per-kernel JSON record, the
 last line ``{"ok": true, "device": {...}}``. The script imports nothing
@@ -154,14 +162,23 @@ def phase_build():
 
 def _log_tc_smem():
     """Dynamic shared memory of the tensor-core bodies, as they launch."""
+    import torch
+
+    from repro_torch.kernels import ca_attention as CA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import moe_dispatch as MD
     from repro_torch.kernels import ssd_scan as SK
     from repro_torch.kernels import stage_block as SB
 
     flib, slib, mlib = FA._library(), SB._library(), MD._library()
+    for label, shape in (("SAC B 128 I 4", (28, 52, 4, 64)),
+                         ("U 22 I 16", (76, 132, 16, 64)), ("C 256", (28, 52, 16, 256)),
+                         ("U 22 I 16 C 256", (76, 132, 16, 256))):
+        log(f"[build] ca_attention_tc plan, {label} obs/pair/I/C {shape}: " + ", ".join(
+            f"{n} {CA.plan(dt, *shape)}" for n, dt in (("f32", torch.float32),
+                                                    ("bf16", torch.bfloat16))))
     log("[build] flash_fwd_tc dynamic shared memory: " + ", ".join(
-        f"hd {hd} {flib.flash_attention_wgmma_smem(hd)} B" for hd in (16, 32, 64, 128)))
+        f"hd {hd} {flib.flash_attention_wgmma_smem(hd)} B" for hd in FA.HEAD_DIMS))
     names = {0: "f32", 1: "f16", 2: "bf16"}
     log("[build] gemm_tc dynamic shared memory: " + ", ".join(
         f"x {names[x]} w {names[w]} {slib.stage_mlp_block_wgmma_smem(x, w)} B"
@@ -175,12 +192,13 @@ def _log_tc_smem():
 
 # the tensor-core kernels (substrings of their mangled names) by library,
 # and their tensor-core instruction: HGMMA for wgmma, HMMA for mma.sync
-TC_KERNELS = {"flash_attention": (("flash_fwd_tc",), "HGMMA"),
+TC_KERNELS = {"ca_attention": (("ca_attention_tc",), "HMMA"),
+              "flash_attention": (("flash_fwd_tc",), "HGMMA"),
               "stage_mlp_block": (("gemm_tc",), "HGMMA"),
               "grouped_moe_ffn": (("grouped_gemm_tc",), "HGMMA"),
               "ssd_scan": (("ssd_scan_tc", "ssd_cb_tc"), "HMMA")}
 # kernels that a redesign retired: they must no longer be built
-RETIRED = {"ssd_scan": ("ssd_scan_fwd",)}
+RETIRED = {"ssd_scan": ("ssd_scan_fwd",), "ca_attention": ("ca_attention_kernel",)}
 
 
 def _cuobjdump():
@@ -263,70 +281,87 @@ CA_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 5e-2),
               "float16": (2e-2, 5e-2)}
 
 
+# (obs_dim, pair_dim, C) of the checks: the SAC env's, the U 22 env's
+# (NetworkConfig(num_devices=22)) and wide attentions; at I 16 in f32 the
+# last streams its weights in 5 stages and its history in chunks of 8
+CA_WIDTHS = ((28, 52, 64), (76, 132, 64), (28, 52, 256), (76, 132, 256))
+
+
 def phase_ca_checks(torch):
-    """ca_attention kernel vs ca_attention_ref on the card. Low-precision
-    runs are compared with the plain version run in f32 on the same
-    rounded inputs. Returns the worst f32 forward error."""
+    """ca_attention kernel vs ca_attention_ref on the card: B 32, 128 and
+    130, I 4, 8 and 16, the CA_WIDTHS (streamed weights and history among
+    them), f32, bf16 and f16, forward and
+    backward, row 0 all masked. Low-precision runs are compared with the
+    plain version run in f32 on the same rounded inputs. Returns the worst
+    f32 forward error at the SAC widths."""
     from repro_torch.kernels import ca_attention as CA
 
     worst_f32 = 0.0
     for b in (128, 32, 130):
-        for i in (4, 8):
-            for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                dn = str(dtype).split(".")[-1]
-                params, obs, hist, mask, tgt = _ca_inputs(torch, b, i, dtype,
-                                                          seed=b * 10 + i)
-                p32 = {k: v.float() for k, v in params.items()}
-                ref = CA.ca_attention_ref(obs.float(), hist.float(),
-                                          mask.float(), p32["wq_s"],
-                                          p32["wk"], p32["wv"])
-                out = CA.ca_attention(params, obs, hist, mask)
-                torch.cuda.synchronize()
-                if out.dtype != dtype or tuple(out.shape) != tuple(ref.shape):
-                    raise AssertionError(f"ca_attention out {out.dtype} "
-                                         f"{tuple(out.shape)}")
-                if not torch.isfinite(out.float()).all():
-                    raise AssertionError(f"non-finite ca_attention output {b} {i} {dn}")
-                if out[0, obs.shape[1]:].float().abs().max() != 0:
-                    raise AssertionError("all-masked row is not exactly zero")
-                fwd_err = float((out.float() - ref).abs().max())
-                if fwd_err > CA_FWD_ATOL[dn]:
-                    raise AssertionError(f"ca_attention fwd B={b} I={i} {dn}: "
-                                         f"{fwd_err} > {CA_FWD_ATOL[dn]}")
+        for i in (4, 8, 16):
+            for obs_dim, pair_dim, c in CA_WIDTHS:
+                worst = _ca_check_case(torch, CA, b, i, obs_dim, pair_dim, c)
+                if (obs_dim, pair_dim, c) == CA_WIDTHS[0]:
+                    worst_f32 = max(worst_f32, worst)
+    return worst_f32
 
-                # backward: kernel path (autograd.Function) vs autograd of
-                # the plain version in f32
-                names = ("wq_s", "wq_h", "wk", "wv")
-                pk = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-                ok_, hk = obs.detach().requires_grad_(True), hist.detach().requires_grad_(True)
-                lk = (CA.ca_attention(pk, ok_, hk, mask).float() * tgt).sum()
-                gk = torch.autograd.grad(lk, [pk[n] for n in names] + [ok_, hk])
-                pr = {k: v.detach().requires_grad_(True) for k, v in p32.items()}
-                orf = obs.float().requires_grad_(True)
-                hrf = hist.float().requires_grad_(True)
-                lr = (CA.ca_attention_ref(orf, hrf, mask.float(), pr["wq_s"],
-                                          pr["wk"], pr["wv"]) * tgt).sum()
-                gr = torch.autograd.grad(lr, [pr[n] for n in ("wq_s", "wk", "wv")]
-                                         + [orf, hrf])
-                if gk[1].float().abs().max() != 0:
-                    raise AssertionError("wq_h gradient is not exactly zero")
-                atol, rtol = CA_BWD_TOL[dn]
-                bwd_err = 0.0
-                for name, a, r in zip(("wq_s", "wk", "wv", "obs", "hist"),
-                                      (gk[0], gk[2], gk[3], gk[4], gk[5]), gr):
-                    if not torch.isfinite(a.float()).all():
-                        raise AssertionError(f"non-finite grad {name}")
-                    err = float((a.float() - r).abs().max())
-                    lim = atol + rtol * float(r.abs().max())
-                    if err > lim:
-                        raise AssertionError(f"ca_attention bwd {name} B={b} "
-                                             f"I={i} {dn}: {err} > {lim}")
-                    bwd_err = max(bwd_err, err)
-                if dtype == torch.float32:
-                    worst_f32 = max(worst_f32, fwd_err)
-                log(f"[check] ca_attention B={b:3d} I={i} {dn:8s} fwd max|err| "
-                    f"{fwd_err:.3e} (atol {CA_FWD_ATOL[dn]:g}), bwd max|err| "
-                    f"{bwd_err:.3e} (atol {atol:g} + rtol {rtol:g}*max|ref|)")
+
+def _ca_check_case(torch, CA, b, i, obs_dim, pair_dim, c):
+    worst_f32 = 0.0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dn = str(dtype).split(".")[-1]
+        params, obs, hist, mask, tgt = _ca_inputs(torch, b, i, dtype, seed=b * 10 + i,
+                                                  obs_dim=obs_dim, pair_dim=pair_dim, c=c)
+        p32 = {k: v.float() for k, v in params.items()}
+        ref = CA.ca_attention_ref(obs.float(), hist.float(), mask.float(),
+                                  p32["wq_s"], p32["wk"], p32["wv"])
+        before = CA.launches
+        out = CA.ca_attention(params, obs, hist, mask)
+        torch.cuda.synchronize()
+        if CA.launches != before + 1:
+            raise AssertionError("ca_attention did not count its launch")
+        what = f"B={b} I={i} {obs_dim}/{pair_dim}/{c} {dn}"
+        if out.dtype != dtype or tuple(out.shape) != tuple(ref.shape):
+            raise AssertionError(f"ca_attention out {out.dtype} {tuple(out.shape)}")
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"non-finite ca_attention output {what}")
+        if out[0, obs.shape[1]:].float().abs().max() != 0:
+            raise AssertionError(f"all-masked row is not exactly zero ({what})")
+        fwd_err = float((out.float() - ref).abs().max())
+        if fwd_err > CA_FWD_ATOL[dn]:
+            raise AssertionError(f"ca_attention fwd {what}: {fwd_err} > {CA_FWD_ATOL[dn]}")
+
+        # backward: kernel path (autograd.Function) vs autograd of the
+        # plain version in f32
+        names = ("wq_s", "wq_h", "wk", "wv")
+        pk = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        ok_, hk = obs.detach().requires_grad_(True), hist.detach().requires_grad_(True)
+        lk = (CA.ca_attention(pk, ok_, hk, mask).float() * tgt).sum()
+        gk = torch.autograd.grad(lk, [pk[n] for n in names] + [ok_, hk])
+        pr = {k: v.detach().requires_grad_(True) for k, v in p32.items()}
+        orf = obs.float().requires_grad_(True)
+        hrf = hist.float().requires_grad_(True)
+        lr = (CA.ca_attention_ref(orf, hrf, mask.float(), pr["wq_s"],
+                                  pr["wk"], pr["wv"]) * tgt).sum()
+        gr = torch.autograd.grad(lr, [pr[n] for n in ("wq_s", "wk", "wv")] + [orf, hrf])
+        if gk[1].float().abs().max() != 0:
+            raise AssertionError("wq_h gradient is not exactly zero")
+        atol, rtol = CA_BWD_TOL[dn]
+        bwd_err = 0.0
+        for name, a, r in zip(("wq_s", "wk", "wv", "obs", "hist"),
+                              (gk[0], gk[2], gk[3], gk[4], gk[5]), gr):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f"non-finite grad {name}")
+            err = float((a.float() - r).abs().max())
+            lim = atol + rtol * float(r.abs().max())
+            if err > lim:
+                raise AssertionError(f"ca_attention bwd {name} {what}: {err} > {lim}")
+            bwd_err = max(bwd_err, err)
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, fwd_err)
+        log(f"[check] ca_attention B={b:3d} I={i:2d} {obs_dim}/{pair_dim}/{c} {dn:8s} fwd "
+            f"max|err| {fwd_err:.3e} (atol {CA_FWD_ATOL[dn]:g}), bwd max|err| {bwd_err:.3e} "
+            f"(atol {atol:g} + rtol {rtol:g}*max|ref|)")
     return worst_f32
 
 
@@ -410,18 +445,30 @@ def ca_bound(b, i, obs_dim=28, pair_dim=52, c=64, elt=4):
             nbytes, flops)
 
 
+# the phases between the kernel's CA_STAMP marks
+CA_PHASES = ("stage (bulk copies, one round trip)", "obs to f32", "q = obs wq_s",
+             "u = q wk^T", "attention", "s' = hbar wv", "write [obs, s']")
+
+
 def phase_ca_timing(torch, card):
     """Kernel vs plain version at the main path's two shapes (B = 128 in
-    updates, B = 32 in the rollout; I = 4, f32): device time from CUDA
-    graph replay, and eager per-call time. Launches made here are not
-    main-path launches and leave the counter as it was."""
+    updates, B = 32 in the rollout; I = 4, f32) and at the U 22 shape (B
+    128, I 16, obs 76, pair 132): device time from CUDA graph replay, and
+    eager per-call time; the launch floor (an empty kernel by the same
+    replay); and, from a build with -DCA_STAMPS, the cycles of CTA 0
+    between the kernel's phase marks. Launches made here are not main-path
+    launches and leave the counter as it was."""
     from repro_torch.kernels import ca_attention as CA
 
     out = {}
     saved = CA.launches
-    for b in (128, 32):
-        params, obs, hist, mask, _ = _ca_inputs(torch, b, 4, torch.float32,
-                                                seed=7)
+    floor = _time_graph_ms(torch, CA.launch_floor)
+    out["floor_ms"] = floor
+    log(f"[time] launch floor: an empty kernel by graph replay {floor:.6f} ms [{card}]")
+    for b, i, dims in ((128, 4, (28, 52, 64)), (32, 4, (28, 52, 64)),
+                       (128, 16, (76, 132, 64))):
+        params, obs, hist, mask, _ = _ca_inputs(torch, b, i, torch.float32, seed=7,
+                                                obs_dim=dims[0], pair_dim=dims[1], c=dims[2])
 
         def kernel():
             return CA.ca_attention(params, obs, hist, mask)
@@ -435,14 +482,52 @@ def phase_ca_timing(torch, card):
         e = [_time_ms(torch, f) for f in (plain, kernel, kernel, plain)]
         ms, plain_ms = statistics.median(g[1:3]), statistics.median([g[0], g[3]])
         eager, plain_eager = statistics.median(e[1:3]), statistics.median([e[0], e[3]])
-        bound, by, nbytes, flops = ca_bound(b, 4)
-        out[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-        log(f"[time] ca_attention B={b} I=4 f32 device (graph replay): "
-            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms; eager per call: "
-            f"kernel {eager:.6f} ms, plain {plain_eager:.6f} ms; bound "
-            f"{bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP) [{card}]")
+        bound, by, nbytes, flops = ca_bound(b, i, *dims)
+        out[(b, i, dims)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        log(f"[time] ca_attention B={b} I={i} obs/pair/C {dims} f32 device (graph replay): "
+            f"kernel {ms:.6f} ms ({ms / floor:.1f}x the launch floor), plain {plain_ms:.6f} "
+            f"ms; eager per call: kernel {eager:.6f} ms, plain {plain_eager:.6f} ms; bound "
+            f"{bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP); plan "
+            f"{CA.plan(torch.float32, *dims[:2], i, dims[2])} [{card}]")
+    _ca_stamps(torch, card)
     CA.launches = saved
     return out
+
+
+def _ca_stamps(torch, card):
+    """Cycles of CTA 0 between the kernel's CA_STAMP marks at the SAC
+    update shape, from a library built with -DCA_STAMPS (the last of 20
+    back-to-back launches)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ca_attention as CA
+
+    lib = ctypes.CDLL(str(_build.build("ca_attention", defines=("CA_STAMPS",))))
+    lib.ca_attention_launch.restype = ctypes.c_int
+    lib.ca_attention_launch.argtypes = CA._library().ca_attention_launch.argtypes
+    lib.ca_attention_stamps.argtypes = [ctypes.c_void_p]
+    params, obs, hist, mask, _ = _ca_inputs(torch, 128, 4, torch.float32, seed=7)
+    out = torch.empty(128, 28 + 64, device="cuda")
+    for _ in range(20):
+        err = lib.ca_attention_launch(
+            0, obs.data_ptr(), hist.data_ptr(), mask.data_ptr(), params["wq_s"].data_ptr(),
+            params["wk"].data_ptr(), params["wv"].data_ptr(), out.data_ptr(), 128, 28, 52,
+            4, 64, 0.125, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"stamped ca_attention launch failed: cudaError {err}")
+    torch.cuda.synchronize()
+    ref = CA.ca_attention_ref(obs, hist, mask, params["wq_s"], params["wk"], params["wv"])
+    if float((out - ref).abs().max()) > CA_FWD_ATOL["float32"]:
+        raise AssertionError("the stamped ca_attention build disagrees with the plain version")
+    st = (ctypes.c_longlong * 8)()
+    lib.ca_attention_stamps(st)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[time] ca_attention B=128 I=4 f32, cycles of CTA 0 by phase (-DCA_STAMPS build; SM "
+        f"clock {clocks} when read): " + ", ".join(
+            f"{name} {st[k + 1] - st[k]}" for k, name in enumerate(CA_PHASES))
+        + f"; total {st[7] - st[0]} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +609,61 @@ def phase_slice(torch, card):
         f"evaluate_sac {EVAL_EPISODES * env.episode_len / eval_s:.1f} "
         f"[{card}]")
     return CA.launches, env, cfg, res.params
+
+
+# a short SAC run at U = 22 trainer devices and a history of 16 pairs:
+# obs_dim 76 and pair_dim 132 (5U + E + 20), the shapes the earlier kernel
+# refused; 20 envs so that the warm-up chunk fills a batch of 128
+U22_NUM_ENVS = 20
+U22_EPISODES = 40
+U22_HIST = 16
+
+
+def phase_sac_u22(torch, card):
+    """train_sac on MHSLEnv(NetworkConfig(num_devices=22)) with hist_len
+    16 through the ca_attention kernel: one warm-up chunk and one updating
+    chunk, the launch count checked against the path's, every output
+    finite. Returns the launch count."""
+    from dataclasses import replace
+
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.core.channel import NetworkConfig
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+    from repro_torch.kernels import ca_attention as CA
+    from repro_torch.tree import tree_leaves
+
+    env = MHSLEnv(profile=resnet101_profile(batch=1), net=NetworkConfig(num_devices=22))
+    cfg = replace(SAC.SACConfig(), hist_len=U22_HIST)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = LP.train_sac(env, cfg, episodes=U22_EPISODES, seed=1,
+                       warmup_episodes=U22_NUM_ENVS, num_envs=U22_NUM_ENVS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_updates = cfg.updates_per_step * env.episode_len * U22_NUM_ENVS
+    expect = n_updates + env.episode_len  # one updating chunk
+    if len(res.metrics) != 1:
+        raise AssertionError(f"{len(res.metrics)} updating chunks at U 22, expected 1")
+    if CA.launches != expect:
+        raise AssertionError(f"ca_attention launched {CA.launches} times at U 22, "
+                             f"expected {expect}")
+    others = {k: v for k, v in _counts().items() if k != "ca_attention"}
+    if any(others.values()):
+        raise AssertionError(f"the U 22 SAC run launched {others}")
+    for leaf in tree_leaves(res.params):
+        if not torch.isfinite(leaf).all():
+            raise AssertionError("non-finite parameter after the U 22 run")
+    vals = [v for m in res.metrics for v in m.values()]
+    vals += res.episode_reward + res.episode_leak
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError("non-finite U 22 training metric")
+    log(f"[slice] U 22: obs_dim {env.obs_dim}, hist_len {cfg.hist_len}; train_sac "
+        f"{U22_EPISODES} episodes x {U22_NUM_ENVS} envs, {n_updates} gradient steps, "
+        f"ca_attention launches {CA.launches} (expected {expect}), {secs:.3f} s; last "
+        f"update metrics {res.metrics[-1]} [{card}]")
+    return CA.launches
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +773,11 @@ FLASH_CASES = [
     ("window 64", 2, 512, 512, 16, 2, 128, 64, 0),
     ("Sq=32 at q_offset 96", 2, 32, 128, 16, 2, 128, None, 96),
     ("stablelm-1.6b MHA hd=64", 2, 512, 512, 32, 32, 64, None, 0),
+    ("nemotron-4-340b hd=192 GQA 96/8", 1, 256, 256, 96, 8, 192, None, 0),
+    ("hd=192 ragged, window 64", 1, 200, 200, 8, 2, 192, 64, 0),
+    ("hd=96", 2, 256, 256, 8, 2, 96, None, 0),
+    ("hd=256", 1, 256, 256, 8, 2, 256, None, 0),
+    ("hd=80 padded to 96", 2, 200, 200, 8, 2, 80, None, 0),
 ]
 # forward max|err|: f32 1e-5, bf16 2e-2 (one bf16 ulp of outputs below
 # 4), as the CPU parity tests hold the plain version to the JAX kernel;
@@ -1164,6 +1309,26 @@ def phase_split_timing(torch, card):
         f"SDPA {t['library']:.6f} ms (enable_gqa, max|diff| to plain "
         f"{lib_err:.3e}); bound {bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP "
         f"at bf16 peak) [{card}]")
+    # Nemotron-4-340B's head dim (192, GQA 96/8) on 1 x 1024 tokens: a
+    # logged number beside SDPA, off the path's kernel record
+    g = torch.Generator(device="cuda").manual_seed(62)
+    q = torch.randn(1, 1024, 96, 192, generator=g, device="cuda").bfloat16()
+    k = torch.randn(1, 1024, 8, 192, generator=g, device="cuda").bfloat16()
+    v = torch.randn(1, 1024, 8, 192, generator=g, device="cuda").bfloat16()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    t = _compare(torch, {
+        "kernel": lambda: FA.flash_attention(q, k, v),
+        "plain": lambda: FA.flash_attention_ref(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True),
+    }, iters=10, reps=5)
+    bound, by, nbytes, flops = flash_bound(1, 1024, 1024, 96, 8, 192, 2, BF16_FLOPS_PER_S)
+    out["flash_attention_hd192"] = dict(ms=t["kernel"], library_ms=t["library"])
+    log(f"[time] flash_attention B 1 S 1024 H 96/8 hd 192 causal bf16 (Nemotron-4-340B), "
+        f"device (graph replay): kernel {t['kernel']:.6f} ms ({flops / t['kernel'] / 1e9:.1f} "
+        f"TFLOP/s, {bound / t['kernel']:.3f} of the bound, {t['kernel'] / t['library']:.2f}x "
+        f"SDPA), plain {t['plain']:.6f} ms, SDPA {t['library']:.6f} ms; bound {bound:.6f} ms "
+        f"({by}; {nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
     SB.launches, FA.launches = saved
     return out
 
@@ -1180,6 +1345,8 @@ SSD_CASES = [
     ("one chunk S=50", 2, 50, 32, 64, 128, 64),
     ("reduced widths", 2, 80, 16, 32, 16, 64),
     ("P=96 over 2 tiles", 1, 96, 2, 96, 8, 32),
+    ("chunk 128 (runs at 64)", 2, 512, 8, 64, 128, 128),
+    ("N 256 (two state tiles)", 2, 256, 8, 64, 256, 64),
 ]
 # y and h_last each within SSD_REL * max|ref|. Both versions decay by
 # exp(cum_i - cum_j) with cum the in-chunk cumulative sum of dt * a, which
@@ -1262,8 +1429,8 @@ def phase_ssd_checks(torch):
             out = SK.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
             ref = SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=chunk)
         torch.cuda.synchronize()
-        if SK.launches != before + 1:
-            raise AssertionError("ssd_scan did not count its launch")
+        if SK.launches != before + -(-nst // SK.MAX_STATE):
+            raise AssertionError("ssd_scan did not count its launches (one per state tile)")
         err = _ssd_compare(torch, out, ref, label)
         main_err = err if main_err is None else main_err
         log(f"[check] ssd_scan {label:18s} B {b} S {s} H {h} P {p} N {nst} "
@@ -1836,6 +2003,7 @@ def main() -> int:
     launches, env, cfg, params = phase_slice(torch, card)
     phase_trace(torch, card, env, cfg, params)
     del env, cfg, params
+    u22_launches = phase_sac_u22(torch, card)
     split_launches, flash_err = phase_split(torch, card)
     phase_split_parity(torch)
     torch.cuda.empty_cache()
@@ -1846,10 +2014,11 @@ def main() -> int:
     moe_model_launches = phase_moe_model(torch, card)
     torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
-    t = timing[128]
+    t = timing[(128, 4, (28, 52, 64))]
     split_timing = phase_split_timing(torch, card)
     split_timing.update(phase_ssm_moe_timing(torch, card))
-    log(f"[runs] launches per path: SAC slice ca_attention {launches}; split "
+    log(f"[runs] launches per path: SAC slice ca_attention {launches}; U 22 SAC "
+        f"ca_attention {u22_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
         f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
         f"{moe_model_launches}")

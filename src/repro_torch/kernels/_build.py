@@ -20,7 +20,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 # every hand-written kernel of the port, one source each
 KERNELS = ("ca_attention", "stage_mlp_block", "flash_attention", "ssd_scan",
@@ -51,29 +51,31 @@ def _nvcc() -> str:
                        "first use and need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """The library of ``csrc/<name>.cu``, keyed by its source, the shared
-    headers ``csrc/*.cuh`` and the flags."""
+    headers ``csrc/*.cuh``, the flags and the ``-D`` defines."""
     text = (CSRC / f"{name}.cu").read_bytes()
     for header in sorted(CSRC.glob("*.cuh")):
         text += header.read_bytes()
-    digest = hashlib.blake2b(text + " ".join(NVCC_FLAGS).encode(),
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = hashlib.blake2b(text + " ".join(flags).encode(),
                              digest_size=8).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source exists.
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
+    unless a library of the same source exists.
 
     The library is written to a temporary file and renamed into place, so
     concurrent builders never load a half-written file."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [_nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-o", tmp,
            str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     try:

@@ -12,7 +12,14 @@ a max-subtracted softmax and ``sum_i w_i V_i``, in f32 whatever the
 storage type, then writes ``[obs, s']``. What bounds it on an H100 and
 how the design follows is written at the top of the CUDA source: at the
 main path's shapes the call is bound by its bytes at ~0.06 us, far below
-a launch.
+a launch, so the kernel stages everything in one round trip of bulk
+asynchronous copies and runs its three products on the tensor cores in
+3xTF32.
+
+Any shape the reference takes runs, up to the f32 work arrays of 16 rows
+fitting in shared memory (:func:`plan`): where the weights and the
+history of a tile do not fit in the 227 KB a CTA may use, the kernel
+streams them in chunks (the plan picks the fewest round trips).
 
 * :func:`ca_attention` is the wrapper. A CUDA tensor launches the kernel
   or raises; only CPU tensors take the plain version. Every launch adds
@@ -26,6 +33,7 @@ a launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -36,9 +44,6 @@ from repro_torch.core.agents.attention import cross_attention_slim
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# the kernel stages its weights in f32 shared memory; kept under the
-# static 48 KB a block may use without opting in
-SMEM_LIMIT = 48 * 1024
 
 _lib = None
 
@@ -53,14 +58,38 @@ def _library():
         lib.ca_attention_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
-        lib.ca_attention_smem_bytes.restype = ctypes.c_size_t
-        lib.ca_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
-        for fn in ("ca_attention_max_hist", "ca_attention_max_channels",
-                   "ca_attention_max_pair"):
-            getattr(lib, fn).restype = ctypes.c_int
-            getattr(lib, fn).argtypes = []
+        lib.ca_attention_plan.restype = ctypes.c_int
+        lib.ca_attention_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ca_attention_floor_launch.restype = ctypes.c_int
+        lib.ca_attention_floor_launch.argtypes = [ctypes.c_void_p]
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def plan(dtype, obs_dim, pair_dim, i, c):
+    """The kernel's plan for a shape: ``{"smem": bytes of dynamic shared
+    memory, "wrows": weight rows per streamed chunk (>= the larger of
+    obs_dim and pair_dim: every matrix whole), "ichunk": history pairs
+    staged at a time, "stages": weight stages}``. Raises ``ValueError``
+    where no plan fits (the f32 work arrays of a CTA's rows alone exceed
+    shared memory)."""
+    info = (ctypes.c_int * 4)()
+    if not _library().ca_attention_plan(_DTYPE_CODE[dtype], obs_dim, pair_dim,
+                                        i, c, info):
+        raise ValueError(
+            f"ca_attention kernel: no plan fits shared memory for obs_dim "
+            f"{obs_dim}, pair_dim {pair_dim}, I {i}, C {c}")
+    return dict(zip(("smem", "wrows", "ichunk", "stages"), info))
+
+
+def launch_floor(stream=None):
+    """Launch one empty kernel of the same library on the current stream:
+    the floor any launch pays, for timing beside the kernel. Not counted."""
+    stream = stream or torch.cuda.current_stream().cuda_stream
+    err = _library().ca_attention_floor_launch(stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 def ca_attention_ref(obs, history, hist_mask, wq_s, wk, wv):
@@ -119,18 +148,8 @@ def _launch(obs, history, hist_mask, wq_s, wk, wv):
             raise ValueError("ca_attention kernel needs contiguous inputs")
     if b == 0:
         return torch.cat([obs, obs.new_zeros((0, c))], dim=-1)
+    plan(obs.dtype, obs_dim, pair_dim, i, c)  # raises where none fits
     lib = _library()
-    if (i > lib.ca_attention_max_hist() or c > lib.ca_attention_max_channels()
-            or pair_dim > lib.ca_attention_max_pair()):
-        raise ValueError(
-            f"ca_attention kernel supports I <= {lib.ca_attention_max_hist()}, "
-            f"C <= {lib.ca_attention_max_channels()} and pair_dim <= "
-            f"{lib.ca_attention_max_pair()}, got I={i}, C={c}, "
-            f"pair_dim={pair_dim}")
-    smem = lib.ca_attention_smem_bytes(obs_dim, pair_dim, i, c)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ca_attention kernel needs {smem} B of shared "
-                         f"memory, above the {SMEM_LIMIT} B limit")
     out = torch.empty((b, obs_dim + c), dtype=obs.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -22,11 +22,14 @@
 // * f16 / bf16: `flash_fwd_tc`, on the tensor cores. One CTA per (128
 //   query rows, head, batch row): two consumer warpgroups of 64 rows and
 //   one producer warp. The producer loads the Q tile once by TMA, then
-//   64-key K and V tiles into a ring of kStages stages (mbarriers: `full`
-//   completes on the TMA bytes, `empty` on the consumer warps' release).
-//   Tiles are swizzled rows of min(2 hd, 128) bytes, so hd 16, 32, 64 and
-//   128 all take this body (32-, 64- and 128-byte swizzles; hd 128 is two
-//   column chunks). S = Q K^T is one wgmma chain with both operands in
+//   K and V tiles (64 keys, 32 at hd 256) into a ring of stages
+//   (mbarriers: `full` completes on the TMA bytes, `empty` on the consumer
+//   warps' release). Tiles are swizzled rows of the widest of 128, 64 and
+//   32 bytes that divides a row, in column chunks of that width: hd 16,
+//   32, 64, 96, 128, 192 and 256 all take this body (hd 96 is three
+//   64-byte chunks, 192 and 256 three and four of 128 bytes; the wrapper
+//   pads any other hd up to 256 with zero columns). S = Q K^T is one wgmma
+//   chain with both operands in
 //   shared memory (K row-major is K-major). The online softmax runs on the
 //   accumulator fragments in registers (scores in the log2 domain, running
 //   max and sum per row reduced over the 4 lanes of a quad); P is cast to
@@ -45,8 +48,9 @@
 //   are scheduled longest first (grid z reversed) to even out the causal
 //   triangle. Ragged Sq and Skv: TMA fills rows past the end with zeros,
 //   the mask drops keys past Skv and the epilogue stores rows < Sq only.
-// * f32: `flash_fwd`, the f32 FMA body (exact f32 products; the tensor
-//   cores' TF32 would not meet the f32 gate of 1e-5). One block of 256
+// * f32: `flash_fwd`, the f32 FMA body, at the same head dims (exact f32
+//   products; the tensor cores' TF32 would not meet the f32 gate of
+//   1e-5). One block of 256
 //   threads per (64 query rows, head, batch row), walking 64-key tiles
 //   with an online softmax in registers; Q and each K/V tile staged in
 //   shared memory as f32, the probability tile through shared memory to
@@ -244,6 +248,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 96: return launch<T, 96>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 192: return launch<T, 192>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -257,8 +264,6 @@ namespace tc {
 using namespace hopper;
 
 constexpr int kBQ = 128;                   // query rows per CTA
-constexpr int kBKV = 64;                   // keys per K/V tile
-constexpr int kStages = 3;                 // K/V ring depth
 // P enters P V as this many terms in T: P = T(P) + T(P - T(P)) carries P
 // to ~16 bits (bf16) / ~22 bits (f16), so P V is as close to the f32
 // function as the f32 sums' order allows
@@ -266,8 +271,20 @@ constexpr int kPTerms = 2;
 constexpr int kConsumers = 256;            // two warpgroups of 64 rows each
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
 
+// Per head dim: the swizzled row (the widest of 128, 64 and 32 bytes that
+// divides a row of hd values; 96 takes 64-byte rows, 192 and 256 128-byte
+// ones), the keys per K/V tile and the ring depth. A CTA of 288 threads
+// gets at most 168 registers a thread, and at hd 192 and 256 the O
+// accumulator alone takes 96 and 128 of them. Measured on an H100: at hd
+// 192, 64-key tiles stay free of spills and beat 32-key ones; at hd 256,
+// 64-key tiles spill more than 32-key ones (S and the two P terms take 16
+// registers each at 32 keys) and run slower, so hd 256 takes 32 keys.
+// Above hd 128 the ring has 2 stages, which keeps Q and the ring inside
+// 227 KB.
 template <int HD> struct Geo {
-  static constexpr int kRow = HD * 2 < 128 ? HD * 2 : 128;  // swizzled row bytes
+  static constexpr int kRow = (HD * 2) % 128 == 0 ? 128 : (HD * 2) % 64 == 0 ? 64 : 32;
+  static constexpr int kBKV = HD > 192 ? 32 : 64;           // keys per K/V tile
+  static constexpr int kStages = HD > 128 ? 2 : 3;          // K/V ring depth
   static constexpr int kChunkCols = kRow / 2;               // columns per chunk
   static constexpr int kChunkQ = kBQ * kRow;                // bytes of a Q chunk
   static constexpr int kChunkKV = kBKV * kRow;              // bytes of a K/V chunk
@@ -287,11 +304,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   using G = Geo<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);          // [chunk][kBQ rows][kRow]
-  uint8_t* Ks = Qs + G::kQBytes;              // [stage][chunk][kBKV rows][kRow]
-  uint8_t* Vs = Ks + kStages * G::kKVBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * G::kKVBytes);
+  uint8_t* Ks = Qs + G::kQBytes;              // [stage][chunk][G::kBKV rows][kRow]
+  uint8_t* Vs = Ks + G::kStages * G::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + G::kStages * G::kKVBytes);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + G::kStages;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // longest tiles first
@@ -302,12 +319,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int t_begin = kv_begin / kBKV;
-  const int n_tiles = kv_end > kv_begin ? (kv_end + kBKV - 1) / kBKV - t_begin : 0;
+  const int t_begin = kv_begin / G::kBKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end + G::kBKV - 1) / G::kBKV - t_begin : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < G::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 32);
     }
@@ -326,10 +343,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
       for (int c = 0; c < HD / G::kChunkCols; ++c)
         tma_load_4d(Qs + c * G::kChunkQ, &qmap, q_full, c * G::kChunkCols, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        const int s = i % G::kStages;
+        mbar_wait(&empty[s], ((i / G::kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * G::kKVBytes);
-        const int kv0 = (t_begin + i) * kBKV;
+        const int kv0 = (t_begin + i) * G::kBKV;
         for (int c = 0; c < HD / G::kChunkCols; ++c) {
           tma_load_4d(Ks + s * G::kKVBytes + c * G::kChunkKV, &kmap, &full[s],
                       c * G::kChunkCols, kh, kv0, b);
@@ -356,16 +373,16 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
 
   mbar_wait(q_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages;
-    const int kv0 = (t_begin + i) * kBKV;
-    mbar_wait(&full[s], (i / kStages) & 1);
+    const int s = i % G::kStages;
+    const int kv0 = (t_begin + i) * G::kBKV;
+    mbar_wait(&full[s], (i / G::kStages) & 1);
     const bool reached = !(causal && kv0 > wg_last)
-                         && !(window > 0 && kv0 + kBKV - 1 <= wg_first - window);
+                         && !(window > 0 && kv0 + G::kBKV - 1 <= wg_first - window);
     if (reached) {
       // S = Q K^T (f32), both operands K-major in shared memory
-      float sacc[kBKV / 2];
+      float sacc[G::kBKV / 2];
 #pragma unroll
-      for (int j = 0; j < kBKV / 2; ++j) sacc[j] = 0.0f;
+      for (int j = 0; j < G::kBKV / 2; ++j) sacc[j] = 0.0f;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
@@ -375,20 +392,20 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
                                       16, 8 * G::kRow, G::kRow);
         const uint64_t db = make_desc(Ks + s * G::kKVBytes + c * G::kChunkKV + off,
                                       16, 8 * G::kRow, G::kRow);
-        Wgmma<T, kBKV>::template ss<0>(sacc, da, db, kk > 0);
+        Wgmma<T, G::kBKV>::template ss<0>(sacc, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<kBKV / 2>(sacc);
+      fence_regs<G::kBKV / 2>(sacc);
 
-      const bool masked = (causal && kv0 + kBKV - 1 > wg_first) || kv0 + kBKV > Skv
+      const bool masked = (causal && kv0 + G::kBKV - 1 > wg_first) || kv0 + G::kBKV > Skv
                           || (window > 0 && kv0 <= wg_last - window);
 #pragma unroll
       for (int i2 = 0; i2 < 2; ++i2) {
         const int qpos = wg_first + r0 + 8 * i2;
         float mx = -INFINITY;
 #pragma unroll
-        for (int c = 0; c < kBKV / 8; ++c) {
+        for (int c = 0; c < G::kBKV / 8; ++c) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             float x = sacc[4 * c + 2 * i2 + j] * scale_log2;
@@ -412,7 +429,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
         m[i2] = m_new;
         float ps = 0.0f;
 #pragma unroll
-        for (int c = 0; c < kBKV / 8; ++c) {
+        for (int c = 0; c < G::kBKV / 8; ++c) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const float p = exp2f(sacc[4 * c + 2 * i2 + j] - m_safe);
@@ -431,9 +448,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
       // P as kPTerms terms in T, each the rounding of what the earlier
       // terms left: the accumulator fragment of 16 keys is the m64k16 A
       // fragment of P V
-      uint32_t pa[kPTerms][kBKV / 16][4];
+      uint32_t pa[kPTerms][G::kBKV / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
+      for (int kk = 0; kk < G::kBKV / 16; ++kk) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           float lo = sacc[8 * kk + 2 * r], hi = sacc[8 * kk + 2 * r + 1];
@@ -450,7 +467,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int t = kPTerms - 1; t >= 0; --t) {  // the small terms first
 #pragma unroll
-        for (int kk = 0; kk < kBKV / 16; ++kk) {
+        for (int kk = 0; kk < G::kBKV / 16; ++kk) {
           const uint64_t db = make_desc(Vs + s * G::kKVBytes + kk * 16 * G::kRow,
                                         G::kChunkKV, 8 * G::kRow, G::kRow);
           Wgmma<T, HD>::template rs<1>(oacc, pa[t][kk], db, 1);
@@ -494,7 +511,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const uint64_t kdims[4] = {(uint64_t)HD, (uint64_t)KH, (uint64_t)Skv, (uint64_t)B};
   const uint64_t kstr[3] = {(uint64_t)HD * 2, (uint64_t)KH * HD * 2,
                             (uint64_t)Skv * KH * HD * 2};
-  const uint32_t kbox[4] = {(uint32_t)G::kChunkCols, 1, (uint32_t)kBKV, 1};
+  const uint32_t kbox[4] = {(uint32_t)G::kChunkCols, 1, (uint32_t)G::kBKV, 1};
   if (!make_map(&qm, type, 4, q, qdims, qstr, qbox, G::kRow)
       || !make_map(&km, type, 4, k, kdims, kstr, kbox, G::kRow)
       || !make_map(&vm, type, 4, v, kdims, kstr, kbox, G::kRow))
@@ -526,6 +543,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 96: return launch<T, 96>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 192: return launch<T, 192>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KH, scale, causal, window, q_offset, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -534,11 +554,6 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// head dims both bodies are instantiated for
-extern "C" int flash_attention_supports_head_dim(int hd) {
-  return hd == 16 || hd == 32 || hd == 64 || hd == 128;
-}
-
 // dynamic shared memory (bytes) of the tensor-core body at head dim hd
 extern "C" int flash_attention_wgmma_smem(int hd) {
   switch (hd) {
@@ -546,6 +561,9 @@ extern "C" int flash_attention_wgmma_smem(int hd) {
     case 32: return (int)tc::Geo<32>::kSmem;
     case 64: return (int)tc::Geo<64>::kSmem;
     case 128: return (int)tc::Geo<128>::kSmem;
+    case 96: return (int)tc::Geo<96>::kSmem;
+    case 192: return (int)tc::Geo<192>::kSmem;
+    case 256: return (int)tc::Geo<256>::kSmem;
     default: return 0;
   }
 }

@@ -67,11 +67,14 @@
 //    whole 32-byte sectors. Shared memory rows of odd index are stored
 //    with bit 4 of the column flipped (an XOR swizzle), so that these
 //    16-byte loads are free of bank conflicts without padding.
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+// the 3xTF32 mma.sync helpers (to_tf32, split, mma3, the fragments)
+using namespace hopper;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kL = 64;         // max chunk length (rows of a chunk tile)
@@ -88,86 +91,6 @@ constexpr size_t kSmemBytes = kSmemWords * 4;
 template <int ld>
 __device__ __forceinline__ int sw(int r, int c) {
   return r * ld + (c ^ ((r & 1) << 4));
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on mma.sync
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo (to ~2^-22 relative), both TF32
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// d (16 x 8) += a (16 x 8) . b (8 x 8). Fragments (g = lane / 4, t = lane
-// % 4): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b = (t, g),
-// (t + 4, g); d = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a . b in 3xTF32, the small cross terms first
-__device__ __forceinline__ void mma3(float* d, const uint32_t* ahi, const uint32_t* alo,
-                                     const uint32_t* bhi, const uint32_t* blo) {
-  mma_tf32(d, alo, bhi);
-  mma_tf32(d, ahi, blo);
-  mma_tf32(d, ahi, bhi);
-}
-
-// The fragments of one k-step pair with the permuted reduction order:
-// index c (0..3) of a thread's 4 consecutive values is logical k = t of
-// k-step 0 (c = 0), k = t + 4 of k-step 0 (c = 1), then the same of
-// k-step 1 (c = 2, 3). A from rows g (v0) and g + 8 (v1), split;
-// B from one column's 4 values, split.
-struct FragA { uint32_t hi[2][4], lo[2][4]; };
-struct FragB { uint32_t hi[2][2], lo[2][2]; };
-
-__device__ __forceinline__ void frag_a(const float4& v0, const float4& v1, FragA& f) {
-  split(v0.x, f.hi[0][0], f.lo[0][0]);
-  split(v1.x, f.hi[0][1], f.lo[0][1]);
-  split(v0.y, f.hi[0][2], f.lo[0][2]);
-  split(v1.y, f.hi[0][3], f.lo[0][3]);
-  split(v0.z, f.hi[1][0], f.lo[1][0]);
-  split(v1.z, f.hi[1][1], f.lo[1][1]);
-  split(v0.w, f.hi[1][2], f.lo[1][2]);
-  split(v1.w, f.hi[1][3], f.lo[1][3]);
-}
-
-__device__ __forceinline__ void frag_b(const float4& v, FragB& f) {
-  split(v.x, f.hi[0][0], f.lo[0][0]);
-  split(v.y, f.hi[0][1], f.lo[0][1]);
-  split(v.z, f.hi[1][0], f.lo[1][0]);
-  split(v.w, f.hi[1][1], f.lo[1][1]);
-}
-
-// A fragments of staged hi/lo rows r and r + 8 (4 words each, already split)
-__device__ __forceinline__ void frag_a_staged(const uint4& h0, const uint4& h1,
-                                              const uint4& l0, const uint4& l1, FragA& f) {
-  f.hi[0][0] = h0.x; f.hi[0][1] = h1.x; f.hi[0][2] = h0.y; f.hi[0][3] = h1.y;
-  f.hi[1][0] = h0.z; f.hi[1][1] = h1.z; f.hi[1][2] = h0.w; f.hi[1][3] = h1.w;
-  f.lo[0][0] = l0.x; f.lo[0][1] = l1.x; f.lo[0][2] = l0.y; f.lo[0][3] = l1.y;
-  f.lo[1][0] = l0.z; f.lo[1][1] = l1.z; f.lo[1][2] = l0.w; f.lo[1][3] = l1.w;
-}
-
-__device__ __forceinline__ void frag_b_staged(const uint4& h, const uint4& l, FragB& f) {
-  f.hi[0][0] = h.x; f.hi[0][1] = h.y; f.hi[1][0] = h.z; f.hi[1][1] = h.w;
-  f.lo[0][0] = l.x; f.lo[0][1] = l.y; f.lo[1][0] = l.z; f.lo[1][1] = l.w;
-}
-
-// d += both k-steps of the pair
-__device__ __forceinline__ void mma3_pair(float* d, const FragA& a, const FragB& b) {
-  mma3(d, a.hi[0], a.lo[0], b.hi[0], b.lo[0]);
-  mma3(d, a.hi[1], a.lo[1], b.hi[1], b.lo[1]);
 }
 
 // columns n .. n + 3 (n a multiple of 4) of row i (< rows) of a (B, S, N)

@@ -24,6 +24,13 @@ follows is written at the top of the CUDA source.
   tensors must suit TMA (16-byte aligned bases).
 * :func:`flash_attention_ref` is the plain PyTorch version. The CPU
   path and the tests use it.
+* Both bodies are built for head dims :data:`HEAD_DIMS`. Any other head
+  dim up to 256 is zero-padded to the next of them (:func:`padded_head_dim`)
+  on q, k and v, with the scale of the true head dim, and the output is
+  sliced back: zero columns change no score and add only zero output
+  columns. That costs one copy of q, k, v and o each. Above 256 the
+  wrapper raises: the tensor-core body's O accumulator of 64 rows would
+  exceed the register file.
 * There is no backward, as the JAX kernel has no VJP: the wrapper raises
   when a gradient would be required.
 """
@@ -41,6 +48,9 @@ from repro_torch.kernels._tma import check_tma
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# head dims both bodies are instantiated for (csrc/flash_attention.cu)
+HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 
 _lib = None
 
@@ -67,25 +77,49 @@ def _library():
         lib.flash_attention_fma.argtypes = tail
         lib.flash_attention_wgmma.restype = ctypes.c_int
         lib.flash_attention_wgmma.argtypes = [ctypes.c_int] + tail
-        lib.flash_attention_supports_head_dim.restype = ctypes.c_int
-        lib.flash_attention_supports_head_dim.argtypes = [ctypes.c_int]
         lib.flash_attention_wgmma_smem.restype = ctypes.c_int
         lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
 
+def padded_head_dim(hd: int) -> int:
+    """The instantiated head dim the kernel runs ``hd`` at: ``hd`` itself
+    or the next of :data:`HEAD_DIMS`. Raises above 256."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"flash_attention kernel takes head_dim <= {HEAD_DIMS[-1]}, "
+                     f"got {hd}: the tensor-core body's O accumulator of 64 rows "
+                     "would exceed the register file")
+
+
+def pad_head_dim(q, k, v):
+    """q, k and v zero-padded along the head dim to
+    :func:`padded_head_dim` (unchanged where it is instantiated), and that
+    width. With the true head dim's scale, attention of the padded tensors
+    is the original's in its first ``hd`` output columns and 0 in the
+    rest: the zero columns add nothing to any score."""
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
+    if width != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
+    return q, k, v, width
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None):
     """Plain PyTorch version (``kernels/ref.py`` of the JAX package):
-    q (B, Sq, H, hd), k/v (B, Skv, KH, hd) -> (B, Sq, H, hd) in q's dtype."""
+    q (B, Sq, H, hd), k/v (B, Skv, KH, hd) -> (B, Sq, H, hd) in q's dtype;
+    the scores are scaled by ``scale`` (default ``1 / sqrt(hd)``)."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
     kr = torch.repeat_interleave(k, g, dim=2)
     vr = torch.repeat_interleave(v, g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float())
-    s = s * (1.0 / math.sqrt(hd))
+    s = s * (1.0 / math.sqrt(hd) if scale is None else scale)
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -128,17 +162,16 @@ def _launch(q, k, v, causal, window, q_offset):
         raise ValueError(f"window must be >= 1 or None, got {window}")
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    lib = _library()
-    if not lib.flash_attention_supports_head_dim(hd):
-        raise ValueError(f"flash_attention kernel supports head_dim 16, 32, "
-                         f"64 or 128, got {hd}")
-    out = torch.empty_like(q)
+    padded_head_dim(hd)  # raises above 256
     if b == 0 or sq == 0:
-        return out
+        return torch.empty_like(q)
     if skv == 0:
         raise ValueError("flash_attention needs at least one key")
+    q, k, v, width = pad_head_dim(q, k, v)
+    lib = _library()
+    out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, kh, hd, 1.0 / math.sqrt(hd), int(causal),
+            skv, h, kh, width, 1.0 / math.sqrt(hd), int(causal),
             0 if window is None else int(window), int(q_offset))
     if route == "wgmma":
         # the tensor maps' strides, innermost first: a row, a head's rows,
@@ -147,7 +180,7 @@ def _launch(q, k, v, causal, window, q_offset):
         for name, t, n_heads, seq in (("q", q, h, sq), ("k", k, kh, skv),
                                       ("v", v, kh, skv)):
             check_tma(f"flash_attention {name}", t.data_ptr(),
-                      [hd * es, n_heads * hd * es, seq * n_heads * hd * es])
+                      [width * es, n_heads * width * es, seq * n_heads * width * es])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if route == "wgmma":
@@ -157,7 +190,7 @@ def _launch(q, k, v, causal, window, q_offset):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return out if width == hd else out[..., :hd].contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -28,6 +28,9 @@ written at the top of the CUDA source.
   which holds the f32 gate that one TF32 product would miss.
 * :func:`ssd_scan_ref` is the plain PyTorch version, the Pallas body's
   arithmetic chunk by chunk. The CPU path and the tests use it.
+* Any chunk and any ``d_state`` run: :func:`by_state_tiles` maps a call
+  onto the kernel's limits (chunk <= 64, N <= 128) by two identities, and
+  the CPU tests apply the same rewrite to the plain version.
 * There is no backward and no initial state, as the JAX kernel has
   neither: the wrapper raises when a gradient would be required.
 """
@@ -112,6 +115,35 @@ def ssd_scan_ref(x, dt, a, b, c, *, chunk: int = 64):
     return y.to(x.dtype), hs
 
 
+def by_state_tiles(scan, x, dt, a, b, c, *, chunk: int):
+    """``scan(x, dt, a, b, c, chunk=...)`` at any chunk and any d_state N,
+    through calls within the kernel's limits.
+
+    * Any chunk. The SSD result does not depend on the chunk length:
+      chunking is an exact rewrite of the recurrence h_t = exp(dt_t a) h_t-1
+      + dt_t x_t B_t^T, y_t = C_t . h_t, and the zero padding of a ragged
+      last chunk (dt = 0, x = 0) changes neither y nor h_last. So a chunk
+      above MAX_CHUNK runs at MAX_CHUNK; only the rounding differs.
+    * Any N. y_t = sum_n C_tn h_t[:, n] is a sum over the state's columns,
+      and each column of h evolves on its own (C . B^T is a sum over n and
+      the decays multiply it elementwise). So N splits into tiles of at
+      most MAX_STATE columns: y is the sum of the tiles' y, h_last the
+      concatenation of their h_last.
+    """
+    chunk = min(chunk, MAX_CHUNK)
+    n = b.shape[-1]
+    if n <= MAX_STATE:
+        return scan(x, dt, a, b, c, chunk=chunk)
+    y, hs = None, []
+    for n0 in range(0, n, MAX_STATE):
+        cols = slice(n0, min(n, n0 + MAX_STATE))
+        y_t, h_t = scan(x, dt, a, b[..., cols].contiguous(), c[..., cols].contiguous(),
+                        chunk=chunk)
+        y = y_t if y is None else y + y_t
+        hs.append(h_t)
+    return y, torch.cat(hs, dim=-1)
+
+
 def _check(x, dt, a, b, c, chunk):
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3:
         raise ValueError("ssd_scan takes x (B, S, H, P), dt (B, S, H), a (H,), "
@@ -127,8 +159,9 @@ def _check(x, dt, a, b, c, chunk):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
-def _launch(x, dt, a, b, c, chunk):
-    """Launch the CUDA kernel on the current stream (no fallback)."""
+def _launch(x, dt, a, b, c, *, chunk):
+    """Launch the CUDA kernel on the current stream (no fallback), at
+    chunk <= MAX_CHUNK and N <= MAX_STATE (see :func:`by_state_tiles`)."""
     global launches
     _check(x, dt, a, b, c, chunk)
     dev = x.device
@@ -141,9 +174,6 @@ def _launch(x, dt, a, b, c, chunk):
             raise ValueError("ssd_scan kernel needs contiguous inputs")
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    if chunk > MAX_CHUNK or n > MAX_STATE:
-        raise ValueError(f"ssd_scan kernel takes chunk <= {MAX_CHUNK} and "
-                         f"d_state <= {MAX_STATE}; got chunk {chunk}, N {n}")
     y = torch.empty_like(x)
     h_last = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0 or h_last.numel() == 0:
@@ -173,7 +203,8 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int = 64):
                            "VJP); call it under torch.no_grad() or use "
                            "ssd_chunked for training")
     if x.device.type == "cuda":
-        return _launch(x, dt, a, b, c, chunk)
+        _check(x, dt, a, b, c, chunk)
+        return by_state_tiles(_launch, x, dt, a, b, c, chunk=chunk)
     if x.device.type == "cpu":
         _check(x, dt, a, b, c, chunk)
         return ssd_scan_ref(x, dt, a, b, c, chunk=chunk)

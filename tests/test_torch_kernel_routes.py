@@ -1,11 +1,13 @@
 """Host-side logic of the port's tensor-core bodies, on the CPU: which
 body a dtype takes, the split-K plan of the stage kernel's down product,
 the check of what TMA can take, the grouped FFN's tile schedule (held to
-``dropless_layout``), and an emulation of the SSD scan's TF32 numerics.
+``dropless_layout``), and emulations of the TF32 numerics of the SSD scan
+and of ``ca_attention``.
 
 These are pure functions of shapes, dtypes, addresses and data; the
 kernels themselves run only on the card (``tests/test_torch_gpu.py``).
-This file imports no JAX."""
+Only the ``ca_attention`` emulation's test imports JAX (inside the test),
+to hold the emulation to the JAX kernel."""
 import math
 
 import numpy as np
@@ -287,3 +289,91 @@ def test_one_tf32_pass_misses_the_scan_gate_and_3xtf32_meets_it():
     one, three = rel(1), rel(3)
     assert one > 1e-4
     assert three < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# ca_attention's arithmetic on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _split_rz(v):
+    """The kernel's split_rz: hi = v with the low 13 mantissa bits cleared,
+    lo = v - hi (exact in f32)."""
+    hi = (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, v - hi
+
+
+def _tc_product(a, b, terms):
+    """a @ b as the kernel's mma.sync takes it: each operand split, the
+    tensor cores reading only a TF32 operand's top 19 bits (so lo enters
+    truncated), f32 accumulation; terms 3 sums lo.hi, hi.lo and hi.hi in
+    separate accumulators, small terms first, terms 1 takes hi.hi alone."""
+    ah, al = _split_rz(a)
+    bh, bl = _split_rz(b)
+    hh = ah @ bh
+    if terms == 1:
+        return hh
+    return (_split_rz(al)[0] @ bh + ah @ _split_rz(bl)[0]) + hh
+
+
+def _ca_emulated(obs, hist, mask, wq, wk, wv, terms):
+    """The kernel's arithmetic: q = obs wq_s, u = q wk^T / sqrt(C), scores
+    <hist_i, u>, the -FLT_MAX mask and an online softmax over groups of 4
+    pairs, hbar / l (zero without a valid pair), s' = hbar wv."""
+    b, i_len, dp = hist.shape
+    c = wq.shape[1]
+    q = _tc_product(obs, wq, terms)
+    u = _tc_product(q, wk.T, terms) * (1.0 / math.sqrt(c))
+    scores = (hist * u[:, None, :]).sum(-1)
+    valid = mask > 0
+    scores = torch.where(valid, scores, torch.full_like(scores, -torch.finfo(torch.float32).max))
+    m = torch.full((b,), -math.inf)
+    l = torch.zeros(b)
+    hb = torch.zeros(b, dp)
+    for i0 in range(0, i_len, 4):
+        s = scores[:, i0:i0 + 4]
+        m_new = torch.maximum(m, s.max(-1).values)
+        corr = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[:, None])
+        l = l * corr + e.sum(-1)
+        hb = hb * corr[:, None] + (e[:, :, None] * hist[:, i0:i0 + 4]).sum(1)
+        m = m_new
+    hb = torch.where(valid.any(-1, keepdim=True), hb / l[:, None], torch.zeros_like(hb))
+    return torch.cat([obs, _tc_product(hb, wv, terms)], dim=-1)
+
+
+@pytest.mark.parametrize("b,obs_dim,pair_dim,i_len,c", [
+    (128, 28, 52, 4, 64),  # the SAC update's call
+    (64, 76, 132, 16, 64),  # U 22, hist_len 16
+])
+def test_ca_attention_emulation_meets_the_gate_with_three_tf32_terms(b, obs_dim, pair_dim,
+                                                                      i_len, c):
+    """The kernel's arithmetic emulated on the CPU (3xTF32 products from
+    split_rz operands, the online softmax over groups of 4 pairs) is within
+    1e-5 of the JAX kernel (Pallas, interpret mode), the card's f32 gate
+    CA_FWD_ATOL, with an all-masked row exactly zero; one TF32 product per
+    multiply (hi.hi alone) misses that gate."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ops import ca_attention as jax_ca_attention
+
+    rng = np.random.default_rng(b + i_len)
+    f = np.float32
+    params = {"wq_s": (rng.standard_normal((obs_dim, c)) / np.sqrt(obs_dim)).astype(f),
+              "wq_h": (rng.standard_normal((pair_dim, c)) / np.sqrt(pair_dim)).astype(f),
+              "wk": (rng.standard_normal((pair_dim, c)) / np.sqrt(pair_dim)).astype(f),
+              "wv": (rng.standard_normal((pair_dim, c)) / np.sqrt(pair_dim)).astype(f)}
+    obs = rng.standard_normal((b, obs_dim)).astype(f)
+    hist = rng.standard_normal((b, i_len, pair_dim)).astype(f)
+    mask = (rng.uniform(size=(b, i_len)) > 0.3).astype(f)
+    mask[0] = 0.0
+    ref = np.asarray(jax_ca_attention({k: jnp.asarray(v) for k, v in params.items()},
+                                      obs, hist, mask, interpret=True))
+    t = {k: torch.from_numpy(v) for k, v in params.items()}
+    args = (torch.from_numpy(obs), torch.from_numpy(hist), torch.from_numpy(mask),
+            t["wq_s"], t["wk"], t["wv"])
+    three = _ca_emulated(*args, terms=3).numpy()
+    one = _ca_emulated(*args, terms=1).numpy()
+    assert np.abs(three - ref).max() <= 1e-5
+    np.testing.assert_array_equal(three[0, obs_dim:], 0.0)
+    assert np.abs(one - ref).max() > 1e-5

@@ -23,13 +23,18 @@ from repro.kernels.ops import ca_attention as jax_ca_attention  # noqa: E402
 from repro_torch.core.agents import attention as TATT  # noqa: E402
 from repro_torch.kernels import ca_attention as CA  # noqa: E402
 
-# the shapes of test_kernels.py's CA parity test:
+# the shapes of test_kernels.py's CA parity test, then the SAC rollout's,
+# the U 22 env's with a history of 16 (NetworkConfig(num_devices=22):
+# obs_dim 76, pair_dim 132) and a wide attention:
 # (batch, obs_dim, pair_dim, I, attn_dim, blk)
 CA_SHAPES = [
     (1, 10, 14, 4, 8, 128),
     (7, 25, 51, 4, 64, 4),  # ragged batch, tiny blocks
     (128, 25, 51, 4, 64, 128),
     (130, 16, 32, 8, 32, 64),  # ragged vs block size, longer history
+    (32, 28, 52, 4, 64, 128),  # the rollout's call
+    (64, 76, 132, 16, 64, 64),  # U 22, hist_len 16
+    (16, 28, 52, 8, 256, 16),  # C 256
 ]
 
 

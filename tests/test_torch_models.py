@@ -187,6 +187,8 @@ FLASH_CASES = [
     (2, 256, 256, 8, 2, 64, 64, 64, 64, 0),  # sliding window
     (1, 512, 512, 2, 2, 16, 128, 128, 64, 0),  # window, uneven blocks
     (2, 32, 128, 4, 2, 32, None, 32, 64, 96),  # queries at offset 96
+    (1, 64, 64, 6, 2, 192, None, 32, 32, 0),  # Nemotron-4-340B's head dim
+    (1, 72, 72, 4, 2, 80, None, 32, 32, 0),  # padded to 96 on the card
 ]
 
 
@@ -208,6 +210,26 @@ def test_flash_attention_plain_matches_jax_kernel(case, dtype):
     atol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32),
                                atol=atol)
+
+
+@pytest.mark.parametrize("hd", [8, 48, 80, 100, 160, 192, 250])
+def test_flash_attention_pad_and_slice_keeps_the_function(hd):
+    """The wrapper's rewrite for head dims the kernel is not built for:
+    zero-padding q, k and v to the next instantiated width and scoring
+    with the true head dim's scale gives the plain version's output in
+    the first hd columns and exact zeros in the rest."""
+    assert FA.padded_head_dim(hd) == min(w for w in FA.HEAD_DIMS if w >= hd)
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 40, 4, hd), (2, 40, 2, hd), (2, 40, 2, hd)))
+    qp, kp, vp, width = FA.pad_head_dim(q, k, v)
+    assert width == FA.padded_head_dim(hd) and qp.shape[-1] == width
+    ref = FA.flash_attention_ref(q, k, v, window=16)
+    out = FA.flash_attention_ref(qp, kp, vp, window=16, scale=1.0 / np.sqrt(hd))
+    np.testing.assert_allclose(out[..., :hd].numpy(), ref.numpy(), atol=1e-6, rtol=1e-6)
+    assert float(out[..., hd:].abs().max() if width > hd else 0.0) == 0.0
+    with pytest.raises(ValueError):
+        FA.padded_head_dim(272)
 
 
 def test_flash_attention_wrapper_refuses_gradients_and_counts_no_cpu_launch():

@@ -117,6 +117,31 @@ def test_ssd_scan_plain_matches_jax_kernel(shape):
     np.testing.assert_array_equal(hw.numpy(), hl.numpy())
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 300, 2, 16, 8, 128),  # chunk 128: the kernel runs at 64
+    (1, 96, 2, 16, 256, 32),  # N 256: two state tiles of 128
+    (1, 200, 2, 8, 300, 100),  # both, with a ragged last state tile
+])
+def test_ssd_scan_rewrite_matches_jax_kernel(shape):
+    """The wrapper's rewrite onto the kernel's limits (chunk <= 64, N <=
+    128), applied to the plain version, against the Pallas kernel in
+    interpret mode at the requested chunk and N: y and the final state."""
+    arrays = _ssd_inputs(shape, seed=3)
+    chunk = shape[-1]
+    yr, hr = jax_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk, interpret=True)
+    calls = []
+
+    def scan(*args, chunk):
+        calls.append((chunk, args[3].shape[-1]))
+        return SK.ssd_scan_ref(*args, chunk=chunk)
+
+    y, hl = SK.by_state_tiles(scan, *_t(*arrays), chunk=chunk)
+    assert all(c <= SK.MAX_CHUNK and n <= SK.MAX_STATE for c, n in calls)
+    assert len(calls) == -(-shape[4] // SK.MAX_STATE)
+    _close(y.numpy(), yr, SSD_RTOL)
+    _close(hl.numpy(), hr, SSD_RTOL)
+
+
 def test_ssd_scan_wrapper_refuses_gradients_and_bad_shapes():
     x, dt, a, bm, cm = _t(*_ssd_inputs(SSD_SHAPES[0]))
     with pytest.raises(RuntimeError):
