@@ -30,8 +30,15 @@ Phases (each raises on failure; any failure exits non-zero):
    ``evaluate_sac`` at the repo's SAC configuration on the ResNet-101
    MHSL env, with the launch counter reset just before and read just
    after, checked against the count the path must give;
-   then a short ``train_sac`` at ``NetworkConfig(num_devices=22)`` with
-   ``hist_len`` 16 (obs_dim 76, pair_dim 132), its launches checked;
+   then a 7-step single-env plan rollout through ``select_action`` (the
+   kernel at B = 1, held to its plain version, and each action equal to
+   the plain route's under the same Gumbel draws); a short ``train_sac``
+   at ``NetworkConfig(num_devices=22)`` with ``hist_len`` 16 (obs_dim 76,
+   pair_dim 132), its launches checked; ``train_sac`` with the sequential
+   update (``joint_update=False``) through one updating chunk, its
+   launches checked and its gradient steps traced; ``train_dqn`` and
+   ``train_ppo`` at fig 4's configuration for four chunks (host and
+   device seconds per chunk);
 4b. the split slice, through ``launch.train_mhsl_rl.main``: a plan
    learned on the 36-layer Qwen2.5-3B profile, 1F1B pipelined training
    of Qwen2.5-3B at full width and depth 8 (stage MLP halves through
@@ -56,6 +63,11 @@ Phases (each raises on failure; any failure exits non-zero):
 4e. (C) Qwen3-MoE-30B-A3B through the launcher at full width, depth 2 on
    2 stages (MoE halves through the dropless reference route, the
    held-out attention through ``flash_attention`` at GQA 32/4);
+4f. the fig-3 band: the six arms of ``figures.band.CARD_BAND`` (ICM-CA,
+   no ICM, no CA, neither, PPO, DQN at full width on the ResNet-101 env)
+   trained on the port and held to the JAX runs committed in
+   ``tests/data/torch_band_reference.json``; the negative control (ICM-CA
+   never leaving warmup) must fall outside the ICM-CA band;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -78,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -370,6 +383,32 @@ def _ca_check_case(torch, CA, b, i, obs_dim, pair_dim, c):
 # ---------------------------------------------------------------------------
 
 
+# Every torch.profiler trace pads the traced work with idle host time on
+# both sides, so that no kernel of it runs near an edge of the profiler's
+# capture window (kineto maps the device clock onto the host's and drops
+# records it places outside the window).
+TRACE_PAD_S = 0.05
+# A trace held to an exact launch count that comes up short of it, with no
+# kernel it must not see, is retaken up to this many times in all; each
+# short trace is logged. A trace with a kernel it must not see, or with
+# more launches than expected, fails at once.
+TRACE_ATTEMPTS = 3
+
+
+@contextmanager
+def _traced(torch):
+    """``torch.profiler.profile`` of the device and the host around the
+    body, padded by ``TRACE_PAD_S`` of idle time on each side."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def _time_ms(torch, fn, iters=200, reps=7):
     """Eager: median over ``reps`` of CUDA-event time per call over
     ``iters`` back-to-back Python calls (host launch cost included)."""
@@ -535,6 +574,13 @@ def _ca_stamps(torch, card):
 # ---------------------------------------------------------------------------
 
 
+def _finite_run(res, what):
+    vals = [v for m in res.metrics for v in m.values()]
+    vals += res.episode_reward + res.episode_leak
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite {what} metric")
+
+
 def phase_slice(torch, card):
     from repro_torch.core.agents import loops as LP
     from repro_torch.core.agents import sac as SAC
@@ -572,10 +618,7 @@ def phase_slice(torch, card):
             raise AssertionError(f"parameter on {leaf.device}")
         if not torch.isfinite(leaf).all():
             raise AssertionError("non-finite parameter after training")
-    vals = [v for m in res.metrics for v in m.values()]
-    vals += res.episode_reward + res.episode_leak
-    if not all(math.isfinite(v) for v in vals):
-        raise AssertionError("non-finite training metric")
+    _finite_run(res, "training")
     if len(res.episode_reward) != EPISODES:
         raise AssertionError("episode count")
     log(f"[slice] train_sac: {EPISODES} episodes, {upd_chunks} updating "
@@ -655,10 +698,7 @@ def phase_sac_u22(torch, card):
     for leaf in tree_leaves(res.params):
         if not torch.isfinite(leaf).all():
             raise AssertionError("non-finite parameter after the U 22 run")
-    vals = [v for m in res.metrics for v in m.values()]
-    vals += res.episode_reward + res.episode_leak
-    if not all(math.isfinite(v) for v in vals):
-        raise AssertionError("non-finite U 22 training metric")
+    _finite_run(res, "U 22 training")
     log(f"[slice] U 22: obs_dim {env.obs_dim}, hist_len {cfg.hist_len}; train_sac "
         f"{U22_EPISODES} episodes x {U22_NUM_ENVS} envs, {n_updates} gradient steps, "
         f"ca_attention launches {CA.launches} (expected {expect}), {secs:.3f} s; last "
@@ -667,17 +707,275 @@ def phase_sac_u22(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# 4f. the algorithm comparison: baselines, the sequential update,
+#     select_action, the fig-3 band
+# ---------------------------------------------------------------------------
+
+# fig 4's baselines (DQNConfig(eps_decay_episodes=160 // 2), PPOConfig()),
+# a few chunks of 16 envs: DQN updates from its second chunk (a batch of
+# 128 needs two chunks of 112 transitions), PPO on every chunk
+BASELINE_NUM_ENVS = 16
+BASELINE_EPISODES = 64
+# the sequential update: one warm-up chunk of 20 envs (140 transitions fill
+# a batch of 128) and one updating chunk of 280 gradient steps
+SEQ_NUM_ENVS = 20
+SEQ_EPISODES = 40
+
+
+def _device_seconds(torch, run):
+    """Device busy seconds and kernel count of ``run()`` (a short training
+    run) by torch.profiler: the sum of its kernels' device time."""
+    with _traced(torch) as prof:
+        run()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    if dev_s == 0:
+        raise AssertionError("the profiler saw no device time")
+    return dev_s, sum(e.count for e in kern)
+
+
+def phase_baselines(torch, card):
+    """train_dqn and train_ppo at the fig-4 configuration on the card,
+    every counter reset just before and read just after (neither reaches a
+    kernel); then a 2-chunk run of each under torch.profiler for the
+    device time per chunk."""
+    from repro_torch.core.agents import dqn as DQ
+    from repro_torch.core.agents import ppo as PP
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    runs = {
+        "dqn": lambda episodes: DQ.train_dqn(
+            env, DQ.DQNConfig(eps_decay_episodes=80), episodes=episodes, seed=3,
+            num_envs=BASELINE_NUM_ENVS),
+        "ppo": lambda episodes: PP.train_ppo(
+            env, PP.PPOConfig(), episodes=episodes, seed=3,
+            num_envs=BASELINE_NUM_ENVS),
+    }
+    for name, run in runs.items():
+        _reset_counts()
+        res = run(BASELINE_EPISODES)
+        torch.cuda.synchronize()
+        if any(_counts().values()):
+            raise AssertionError(f"train_{name} launched {_counts()}")
+        chunks = BASELINE_EPISODES // BASELINE_NUM_ENVS
+        want = [name == "ppo" or c > 0 for c in range(chunks)]
+        if res.chunk_updated != want or len(res.episode_reward) != BASELINE_EPISODES:
+            raise AssertionError(f"train_{name}: chunks updated {res.chunk_updated}, "
+                                 f"expected {want}")
+        _finite_run(res, f"train_{name}")
+        host = [s for s, u in zip(res.chunk_seconds, res.chunk_updated) if u][1:]
+        dev_s, n_kern = _device_seconds(torch, lambda: run(2 * BASELINE_NUM_ENVS))
+        _reset_counts()
+        log(f"[baselines] train_{name}: {BASELINE_EPISODES} episodes x "
+            f"{BASELINE_NUM_ENVS} envs, chunks updated {res.chunk_updated}; last "
+            f"update {res.metrics[-1]}; host s per updating chunk (after the first) "
+            f"{['%.3f' % s for s in host]}, median {statistics.median(host):.3f} s; a profiled "
+            f"2-chunk run: {dev_s:.4f} s device busy, {n_kern} kernels "
+            f"({dev_s / 2:.4f} s device per chunk) [{card}]")
+
+
+def phase_sequential(torch, card):
+    """train_sac with the sequential three-backward update
+    (``joint_update=False``) through one updating chunk, ca_attention's
+    launches held to the path's count (one per gradient step: the actor
+    loss's forward, and one per rollout step); then a trace of its
+    gradient steps. Returns the launch count."""
+    from dataclasses import replace
+
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+    from repro_torch.kernels import ca_attention as CA
+
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    cfg = replace(SAC.SACConfig(), joint_update=False)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = LP.train_sac(env, cfg, episodes=SEQ_EPISODES, seed=2,
+                       warmup_episodes=SEQ_NUM_ENVS, num_envs=SEQ_NUM_ENVS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = CA.launches
+    n_updates = cfg.updates_per_step * env.episode_len * SEQ_NUM_ENVS
+    expect = n_updates + env.episode_len
+    if res.chunk_updated != [False, True]:
+        raise AssertionError(f"sequential run: chunks updated {res.chunk_updated}")
+    if launches != expect:
+        raise AssertionError(f"ca_attention launched {launches} times in the "
+                             f"sequential run, expected {expect}")
+    others = {k: v for k, v in _counts().items() if k != "ca_attention"}
+    if any(others.values()):
+        raise AssertionError(f"the sequential run launched {others}")
+    _finite_run(res, "sequential SAC")
+    if set(res.metrics[-1]) != {"critic_loss", "actor_loss", "r_c", "icm_inv_loss",
+                                "icm_fwd_loss"}:
+        raise AssertionError(f"sequential update metrics {res.metrics[-1]}")
+    log(f"[sequential] train_sac(joint_update=False): {SEQ_EPISODES} episodes x "
+        f"{SEQ_NUM_ENVS} envs, {n_updates} gradient steps, ca_attention launches "
+        f"{launches} (expected {expect}); chunk seconds "
+        f"{['%.3f' % s for s in res.chunk_seconds]} (updating {res.chunk_seconds[1]:.3f} s, "
+        f"{res.chunk_seconds[1] / n_updates * 1e3:.2f} ms per gradient step), "
+        f"{secs:.3f} s in all; last update {res.metrics[-1]} [{card}]")
+    phase_trace(torch, card, env, cfg, res.params, steps=10, label=" sequential")
+    return launches
+
+
+def phase_select_action(torch, card, env, cfg, params):
+    """A 7-step single-env plan rollout through ``select_action`` (the
+    actor at B = 1 through the ca_attention kernel), its launches counted;
+    then, launches not counted, the kernel at each step's B = 1 inputs
+    against its plain version, and each action against the plain route's
+    (the plain version's s', the same heads, the same Gumbel draws).
+    Returns (launches, max abs error)."""
+    from repro_torch.core.agents import action_space as A
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.kernels import ca_attention as CA
+
+    dims, dev = env.action_dims, env.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    st = env.reset(env.sample_positions(gen, 1))
+    pair_dim = env.obs_dim + A.flat_dim(dims)
+    hist = torch.zeros((cfg.hist_len, pair_dim), device=dev)
+    hmask = torch.zeros((cfg.hist_len,), device=dev)
+    steps = []
+    _reset_counts()
+    for _ in range(env.episode_len):
+        obs = env.observe(st)[0]
+        masks = {k: v[0] for k, v in env.action_masks(st).items()}
+        g = A.gumbel(A.head_shapes(dims), gen, dev)
+        a = SAC.select_action(params, g, obs, hist, hmask, masks, dims, cfg)
+        steps.append((obs, hist, hmask, masks, g, a))
+        st, _, _, info = env.step(st, {k: v[None] for k, v in a.items()},
+                                  env.draw(gen, 1))
+        pair = torch.cat([obs, A.onehot(a, dims)])
+        hist = torch.cat([hist[1:], pair[None]])
+        hmask = torch.cat([hmask[1:], torch.ones_like(hmask[:1])])
+    torch.cuda.synchronize()
+    counts = _counts()
+    launches = counts.pop("ca_attention")
+    if launches != env.episode_len or any(counts.values()):
+        raise AssertionError(f"select_action rollout launched ca_attention "
+                             f"{launches} times (expected {env.episode_len}), "
+                             f"others {counts}")
+    saved = _counts()
+    worst = 0.0
+    ca = params["actor"]["ca"]
+    with torch.no_grad():
+        for t, (obs, hist, hmask, masks, g, a) in enumerate(steps):
+            one = (obs[None], hist[None], hmask[None])
+            x = CA.ca_attention(ca, *one)
+            ref = CA.ca_attention_ref(*one, ca["wq_s"], ca["wk"], ca["wv"])
+            worst = max(worst, float((x - ref).abs().max()))
+            logits = SAC._head_logits(params, ref, {k: v[None] for k, v in masks.items()},
+                                      dims)
+            plain = A.sample(logits, {k: v[None] for k, v in g.items()})
+            for h in A.HEADS:
+                if not torch.equal(plain[h][0], a[h]):
+                    raise AssertionError(f"select_action step {t} head {h}: kernel "
+                                         f"route {a[h].tolist()}, plain route "
+                                         f"{plain[h][0].tolist()}")
+    _reset_counts(saved)
+    if worst > CA_FWD_ATOL["float32"]:
+        raise AssertionError(f"ca_attention at B = 1: max|err| {worst:.3e}")
+    plan = (tuple(int(b) for b in st.boundaries[0].tolist()),
+            tuple(int(d) for d in st.stage_dev[0].tolist()))
+    log(f"[select_action] 7-step single-env plan rollout: ca_attention launches "
+        f"{launches} (B = 1), kernel vs plain max|err| {worst:.3e} (atol "
+        f"{CA_FWD_ATOL['float32']:.0e}), actions equal to the plain route's under "
+        f"the same Gumbel draws; plan boundaries {plan[0]}, devices {plan[1]}, "
+        f"leaked {float(st.leaked[0]):.4f}")
+    return launches, worst
+
+
+def band_config():
+    """The configuration the band phase trains (``band.CARD_BAND``);
+    ``tests/data/torch_band_reference.json`` must hold it."""
+    from repro_torch.figures import band as B
+
+    return B.CARD_BAND
+
+
+def phase_band(torch, card):
+    """The fig-3 band on the card: every arm of the card band (ICM-CA, no
+    ICM, no CA, neither, PPO, DQN) trained on the port on the band's first
+    ``CARD_TORCH_SEEDS`` seeds, held per metric to the JAX runs of
+    ``tests/data/torch_band_reference.json`` by ``band.compare``; the
+    counters reset before and read after each arm (the CA arms launch
+    ca_attention once per rollout and gradient step). Then the negative
+    control (ICM-CA never leaving warmup) must fall outside the ICM-CA
+    band. Any arm outside its band fails the phase, after all are logged."""
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+    from repro_torch.figures import band as B
+
+    cfg = band_config()
+    ref = B.load_reference(ROOT / "tests" / "data" / "torch_band_reference.json")["card"]
+    if ref["config"] != json.loads(json.dumps(cfg)):
+        raise AssertionError("torch_band_reference.json was made at another "
+                             "configuration than band.CARD_BAND")
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    seeds = cfg["seeds"][:B.CARD_TORCH_SEEDS]
+    chunks = math.ceil(cfg["episodes"] / cfg["num_envs"])
+    upd_chunks = sum(1 for c in range(chunks) if c * cfg["num_envs"] >= cfg["warmup"])
+    per_run = upd_chunks * (2 * env.episode_len * cfg["num_envs"] + env.episode_len)
+    log(f"[band] card band: {cfg['episodes']} episodes x {cfg['num_envs']} envs, "
+        f"warmup {cfg['warmup']}, last {cfg['last_k']} episodes; torch seeds "
+        f"{seeds} against {len(ref['arms']['icm_ca'])} JAX seeds; rule |mean_t - "
+        f"mean_j| <= {B.K_SIGMA} s sqrt(1/n_j + 1/n_t) + {B.FLOOR} |mean_j| [{card}]")
+    outside = []
+    summary = {}
+    for arm in cfg["arms"]:
+        _reset_counts()
+        t0 = time.perf_counter()
+        rows = [B.run_metrics(B.run_arm(env, arm, cfg, s), cfg["last_k"]) for s in seeds]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        want_ca = per_run * len(seeds) if B.SAC_ARMS.get(arm, {}).get("use_ca") else 0
+        if counts.pop("ca_attention") != want_ca or any(counts.values()):
+            raise AssertionError(f"band arm {arm} launched {_counts()}, expected "
+                                 f"ca_attention {want_ca}")
+        res = B.compare(ref["arms"][arm], rows)
+        summary[arm] = dict(seconds=secs, runs=rows, **res)
+        if not B.inside(res):
+            outside.append(arm)
+        log(f"[band] {arm}: {'inside' if B.inside(res) else 'OUTSIDE'}; " + "; ".join(
+            f"{m} torch {r['torch_mean']:.4f}+-{r['torch_std']:.4f} jax "
+            f"{r['jax_mean']:.4f}+-{r['jax_std']:.4f} |d| {r['distance']:.4f} "
+            f"margin {r['margin']:.4f}" for m, r in res.items())
+            + f"; {secs:.1f} s for {len(seeds)} runs, ca_attention {want_ca} [{card}]")
+    _reset_counts()
+    rows = [B.run_metrics(B.run_arm(env, "icm_ca", cfg, s, warmup=cfg["episodes"]),
+                          cfg["last_k"]) for s in seeds]
+    ctrl = B.compare(ref["arms"]["icm_ca"], rows)
+    summary["control"] = dict(runs=rows, **ctrl)
+    log("[band] negative control (ICM-CA, uniform policy throughout) vs the ICM-CA "
+        f"band: {'inside' if B.inside(ctrl) else 'outside'}; " + "; ".join(
+            f"{m} |d| {r['distance']:.4f} margin {r['margin']:.4f} "
+            f"({r['distance'] / r['margin']:.2f}x)" for m, r in ctrl.items()))
+    out = ROOT / "chiprun_out"
+    if out.is_dir():
+        (out / "band.json").write_text(json.dumps(summary, indent=1))
+    if outside:
+        raise AssertionError(f"arms outside the band: {outside}")
+    if B.inside(ctrl):
+        raise AssertionError("the negative control is inside the ICM-CA band")
+
+
+# ---------------------------------------------------------------------------
 # 5b. where the time of a chunk goes
 # ---------------------------------------------------------------------------
 
 
-def phase_trace(torch, card, env, cfg, params, steps=20):
+def phase_trace(torch, card, env, cfg, params, steps=20, label=""):
     """Host time of one batched rollout episode and of single gradient
     steps, and a torch.profiler trace of ``steps`` gradient steps: device
     busy share, kernels per step, top kernels and host ops. Launches here
-    do not count for the main path."""
-    from torch.profiler import ProfilerActivity, profile
-
+    do not count for the main path. ``label`` tags the log lines."""
     from repro_torch.core.agents import loops as LP
     from repro_torch.core.agents import rollout as R
     from repro_torch.core.agents import sac as SAC
@@ -701,15 +999,14 @@ def phase_trace(torch, card, env, cfg, params, steps=20):
                         device="cuda")
     for row in idx[:3]:  # warm
         params, opt, _ = update(params, opt, R.buffer_gather(buf, row))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _traced(torch) as prof:
         t0 = time.perf_counter()
         for row in idx[3:]:
             params, opt, _ = update(params, opt, R.buffer_gather(buf, row))
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / steps
     CA.launches = saved
-    log(f"[trace] one rollout episode ({NUM_ENVS} envs x "
+    log(f"[trace{label}] one rollout episode ({NUM_ENVS} envs x "
         f"{env.episode_len} steps): {roll_s * 1e3:.3f} ms host; one gradient "
         f"step (profiled): {step_s * 1e3:.3f} ms host [{card}]")
     events = prof.key_averages()
@@ -720,15 +1017,15 @@ def phase_trace(torch, card, env, cfg, params, steps=20):
     if dev_us == 0:
         raise AssertionError("the profiler saw no device time in the "
                              "gradient steps")
-    log(f"[trace] per gradient step: {n_kern / steps:.0f} kernels, "
+    log(f"[trace{label}] per gradient step: {n_kern / steps:.0f} kernels, "
         f"{dev_us / steps / 1e3:.3f} ms device busy, busy share "
         f"{dev_us / 1e6 / (step_s * steps):.3f} of host time [{card}]")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[trace]   kernel {e.key[:70]}: {e.count // steps}/step, "
+        log(f"[trace{label}]   kernel {e.key[:70]}: {e.count // steps}/step, "
             f"{e.self_device_time_total / steps:.1f} us/step device")
     host = [e for e in events if e.device_type != cuda]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
-        log(f"[trace]   host op {e.key[:50]}: {e.count / steps:.1f}/step, "
+        log(f"[trace{label}]   host op {e.key[:50]}: {e.count / steps:.1f}/step, "
             f"{e.self_cpu_time_total / steps:.1f} us/step self CPU")
 
 
@@ -1107,8 +1404,6 @@ def _step_trace(torch, card, res, args, label, must_see=(), must_not_see=()):
     the share of the kernels named in ``must_see`` (each must appear;
     none named in ``must_not_see`` may). Launches here do not count for
     the main path."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import train_mhsl_rl as RUN
 
     saved = _counts()
@@ -1120,7 +1415,7 @@ def _step_trace(torch, card, res, args, label, must_see=(), must_not_see=()):
                                 generator=gen, device="cuda") for _ in range(2))
     params, opt_state = res["params"], res["opt_state"]
     res["params"] = res["opt_state"] = None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _traced(torch) as prof:
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, toks, labs)
         torch.cuda.synchronize()
@@ -1677,32 +1972,37 @@ def _eval_trace(torch, card, res, label, kernel, count=None, must_not_see=()):
     and the named kernel's share of the device time; with ``count``, the
     number of its launches must be that, and no kernel named in
     ``must_not_see`` may run. Launches here do not count for the main
-    path."""
-    from torch.profiler import ProfilerActivity, profile
-
+path. A trace short of ``count`` is retaken (``TRACE_ATTEMPTS``)."""
     from repro_torch.models import model as M
 
     saved = _counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            M.loss_fn(res["params"], res["eval_batch"], res["cfg"],
-                      impl="pallas", compute_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with _traced(torch) as prof:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                M.loss_fn(res["params"], res["eval_batch"], res["cfg"],
+                          impl="pallas", compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        kern = _log_kernels(torch, prof, f"{label} eval")
+        dev_us = sum(e.self_device_time_total for e in kern)
+        k_us = sum(e.self_device_time_total for e in kern if kernel in e.key)
+        k_n = sum(e.count for e in kern if kernel in e.key)
+        banned = sorted({e.key for e in kern if any(n in e.key for n in must_not_see)})
+        short = count is not None and k_n < count and not banned
+        if not short or attempt == TRACE_ATTEMPTS:
+            break
+        log(f"[trace] {label}: attempt {attempt} saw {k_n} of {count} {kernel} "
+            f"launches, {dev_us / 1e3:.3f} ms device busy in "
+            f"{sum(e.count for e in kern)} kernels; retaking the trace")
     _reset_counts(saved)
-    kern = _log_kernels(torch, prof, f"{label} eval")
-    dev_us = sum(e.self_device_time_total for e in kern)
-    k_us = sum(e.self_device_time_total for e in kern if kernel in e.key)
-    k_n = sum(e.count for e in kern if kernel in e.key)
-    banned = sorted({e.key for e in kern if any(n in e.key for n in must_not_see)})
     if dev_us == 0 or k_us == 0 or (count is not None and k_n != count) or banned:
         raise AssertionError(f"the profiler saw {dev_us} us of device time, "
                              f"{k_us} us of it in {k_n} launches of {kernel} "
                              f"(expected {count}), not allowed: {banned}, in the "
                              f"held-out call")
-    log(f"[trace] {label}: one held-out loss call (profiled): {host_s * 1e3:.3f} "
-        f"ms host, {dev_us / 1e3:.3f} ms device busy, busy share "
+    log(f"[trace] {label}: one held-out loss call (profiled, attempt {attempt}): "
+        f"{host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms device busy, busy share "
         f"{dev_us / 1e6 / host_s:.3f}; {sum(e.count for e in kern)} kernels; "
         f"{kernel} {k_n}x, {k_us / 1e3:.3f} ms ({k_us / dev_us:.3f} of device "
         f"time) [{card}]")
@@ -1793,29 +2093,34 @@ def _moe_layer_trace(torch, card, params, x, cfg):
     """A torch.profiler trace of one kernel-route layer call: the grouped
     FFN runs as the two ``wgmma`` GEMM grids (up + activation, down) and
     none of the FMA body's grids. Launches here do not count for the main
-    path."""
-    from torch.profiler import ProfilerActivity, profile
-
+    path. A trace short of the two grids is retaken (``TRACE_ATTEMPTS``)."""
     from repro_torch.models import layers as L
 
     saved = _counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            L.moe_apply_dropless(params, x, cfg, impl="pallas")
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with _traced(torch) as prof:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                L.moe_apply_dropless(params, x, cfg, impl="pallas")
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        kern = _log_kernels(torch, prof, "moe-layer")
+        dev_us = sum(e.self_device_time_total for e in kern)
+        tc = [e for e in kern if "grouped_gemm_tc" in e.key]
+        tc_us = sum(e.self_device_time_total for e in tc)
+        fma = sorted({e.key for e in kern if "::up_act<" in e.key or "::down<" in e.key})
+        if sum(e.count for e in tc) >= 2 or fma or attempt == TRACE_ATTEMPTS:
+            break
+        log(f"[trace] moe-layer: attempt {attempt} saw {sum(e.count for e in tc)} "
+            f"of 2 grouped_gemm_tc launches, {dev_us / 1e3:.3f} ms device busy in "
+            f"{sum(e.count for e in kern)} kernels; retaking the trace")
     _reset_counts(saved)
-    kern = _log_kernels(torch, prof, "moe-layer")
-    dev_us = sum(e.self_device_time_total for e in kern)
-    tc = [e for e in kern if "grouped_gemm_tc" in e.key]
-    tc_us = sum(e.self_device_time_total for e in tc)
-    fma = sorted({e.key for e in kern if "::up_act<" in e.key or "::down<" in e.key})
     if dev_us == 0 or sum(e.count for e in tc) != 2 or fma:
         raise AssertionError(f"the profiler saw {dev_us} us of device time, "
                              f"{sum(e.count for e in tc)} grouped_gemm_tc launches "
                              f"(expected 2), FMA grids {fma}, in the (B) call")
-    log(f"[trace] moe-layer: one dropless kernel-route call (profiled): "
+    log(f"[trace] moe-layer: one dropless kernel-route call (profiled, attempt "
+        f"{attempt}): "
         f"{host_s * 1e3:.3f} ms host, {dev_us / 1e3:.3f} ms device busy; "
         f"{sum(e.count for e in kern)} kernels; grouped_gemm_tc 2x, "
         f"{tc_us / 1e3:.3f} ms ({tc_us / dev_us:.3f} of device time); no "
@@ -2002,8 +2307,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, env, cfg, params = phase_slice(torch, card)
     phase_trace(torch, card, env, cfg, params)
+    select_launches, select_err = phase_select_action(torch, card, env, cfg, params)
     del env, cfg, params
     u22_launches = phase_sac_u22(torch, card)
+    seq_launches = phase_sequential(torch, card)
+    phase_baselines(torch, card)
     split_launches, flash_err = phase_split(torch, card)
     phase_split_parity(torch)
     torch.cuda.empty_cache()
@@ -2013,12 +2321,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_model_launches = phase_moe_model(torch, card)
     torch.cuda.empty_cache()
+    phase_band(torch, card)
     timing = phase_ca_timing(torch, card)
     t = timing[(128, 4, (28, 52, 64))]
     split_timing = phase_split_timing(torch, card)
     split_timing.update(phase_ssm_moe_timing(torch, card))
-    log(f"[runs] launches per path: SAC slice ca_attention {launches}; U 22 SAC "
-        f"ca_attention {u22_launches}; split "
+    log(f"[runs] launches per path: SAC slice ca_attention {launches}; "
+        f"select_action rollout ca_attention {select_launches} (B = 1, max|err| "
+        f"{select_err:.3e}); U 22 SAC ca_attention {u22_launches}; sequential SAC "
+        f"ca_attention {seq_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
         f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
         f"{moe_model_launches}")

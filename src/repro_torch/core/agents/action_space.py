@@ -37,15 +37,28 @@ def masked_logits(logits: Dict[str, Tensor], masks: Dict[str, Tensor]):
     return out
 
 
-def gumbel_like(logits: Dict[str, Tensor], gen: torch.Generator):
-    """Standard Gumbel noise shaped like each head's logits."""
+def head_shapes(dims: Dict[str, int]) -> Dict[str, tuple]:
+    """The shape of one env's logits, per head."""
+    return {"u": (dims["u"],), "size": (dims["size"],),
+            "decoys": (dims["decoys"], 2), "p_tx": (dims["p_tx"],),
+            "p_d": (dims["p_d"],)}
+
+
+def gumbel(shapes: Dict[str, tuple], gen: torch.Generator, device):
+    """Standard Gumbel noise of the given shape per head, drawn head by
+    head in :data:`HEADS` order."""
     tiny = torch.finfo(torch.float32).tiny
     out = {}
     for name in HEADS:
-        x = logits[name]
-        u = torch.rand(x.shape, generator=gen, device=x.device)
+        u = torch.rand(shapes[name], generator=gen, device=device)
         out[name] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     return out
+
+
+def gumbel_like(logits: Dict[str, Tensor], gen: torch.Generator):
+    """Standard Gumbel noise shaped like each head's logits."""
+    return gumbel({k: tuple(v.shape) for k, v in logits.items()}, gen,
+                  logits["u"].device)
 
 
 def sample(logits: Dict[str, Tensor], gumbel: Dict[str, Tensor]):

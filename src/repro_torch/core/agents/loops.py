@@ -2,6 +2,8 @@
 
 Port of ``repro.core.agents.loops`` (``train_sac`` / ``evaluate_sac``)
 without the population mesh and checkpoints, which come in later slices.
+``TrainResult`` and the chunk bookkeeping are shared with the DQN and PPO
+baselines (``dqn.train_dqn``, ``ppo.train_ppo``).
 Each chunk (reset, batched rollout of ``num_envs`` episodes, replay
 write, ``num_envs * episode_len * updates_per_step`` gradient steps,
 metric reduction) is one call of ``rollout.make_train_chunk``; its
@@ -93,6 +95,26 @@ def _chunk_metrics(result: TrainResult, seen: set, m, ep: int, episodes: int,
         result.metrics.append({k: float(v) for k, v in m["update"].items()})
 
 
+def traj_chunk_metrics(result: TrainResult, seen: set, traj, update, ep: int,
+                       episodes: int, num_envs: int) -> None:
+    """The bookkeeping of :func:`_chunk_metrics` from a raw ``(num_envs, T,
+    ...)`` trajectory (the DQN and PPO loops), reduced on the device as
+    the SAC chunk's metrics are. ``update`` is the chunk's dict of update
+    metric means, or ``None`` where the chunk did not update."""
+    m = dict(R.reduce_traj(traj), update=update, did_update=update is not None)
+    _chunk_metrics(result, seen, m, ep, episodes, num_envs)
+
+
+def check_run(env: MHSLEnv, num_envs: int, device: DeviceLike, who: str):
+    """A trainer's arguments: at least one env, and ``device``, when
+    given, naming the env's device."""
+    if num_envs < 1:
+        raise ValueError(f"num_envs must be >= 1, got {num_envs}")
+    if device is not None and resolve_device(device) != env.device:
+        raise ValueError(f"{who} on {device} needs an env on that device; "
+                         f"the env is on {env.device}")
+
+
 def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
               seed: int = 0, warmup_episodes: int = 10,
               resample_positions: bool = False, num_envs: int = 1,
@@ -114,11 +136,7 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
     positions, actions, leakage draws and replay indices from a generator
     on the device seeded with ``seed + 1``.
     """
-    if num_envs < 1:
-        raise ValueError(f"num_envs must be >= 1, got {num_envs}")
-    if device is not None and resolve_device(device) != env.device:
-        raise ValueError(f"train_sac on {device} needs an env on that device; "
-                         f"the env is on {env.device}")
+    check_run(env, num_envs, device, "train_sac")
     adims = env.action_dims
     params = SAC.init_agent(torch.Generator().manual_seed(seed), env.obs_dim,
                             adims, cfg, device=env.device)
@@ -134,19 +152,14 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
         n_updates=n_updates,
     )
 
-    def one_geometry():
-        dev, eav = env.sample_positions(gen, 1, scenario)
-        return (dev.expand(num_envs, -1, -1), eav.expand(num_envs, -1, -1))
-
-    fixed = None if resample_positions else one_geometry()
+    positions = R.make_positions(env, gen, num_envs, resample_positions,
+                                 scenario)
     result = TrainResult()
     seen: set = set()
     ep = 0
     while ep < episodes:
         t0 = time.perf_counter()
-        positions = (env.sample_positions(gen, num_envs, scenario)
-                     if resample_positions else fixed)
-        params, opt_state, metrics = chunk(params, opt_state, buf, positions,
+        params, opt_state, metrics = chunk(params, opt_state, buf, positions(),
                                            gen, ep >= warmup_episodes, scenario)
         _chunk_metrics(result, seen, metrics, ep, episodes, num_envs)
         result.chunk_seconds.append(time.perf_counter() - t0)

@@ -10,14 +10,21 @@ chunk become plain ``if``s on host integers.
   replay ring of device tensors. ``buffer_add`` writes in place (the
   reference donates the storage to the same effect); the write pointer
   and fill count are host integers, so reading them never syncs.
-* Policies share one signature::
+* Policies share one signature, so SAC, DQN and PPO plug into the same
+  engine::
 
-      policy(params, gen, obs, hist, hist_mask, masks) -> action
+      policy(params, gen, obs, hist, hist_mask, masks) -> (action, extras)
 
-  with ``gen`` the ``torch.Generator`` of the action draw.
+  with ``gen`` the ``torch.Generator`` of the action draw and ``extras``
+  a dict of further per-step fields recorded into the trajectory (PPO's
+  ``logp``/``v``, DQN's flat action index and mask).
 * ``rollout_episode`` - one batched episode; ``make_train_chunk`` - reset
   -> rollout -> buffer write -> ``n_updates`` gradient steps -> metric
   reduction, with one host sync per chunk.
+* ``make_fused_update`` - ``n_updates`` off-policy gradient steps on
+  replay rows drawn at once; ``make_scan_updates`` - ``n`` epochs over
+  one fixed batch (PPO); both report per-metric means. ``gae`` -
+  generalized advantage estimation over the episode axis.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from repro_torch.core.env import EnvState, MHSLEnv
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
-Policy = Callable[..., Dict[str, Tensor]]
+Policy = Callable[..., Tuple[Dict[str, Tensor], Dict[str, Tensor]]]
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +111,7 @@ def uniform_policy(action_dims: Dict[str, int]) -> Policy:
             "p_tx": torch.zeros((n, action_dims["p_tx"]), device=obs.device),
             "p_d": torch.zeros((n, action_dims["p_d"]), device=obs.device),
         }
-        return A.sample(logits, A.gumbel_like(logits, gen))
+        return A.sample(logits, A.gumbel_like(logits, gen)), {}
 
     return policy
 
@@ -116,7 +123,7 @@ def sac_policy(action_dims: Dict[str, int], cfg) -> Policy:
     def policy(params, gen, obs, hist, hist_mask, masks):
         logits = SAC.actor_logits(params, obs, hist, hist_mask, masks,
                                   action_dims, cfg)
-        return A.sample(logits, A.gumbel_like(logits, gen))
+        return A.sample(logits, A.gumbel_like(logits, gen)), {}
 
     return policy
 
@@ -134,8 +141,9 @@ def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
 
     Returns ``(final_state, traj)`` with traj leaves shaped
     ``(num_envs, T, ...)``: obs / obs_next / hist / hist_mask / action /
-    masks / reward / done plus ``leak``/``viol`` diagnostics. Each step
-    draws the policy's noise, then the env's leakage draw, from ``gen``.
+    masks / reward / done plus ``leak``/``viol`` diagnostics and the
+    policy's ``extras``. Each step draws the policy's noise, then the
+    env's leakage draw, from ``gen``.
     """
     sp = env.scenario() if scenario is None else scenario
     adims = env.action_dims
@@ -148,7 +156,7 @@ def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
     obs = env.observe(st, sp)
     for _ in range(env.episode_len):
         masks = env.action_masks(st)
-        action = policy(params, gen, obs, hist, hmask, masks)
+        action, extras = policy(params, gen, obs, hist, hmask, masks)
         st2, reward, done, info = env.step(st, action, env.draw(gen, n_env), sp)
         obs2 = env.observe(st2, sp)
         pair = torch.cat([obs, A.onehot(action, adims)], dim=-1)
@@ -156,7 +164,7 @@ def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
             obs=obs, obs_next=obs2, hist=hist, hist_mask=hmask,
             action=action, masks=masks, reward=reward,
             done=done.float(), leak=info["leak"],
-            viol=((st2.e_r <= 0) | (st2.t_r <= 0)).float(),
+            viol=((st2.e_r <= 0) | (st2.t_r <= 0)).float(), **extras,
         ))
         hist = torch.cat([hist[:, 1:], pair[:, None]], dim=1)
         hmask = torch.cat([hmask[:, 1:], torch.ones_like(hmask[:, :1])], dim=1)
@@ -209,6 +217,93 @@ def flatten_transitions(traj: Any, keys: Tuple[str, ...]) -> Any:
                     {k: traj[k] for k in keys})
 
 
+def reduce_traj(traj) -> Dict[str, Tensor]:
+    """A chunk's metrics, reduced on the device: per-episode
+    ``reward``/``leak``/``viol`` sums ``(num_envs,)`` and the packed state
+    keys ``obs_keys`` ``(num_envs, T, 2)``."""
+    return {
+        "reward": traj["reward"].sum(1),
+        "leak": traj["leak"].sum(1),
+        "viol": traj["viol"].sum(1),
+        "obs_keys": pack_obs_keys(traj["obs"]),
+    }
+
+
+def make_positions(env: MHSLEnv, gen: torch.Generator, num_envs: int,
+                   resample: bool, scenario=None):
+    """Per-chunk reset positions, ``positions() -> (dev, eav)``. With
+    ``resample`` each call draws a fresh geometry for every env;
+    otherwise one geometry is drawn now and every env of every chunk
+    replays it (the reference's ``episode_reset_keys``)."""
+    if resample:
+        return lambda: env.sample_positions(gen, num_envs, scenario)
+    dev, eav = env.sample_positions(gen, 1, scenario)
+    fixed = (dev.expand(num_envs, -1, -1), eav.expand(num_envs, -1, -1))
+    return lambda: fixed
+
+
+def metric_means(ms):
+    """Per-metric mean over a list of update metrics (a tree of scalars
+    each)."""
+    return tree_map(lambda *xs: torch.stack(xs).mean(0), ms[0], *ms[1:])
+
+
+def make_fused_update(update_fn, batch_size: int, n_updates: int):
+    """``n_updates`` off-policy gradient steps on replay rows.
+
+    ``update_fn(params, opt_state, batch) -> (params, opt_state,
+    metrics)``. Returns ``fused(params, opt_state, buf, gen)`` -> the same
+    triple with each metric averaged over the steps. The replay indices of
+    all steps are drawn at once from ``gen``, ``(n_updates, batch_size)``
+    uniform over the filled slots, as the reference does."""
+
+    def fused(params, opt_state, buf: BufferState, gen: torch.Generator):
+        dev = tree_leaves(buf.data)[0].device
+        idx = torch.randint(0, max(buf.size, 1), (n_updates, batch_size),
+                            generator=gen, device=dev)
+        ms = []
+        for row in idx:
+            params, opt_state, m = update_fn(params, opt_state,
+                                             buffer_gather(buf, row))
+            ms.append(m)
+        return params, opt_state, metric_means(ms)
+
+    return fused
+
+
+def make_scan_updates(update_fn, n: int):
+    """``n`` update epochs over one fixed batch (the on-policy analogue of
+    :func:`make_fused_update`): ``run(params, opt_state, batch)`` -> the
+    same triple with each metric averaged over the epochs."""
+
+    def run(params, opt_state, batch):
+        ms = []
+        for _ in range(n):
+            params, opt_state, m = update_fn(params, opt_state, batch)
+            ms.append(m)
+        return params, opt_state, metric_means(ms)
+
+    return run
+
+
+def gae(rewards: Tensor, values: Tensor, gamma: float, lam: float):
+    """Generalized advantage estimation along the last (episode) axis.
+
+    ``rewards``/``values``: (..., T). The terminal bootstrap value is 0
+    (MHSL episodes always end at ``2S-1``). Returns (advantages,
+    returns)."""
+    v_next = torch.cat([values[..., 1:], torch.zeros_like(values[..., :1])],
+                       dim=-1)
+    delta = rewards + gamma * v_next - values
+    g = torch.zeros_like(values[..., 0])
+    adv = []
+    for t in range(values.shape[-1] - 1, -1, -1):
+        g = delta[..., t] + gamma * lam * g
+        adv.append(g)
+    adv = torch.stack(adv[::-1], dim=-1)
+    return adv, adv + values
+
+
 def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
                      update_fn, *, hist_len: int, fields: Tuple[str, ...],
                      batch_size: int, n_updates: int):
@@ -227,9 +322,9 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
          "update": per-metric means over the update steps (or None),
          "did_update": bool}
 
-    The replay indices of all steps are drawn at once, ``(n_updates,
-    batch_size)`` uniform over the filled slots, as the reference does.
+    The updates are :func:`make_fused_update`'s.
     """
+    fused = make_fused_update(update_fn, batch_size, n_updates)
 
     def chunk(params, opt_state, buf: BufferState, positions, gen, train: bool,
               scenario=None):
@@ -242,22 +337,8 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
         upd = None
         did_update = bool(train) and buf.size >= batch_size
         if did_update:
-            idx = torch.randint(0, max(buf.size, 1), (n_updates, batch_size),
-                                generator=gen, device=env.device)
-            ms = []
-            for row in idx:
-                params, opt_state, m = update_fn(params, opt_state,
-                                                 buffer_gather(buf, row))
-                ms.append(m)
-            upd = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        metrics = {
-            "reward": traj["reward"].sum(1),
-            "leak": traj["leak"].sum(1),
-            "viol": traj["viol"].sum(1),
-            "obs_keys": pack_obs_keys(traj["obs"]),
-            "update": upd,
-            "did_update": did_update,
-        }
+            params, opt_state, upd = fused(params, opt_state, buf, gen)
+        metrics = dict(reduce_traj(traj), update=upd, did_update=did_update)
         return params, opt_state, metrics
 
     return chunk

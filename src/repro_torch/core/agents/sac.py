@@ -1,14 +1,17 @@
 """ICM-CA soft actor-critic (paper §III, Algorithm 1), PyTorch port.
 
-Port of ``repro.core.agents.sac`` with the single-backward joint update
-(``joint_update=True``, the reference's default): a V-network critic on
-TD targets (Eq. 28), an entropy-regularized actor on the TD advantage
-(Eq. 29), cross-attention state enhancement s'(n) (Eq. 24) and the ICM
-intrinsic reward (Eq. 23). Parameters are nested dicts of tensors in the
-reference's layout; ``detach`` stands for ``stop_gradient``.
+Port of ``repro.core.agents.sac``: a V-network critic on TD targets
+(Eq. 28), an entropy-regularized actor on the TD advantage (Eq. 29),
+cross-attention state enhancement s'(n) (Eq. 24) and the ICM intrinsic
+reward (Eq. 23), with both of the reference's updates: the single-backward
+joint update (``joint_update=True``, the default) and the sequential
+three-backward one (critic, then the actor against the *updated*
+critic's advantage, then the ICM). Parameters are nested dicts of tensors
+in the reference's layout; ``detach`` stands for ``stop_gradient``.
 
-Every cross-attention of the actor (the actor forward and ``joint_loss``)
-goes through the kernel wrapper ``repro_torch.kernels.ca_attention``,
+Every cross-attention of the actor (the actor forward, ``joint_loss``,
+the sequential actor loss and ``select_action``) goes through the kernel
+wrapper ``repro_torch.kernels.ca_attention``,
 which launches the hand-written kernel for CUDA tensors and runs its plain
 version only for CPU tensors; it takes a batch ``(B, obs_dim)`` and raises
 on anything else. Unlike the JAX package, where the rollout policy runs
@@ -33,7 +36,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ca_attention as CA
 from repro_torch.nn import init_mlp, mlp_apply
 from repro_torch.optim import adamw, apply_updates
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_map, value_and_grad
 
 
 @dataclass(frozen=True)
@@ -54,8 +57,6 @@ class SACConfig:
     updates_per_step: int = 2
     use_icm: bool = True
     use_ca: bool = True
-    # the sequential three-backward update of the reference is not ported
-    # yet: False raises NotImplementedError in make_update
     joint_update: bool = True
 
 
@@ -106,6 +107,15 @@ def critic_v(params, obs):
 def bounded_reward(reward, r_c, cfg: SACConfig):
     """r_total = reward + zeta tanh(R_C) (Eq. 23 with the bonus bounded)."""
     return reward + cfg.zeta * torch.tanh(r_c)
+
+
+def intrinsic_reward(icm_params, batch, action_dims, cfg: SACConfig):
+    """``(r_total, r_c, l_i, l_f)`` with one ICM forward (Eqs. 22-23,
+    25-26); ``r_c``, and so ``r_total``, carries no gradient."""
+    avec = A.onehot(batch["action"], action_dims)
+    l_i, l_f, r_c = ICM.icm_losses(icm_params, batch["obs"], batch["obs_next"],
+                                   batch["action"], avec, action_dims)
+    return bounded_reward(batch["reward"], r_c, cfg), r_c, l_i, l_f
 
 
 def joint_loss(params, batch, action_dims, cfg: SACConfig):
@@ -160,23 +170,16 @@ def loss_and_grads(params, batch, action_dims, cfg: SACConfig):
     """``(total, metrics, grads)`` of :func:`joint_loss`; parameters the
     loss does not touch (``wq_h``) get exact zero gradients, as JAX's AD
     gives them."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    total, metrics = joint_loss(tree_unflatten(params, leaves), batch,
-                                action_dims, cfg)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return total.detach(), metrics, tree_unflatten(params, grads)
+    return value_and_grad(lambda p: joint_loss(p, batch, action_dims, cfg),
+                          params)
 
 
 def make_update(action_dims, cfg: SACConfig):
     """``update(params, opt_state, batch) -> (params, opt_state, metrics)``
     and ``init_opt(params)``; optimizer state is the reference's
-    ``{actor, critic, icm}`` AdamW triple layout."""
-    if not cfg.joint_update:
-        raise NotImplementedError(
-            "the sequential SAC update (joint_update=False) is not ported yet")
+    ``{actor, critic, icm}`` AdamW triple layout for both updates.
+    ``cfg.joint_update`` picks the single-backward joint update; ``False``
+    the sequential three-backward one, step for step the reference's."""
     opt_a = adamw(cfg.eta_a)
     opt_c = adamw(cfg.eta_c)
     opt_i = adamw(cfg.eta_icm)
@@ -188,7 +191,7 @@ def make_update(action_dims, cfg: SACConfig):
             "icm": opt_i.init(params["icm"]) if cfg.use_icm else (),
         }
 
-    def update(params, opt_state, batch):
+    def joint(params, opt_state, batch):
         _, metrics, grads = loss_and_grads(params, batch, action_dims, cfg)
         new_params = dict(params)
         new_opt = dict(opt_state)
@@ -201,4 +204,85 @@ def make_update(action_dims, cfg: SACConfig):
             new_params[name] = apply_updates(params[name], upd)
         return new_params, new_opt, metrics
 
-    return update, init_opt
+    def with_head(params, name, sub):
+        p = dict(params)
+        p[name] = sub
+        return p
+
+    def loss_critic(critic, params, batch, r_total):
+        p = with_head(params, "critic", critic)
+        v = critic_v(p, batch["obs"])
+        v_next = critic_v(p, batch["obs_next"]).detach()
+        target = r_total + cfg.gamma * (1.0 - batch["done"]) * v_next
+        return torch.mean((target - v) ** 2)
+
+    def loss_actor(actor, params, batch, r_total):
+        p = with_head(params, "actor", actor)
+        logits = actor_logits(p, batch["obs"], batch["hist"],
+                              batch["hist_mask"], batch["masks"], action_dims,
+                              cfg)
+        lp = A.log_prob(logits, batch["action"])
+        ent = A.entropy(logits)
+        # the critic here is the one just updated; its values carry no
+        # gradient into the actor
+        with torch.no_grad():
+            v = critic_v(p, batch["obs"])
+            v_next = critic_v(p, batch["obs_next"])
+            y = r_total + cfg.gamma * (1.0 - batch["done"]) * v_next - v
+        return -torch.mean(lp * y + cfg.alpha * ent)
+
+    def loss_icm(icm, batch):
+        avec = A.onehot(batch["action"], action_dims)
+        l_i, l_f, _ = ICM.icm_losses(icm, batch["obs"], batch["obs_next"],
+                                     batch["action"], avec, action_dims)
+        return l_f + cfg.v_inv * l_i, (l_i, l_f)
+
+    def sequential(params, opt_state, batch):
+        if cfg.use_icm:
+            with torch.no_grad():
+                r_total, r_c, _, _ = intrinsic_reward(params["icm"], batch,
+                                                      action_dims, cfg)
+        else:
+            r_c = torch.zeros_like(batch["reward"])
+            r_total = batch["reward"]
+        params = dict(params)
+        new_opt = dict(opt_state)
+
+        def descend(name, opt, loss):
+            """One AdamW step of head ``name`` on ``loss(head params)``,
+            in place in ``params`` / ``new_opt``; returns (value, aux)."""
+            value, aux, grads = value_and_grad(loss, params[name])
+            upd, new_opt[name] = opt.update(grads, opt_state[name], params[name])
+            params[name] = apply_updates(params[name], upd)
+            return value, aux
+
+        lc, _ = descend("critic", opt_c,
+                        lambda c: loss_critic(c, params, batch, r_total))
+        # params now holds the updated critic
+        la, _ = descend("actor", opt_a,
+                        lambda a: loss_actor(a, params, batch, r_total))
+        metrics = {"critic_loss": lc, "actor_loss": la, "r_c": r_c.mean()}
+        if cfg.use_icm:
+            _, (l_i, l_f) = descend("icm", opt_i, lambda i: loss_icm(i, batch))
+            metrics.update(icm_inv_loss=l_i, icm_fwd_loss=l_f)
+        return params, new_opt, metrics
+
+    return (joint if cfg.joint_update else sequential), init_opt
+
+
+@torch.no_grad()
+def select_action(params, gumbel, obs, hist, hist_mask, masks, action_dims,
+                  cfg: SACConfig):
+    """One env's action (the reference's ``select_action``): ``obs``
+    (obs_dim,), ``hist`` (I, pair_dim), ``hist_mask`` (I,), ``masks`` per
+    head without a batch axis, and ``gumbel`` the draw's noise shaped like
+    one env's logits (``A.gumbel(A.head_shapes(action_dims), gen, dev)``).
+    Runs the batched actor at B = 1, through the kernel wrapper like every
+    other actor forward."""
+    def one(x):
+        return x[None]
+
+    logits = actor_logits(params, one(obs), one(hist), one(hist_mask),
+                          tree_map(one, masks), action_dims, cfg)
+    action = A.sample(logits, tree_map(one, gumbel))
+    return {k: v[0] for k, v in action.items()}

@@ -117,3 +117,25 @@ def adamw(
         return updates, OptState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init=init, update=update)
+
+
+def sgd_momentum(lr: Union[float, Callable] = 1e-2,
+                 momentum: float = 0.9) -> Optimizer:
+    """SGD with heavy-ball momentum: ``mu = momentum mu + g``, update
+    ``-lr(step) mu``; ``lr`` as :func:`adamw` takes it."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        return OptState(
+            step=torch.zeros((), dtype=torch.int32, device=leaf.device),
+            mu=tree_map(torch.zeros_like, params))
+
+    def update(grads, state: OptState, params=None):
+        step = state.step + 1
+        mu = tree_map(lambda m, g: momentum * m + g.to(m.dtype), state.mu, grads)
+        lr_t = lr_fn(step)
+        updates = tree_map(lambda m, p: (-lr_t * m).to(p.dtype), mu, params)
+        return updates, OptState(step=step, mu=mu)
+
+    return Optimizer(init=init, update=update)

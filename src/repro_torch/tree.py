@@ -1,4 +1,5 @@
-"""Minimal pytree helpers over nested dicts, lists, tuples and NamedTuples.
+"""Minimal pytree helpers over nested dicts, lists, tuples and NamedTuples,
+and the tree-shaped gradient that ``jax.value_and_grad`` gives.
 
 Parameters, optimizer states and replay batches are plain nested
 containers of tensors, as in the JAX package, so that carrying weights
@@ -8,6 +9,8 @@ not leaves.
 from __future__ import annotations
 
 from typing import Any, Callable, List
+
+import torch
 
 
 def _is_namedtuple(x) -> bool:
@@ -39,3 +42,18 @@ def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
     order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def value_and_grad(fn: Callable, tree: Any):
+    """``(value, aux, grads)`` of ``fn(tree) -> loss`` or ``(loss, aux)``,
+    as ``jax.value_and_grad`` gives them: ``grads`` has ``tree``'s
+    structure, and a leaf the loss does not touch gets an exact zero.
+    ``value`` and ``aux`` come back detached."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+    out = fn(tree_unflatten(tree, leaves))
+    loss, aux = out if isinstance(out, tuple) else (out, None)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    aux = tree_map(lambda x: x.detach(), aux)
+    return loss.detach(), aux, tree_unflatten(tree, grads)

@@ -67,6 +67,28 @@ def sac_opt_state_to_numpy(opt_state: Any):
     }
 
 
+def dqn_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX DQN Q-net params (an ``init_mlp`` tree of numpy arrays) -> the
+    port's on ``device``."""
+    return sac_params_from_jax(np_tree, device)
+
+
+def dqn_params_to_numpy(params: Any):
+    """The port's DQN Q-net params -> numpy arrays in the same layout."""
+    return sac_params_to_numpy(params)
+
+
+def ppo_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX PPO params (``{actor, critic}`` MLP trees of numpy arrays) ->
+    the port's on ``device``."""
+    return sac_params_from_jax(np_tree, device)
+
+
+def ppo_params_to_numpy(params: Any):
+    """The port's PPO params -> numpy arrays in the same layout."""
+    return sac_params_to_numpy(params)
+
+
 def model_params_from_jax(np_tree: Any, device: DeviceLike = None):
     """JAX model params (``repro.models.init_params`` layout, numpy leaves)
     -> the port's params on ``device``: the same tree, leaf for leaf, for

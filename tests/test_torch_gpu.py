@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ca_attention as CA  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 
 def _card():
@@ -67,6 +68,101 @@ def test_ca_attention_kernel_rejects_what_it_does_not_take():
         CA.ca_attention(p, obs, hist, mask.half())
     with pytest.raises(ValueError):
         CA.ca_attention(p, obs, hist.transpose(0, 1).contiguous().transpose(0, 1), mask)
+
+
+# ---------------------------------------------------------------------------
+# the algorithm comparison: the sequential update, select_action, baselines
+# ---------------------------------------------------------------------------
+
+TINY = dict(hidden=32, feat_dim=8, attn_dim=8, batch=32, buffer_size=2000)
+
+
+def _resnet_env():
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+
+    return MHSLEnv(profile=resnet101_profile(batch=1))
+
+
+@pytest.mark.gpu
+def test_sequential_update_trains_on_card():
+    """train_sac with ``joint_update=False`` on cuda: a warm-up chunk and
+    one updating chunk of 56 gradient steps, one ca_attention launch per
+    gradient step and per rollout step, finite metrics and parameters."""
+    _card()
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+
+    env = _resnet_env()
+    before = CA.launches
+    res = LP.train_sac(env, SAC.SACConfig(**TINY, joint_update=False), episodes=8,
+                       warmup_episodes=4, num_envs=4)
+    torch.cuda.synchronize()
+    assert res.chunk_updated == [False, True]
+    assert CA.launches - before == 2 * env.episode_len * 4 + env.episode_len
+    assert np.isfinite(list(res.metrics[0].values())).all()
+    for leaf in tree_leaves(res.params):
+        assert leaf.is_cuda and bool(torch.isfinite(leaf).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["dqn", "ppo"])
+def test_baselines_train_on_card(algo):
+    """train_dqn and train_ppo on cuda through an updating chunk: finite
+    metrics, parameters on the card, no kernel launched."""
+    _card()
+    from repro_torch.core.agents import dqn as DQ
+    from repro_torch.core.agents import ppo as PP
+
+    env = _resnet_env()
+    before = CA.launches
+    if algo == "dqn":
+        res = DQ.train_dqn(env, DQ.DQNConfig(hidden=32, batch=32), episodes=8,
+                           num_envs=4)
+        assert res.chunk_updated == [False, True]
+    else:
+        res = PP.train_ppo(env, PP.PPOConfig(hidden=32, episodes_per_batch=4),
+                           episodes=8, num_envs=4)
+        assert res.chunk_updated == [True, True]
+    torch.cuda.synchronize()
+    assert CA.launches == before
+    assert np.isfinite([v for m in res.metrics for v in m.values()]).all()
+    assert np.isfinite(res.episode_reward).all()
+    assert all(leaf.is_cuda for leaf in tree_leaves(res.params))
+
+
+@pytest.mark.gpu
+def test_select_action_through_the_kernel_at_b1():
+    """select_action on cuda launches ca_attention once at B = 1, and its
+    action equals the plain route's (the plain version's s', the same
+    heads) under the same Gumbel draws."""
+    _card()
+    from repro_torch.core.agents import action_space as A
+    from repro_torch.core.agents import sac as SAC
+
+    env = _resnet_env()
+    cfg = SAC.SACConfig()
+    dims = env.action_dims
+    params = SAC.init_agent(torch.Generator().manual_seed(0), env.obs_dim, dims, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    st = env.reset(env.sample_positions(gen, 1))
+    pair_dim = env.obs_dim + A.flat_dim(dims)
+    hist = torch.randn((cfg.hist_len, pair_dim), generator=gen, device="cuda")
+    hmask = torch.tensor([0.0, 1.0, 1.0, 1.0], device="cuda")
+    obs = env.observe(st)[0]
+    masks = {k: v[0] for k, v in env.action_masks(st).items()}
+    g = A.gumbel(A.head_shapes(dims), gen, "cuda")
+    before = CA.launches
+    a = SAC.select_action(params, g, obs, hist, hmask, masks, dims, cfg)
+    torch.cuda.synchronize()
+    assert CA.launches == before + 1
+    ca = params["actor"]["ca"]
+    x = CA.ca_attention_ref(obs[None], hist[None], hmask[None], ca["wq_s"], ca["wk"],
+                            ca["wv"])
+    plain = A.sample(SAC._head_logits(params, x, {k: v[None] for k, v in masks.items()},
+                                      dims), {k: v[None] for k, v in g.items()})
+    for h in A.HEADS:
+        assert torch.equal(plain[h][0], a[h]), h
 
 
 # ---------------------------------------------------------------------------

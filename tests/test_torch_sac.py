@@ -131,12 +131,6 @@ def test_eight_update_steps_match_jax(env, replay):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, err_msg=k)
 
 
-def test_sequential_update_not_ported():
-    with pytest.raises(NotImplementedError):
-        TSAC.make_update({"u": 6, "size": 4, "decoys": 6, "p_tx": 4, "p_d": 4},
-                         TSAC.SACConfig(joint_update=False))
-
-
 def test_pack_obs_keys_bit_equal(replay):
     """32-bit key packing: the port's int64-masked lanes are bit-equal to
     the reference's uint32 lanes and host keys, negative bins included."""
