@@ -39,6 +39,18 @@ Phases (each raises on failure; any failure exits non-zero):
    launches checked and its gradient steps traced; ``train_dqn`` and
    ``train_ppo`` at fig 4's configuration for four chunks (host and
    device seconds per chunk);
+4a. the planner and the scenario sweep: ``evaluate_population`` of the
+   SAC slice's agent over fig 5's q grid (``ca_attention`` launches 5 x 7,
+   leak non-decreasing in q under shared draws, a batch-of-1 sweep equal
+   to ``evaluate_sac``) and the fig 9 placement (7 launches at B = 1);
+   the batched plan scorer over the full S = 4 enumerations of
+   Qwen2.5-3B, Qwen3-MoE-30B-A3B, Mamba2-370m, Jamba-v0.1-52B and
+   Nemotron-4-340B at seq 2048 (4 495 to 138 415 plans), state pricing
+   off and on, held to its CPU evaluation and 64 plans each to
+   ``plan_cost``, CUDA kernels per scorer call equal at 4 495 and
+   138 415 plans, ms per call; ``make_split_oracle`` on the ResNet-101
+   env with and without a device mask, and ``simulate_1f1b`` (sync,
+   M = 1) equal to ``plan_cost``;
 4b. the split slice, through ``launch.train_mhsl_rl.main``: a plan
    learned on the 36-layer Qwen2.5-3B profile, 1F1B pipelined training
    of Qwen2.5-3B at full width and depth 8 (stage MLP halves through
@@ -652,6 +664,291 @@ def phase_slice(torch, card):
         f"evaluate_sac {EVAL_EPISODES * env.episode_len / eval_s:.1f} "
         f"[{card}]")
     return CA.launches, env, cfg, res.params
+
+
+# ---------------------------------------------------------------------------
+# 4a. the split planner and the scenario sweep
+# ---------------------------------------------------------------------------
+
+# the zoo plan-scoring configs (figures/zoo_plan_scoring.py) and
+# Nemotron-4-340B, the deepest zoo config: full S = 4 enumerations at seq
+# 2048, 4 495 (Jamba) to 138 415 (Nemotron) plans
+PLAN_CONFIGS = ("qwen2.5-3b", "qwen3-moe-30b-a3b", "mamba2-370m",
+                "jamba-v0.1-52b", "nemotron-4-340b")
+PLAN_STAGES = 4
+PLAN_CHECKS = 64  # plans held to plan_cost per config and pricing
+# card scorer vs the same scorer on the CPU, and vs plan_cost (float64
+# stage sums); the scorer is f32 with the cumulative tables cast to f32.
+# Measured on an H100 over the five enumerations: 1.8e-7 vs the CPU,
+# 2.5e-7 vs plan_cost (at Nemotron's 96 layers); the gates leave ~8x
+PLAN_CPU_RTOL = 2e-6
+PLAN_HOST_RTOL = 2e-6
+# feasibility may differ only for plans this close to a budget
+PLAN_EDGE_RTOL = 2e-6
+
+
+def _rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_plan(torch, card):
+    """The batched plan scorer on the card over the full S = 4 cut
+    enumerations of ``PLAN_CONFIGS`` at seq 2048, with state pricing off
+    and on: delay and energy against the same scorer on the CPU, 64 plans
+    (first, last, the best, 61 drawn) against ``plan_cost`` on the host,
+    the best delay against the CPU's; CUDA kernels per scorer call at
+    4 495 and at 138 415 plans (equal: no per-plan work); ms per call.
+    Then ``make_split_oracle`` on the ResNet-101 env, with and without a
+    device mask, its feasibility against ``plan_cost`` at the budget; and
+    the synchronous 1F1B transport model at M = 1 against ``plan_cost``.
+    Returns the measured numbers."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import splitting as SP
+    from repro_torch.core.channel import NetworkConfig
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile, transformer_profile
+    from repro_torch.core.scenario import replace_param
+    from repro_torch.core.transport import plan_transport_model, simulate_1f1b
+    from repro_torch.figures import zoo_plan_scoring as Z
+
+    t_phase = time.perf_counter()
+    net0 = NetworkConfig(max_split=PLAN_STAGES)
+    net1 = replace(net0, state_cycles_per_bit=Z.STATE_CYCLES_PER_BIT)
+    pos, devices, p_tx, decoy = Z.plan_inputs(PLAN_STAGES, net0, seed=0)
+    rng = np.random.default_rng(0)
+    out = {"cpu_err": 0.0, "host_err": 0.0, "best_err": 0.0, "rows": {}}
+    calls = {}
+    for name in PLAN_CONFIGS:
+        prof = transformer_profile(get_config(name), batch=1, seq=Z.SEQ)
+        bounds_np = SP.stack_boundaries(prof.num_layers, PLAN_STAGES)
+        n = len(bounds_np)
+        bounds = torch.as_tensor(bounds_np, device="cuda")
+        scorer = SP.make_plan_scorer(prof, "cuda")
+        cpu_scorer = SP.make_plan_scorer(prof, "cpu")
+        row = {"plans": n}
+        for label, net in (("off", net0), ("on", net1)):
+            t, e = (x.cpu().numpy() for x in scorer(bounds, devices, pos, p_tx,
+                                                    decoy, net))
+            tc, ec = (x.numpy() for x in cpu_scorer(bounds_np, devices, pos,
+                                                    p_tx, decoy, net))
+            cpu_err = max(_rel(t, tc), _rel(e, ec))
+            best = int(np.argmin(t))
+            idx = [0, n - 1, best] + rng.choice(n, PLAN_CHECKS - 3,
+                                                replace=False).tolist()
+            t0 = time.perf_counter()
+            ref = np.asarray([SP.plan_cost(
+                prof, SP.SplitPlan(tuple(int(x) for x in bounds_np[i]),
+                                   tuple(int(d) for d in devices)),
+                pos, p_tx, decoy, net) for i in idx])
+            loop_s = (time.perf_counter() - t0) / len(idx)
+            host_err = max(_rel(t[idx], ref[:, 0]), _rel(e[idx], ref[:, 1]))
+            best_err = _rel(t.min(), tc.min())
+            if (cpu_err > PLAN_CPU_RTOL or host_err > PLAN_HOST_RTOL
+                    or best_err > PLAN_CPU_RTOL):
+                raise AssertionError(
+                    f"plan scorer on {name} (state pricing {label}): card vs "
+                    f"CPU {cpu_err:.3e}, vs plan_cost {host_err:.3e}, best delay "
+                    f"{best_err:.3e} (rtol {PLAN_CPU_RTOL:.0e} / "
+                    f"{PLAN_HOST_RTOL:.0e})")
+            out["cpu_err"] = max(out["cpu_err"], cpu_err)
+            out["host_err"] = max(out["host_err"], host_err)
+            out["best_err"] = max(out["best_err"], best_err)
+            row[label] = {"best": bounds_np[best].tolist(),
+                          "cpu_best": bounds_np[int(np.argmin(tc))].tolist(),
+                          "best_delay_s": float(t[best]),
+                          "cpu_err": cpu_err, "host_err": host_err,
+                          "plan_cost_ms_per_plan": loop_s * 1e3}
+
+        def call(scorer=scorer, bounds=bounds):
+            return scorer(bounds, devices, pos, p_tx, decoy, net1)
+
+        calls[n] = call
+        row["ms"] = Z.time_call_s(call, torch.device("cuda")) * 1e3
+        row["plans_per_s"] = n / row["ms"] * 1e3
+        out["rows"][name] = row
+        log(f"[plan] {name}: {n} plans, {row['ms']:.3f} ms per scorer call "
+            f"({row['plans_per_s']:.0f} plans/s, CUDA events after warm-up); "
+            f"card vs CPU max rel {max(row['off']['cpu_err'], row['on']['cpu_err']):.3e}, "
+            f"vs plan_cost {max(row['off']['host_err'], row['on']['host_err']):.3e}; "
+            f"best off {row['off']['best']} (CPU {row['off']['cpu_best']}), on "
+            f"{row['on']['best']} (CPU {row['on']['cpu_best']}), "
+            f"{row['on']['best_delay_s']:.6g} s; plan_cost "
+            f"{row['on']['plan_cost_ms_per_plan']:.3f} ms per plan [{card}]")
+
+    # kernels per scorer call, independent of the number of plans
+    small, large = min(calls), max(calls)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        k_small, c_small = Z.device_ops_per_call(calls[small])
+        k_large, c_large = Z.device_ops_per_call(calls[large])
+        if k_small == k_large and k_small == int(k_small) and k_small > 0:
+            break
+        log(f"[plan] kernel counts per call differ on attempt {attempt}: "
+            f"{k_small} at {small} plans, {k_large} at {large}")
+    else:
+        raise AssertionError(f"kernels per scorer call: {k_small} at {small} "
+                             f"plans, {k_large} at {large}")
+    out.update(kernels_per_call=int(k_small), copies_per_call=(c_small, c_large))
+    log(f"[plan] CUDA kernels per scorer call: {int(k_small)} at {small} plans "
+        f"and at {large} plans; memory copies/sets {c_small:g} and {c_large:g}")
+
+    # the oracle on the ResNet-101 env, budgets set inside the delay range
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st = env.reset(env.sample_positions(gen, 1))
+    dev_pos = st.dev_pos[0]
+    o_dev = (0, 1, 2, env.U)
+    o_p = np.asarray([0.5, 1.0, 0.2])
+    o_dec = np.zeros((env.S - 1, env.U + 1))
+    o_dec[:, 4] = 0.2
+    oracle = env.make_split_oracle()
+    base = oracle(dev_pos, o_dev, o_p, o_dec)
+    # the delay budget between the two distinct delays around the median,
+    # the energy budget likewise among the plans within it: both verdicts
+    # occur, each budget binds on some plans, and no plan's cost equals a
+    # budget (many plans tie: they differ only in where equal-cost layers
+    # fall)
+    def between_median(x):
+        v = torch.unique(x)
+        k = max(len(v) // 2, 1)
+        return float((v[k - 1] + v[k]) / 2)
+
+    gamma_t = between_median(base["delay"])
+    gamma_e = between_median(base["energy"][base["delay"] <= gamma_t])
+    sp = replace_param(replace_param(env.scenario(), "gamma_t", gamma_t),
+                       "gamma_e", gamma_e)
+    gamma_t, gamma_e = float(sp.gamma_t), float(sp.gamma_e)
+    res = oracle(dev_pos, o_dev, o_p, o_dec, sp)
+    feas = res["feasible"].cpu().numpy()
+    n_o = len(feas)
+    idx = [0, n_o - 1] + rng.choice(n_o, PLAN_CHECKS - 2, replace=False).tolist()
+    pos_h = dev_pos.cpu().numpy()
+    bounds_o = res["boundaries"].cpu().numpy()
+    edge = 0
+    for i in idx:
+        t_ref, e_ref = SP.plan_cost(env.profile, SP.SplitPlan(
+            tuple(int(x) for x in bounds_o[i]), o_dev), pos_h, o_p, o_dec, env.net)
+        want = t_ref <= gamma_t and e_ref <= gamma_e
+        if bool(feas[i]) != want:
+            if (abs(t_ref - gamma_t) <= PLAN_EDGE_RTOL * gamma_t
+                    or abs(e_ref - gamma_e) <= PLAN_EDGE_RTOL * gamma_e):
+                edge += 1
+            else:
+                raise AssertionError(f"oracle plan {bounds_o[i].tolist()}: "
+                                     f"feasible {bool(feas[i])}, plan_cost "
+                                     f"{t_ref:.6g} s / {e_ref:.6g} J")
+    down = torch.ones(env.U + 1, dtype=torch.bool, device="cuda")
+    down[o_dev[1]] = False
+    idle = torch.ones_like(down)
+    idle[5] = False
+    if bool(oracle(dev_pos, o_dev, o_p, o_dec, sp, device_mask=down)["feasible"].any()):
+        raise AssertionError("a plan on a down device is feasible")
+    if not torch.equal(oracle(dev_pos, o_dev, o_p, o_dec, sp,
+                              device_mask=idle)["feasible"], res["feasible"]):
+        raise AssertionError("an idle device's outage changed the oracle")
+    n_feas = int(feas.sum())
+    if not 0 < n_feas < n_o:
+        raise AssertionError(f"{n_feas} of {n_o} plans feasible at the median")
+    out.update(oracle_plans=n_o, oracle_feasible=n_feas, edge_excused=edge)
+
+    # the transport model at M = 1 (sync) is plan_cost's delay
+    best = res["boundaries"][int(torch.argmin(res["delay"]))].tolist()
+    plan = SP.SplitPlan(tuple(best), o_dev)
+    t_ref, _ = SP.plan_cost(env.profile, plan, pos_h, o_p, o_dec, env.net)
+    model = plan_transport_model(env.profile, plan, pos_h, o_p, o_dec, env.net)
+    sim = simulate_1f1b(model, 1, transport="sync")
+    if not math.isclose(sim["total_s"], t_ref, rel_tol=1e-12):
+        raise AssertionError(f"simulate_1f1b sync M = 1: {sim['total_s']!r} vs "
+                             f"plan_cost {t_ref!r}")
+    ovl = simulate_1f1b(model, 4, transport="overlap")
+    log(f"[plan] oracle on the ResNet-101 env: {n_o} plans, {n_feas} feasible "
+        f"at gamma_t {gamma_t:.6g} s, gamma_e {gamma_e:.6g} J (between the "
+        f"distinct values around the medians); "
+        f"{len(idx)} plans vs "
+        f"plan_cost, {edge} excused within rtol {PLAN_EDGE_RTOL:.0e} of a "
+        f"budget; device mask: assignment device down -> none feasible, idle "
+        f"device down -> unchanged; best plan {best}: simulate_1f1b sync M = 1 "
+        f"{sim['total_s']!r} s = plan_cost {t_ref!r} s; overlap M = 4 "
+        f"{ovl['total_s']:.6g} s, bubble {ovl['bubble_fraction']:.4f}")
+    log(f"[plan] gates: card vs CPU scorer max rel {out['cpu_err']:.3e} (rtol "
+        f"{PLAN_CPU_RTOL:.0e}), vs plan_cost {out['host_err']:.3e} (rtol "
+        f"{PLAN_HOST_RTOL:.0e}), best delay {out['best_err']:.3e}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
+# fig 5's q grid, evaluated with the SAC slice's trained params
+POP_QS = (0.3, 0.45, 0.6, 0.75, 0.9)
+
+
+def phase_population(torch, card, env, cfg, params):
+    """``evaluate_population`` of the SAC slice's agent over fig 5's q grid
+    (``EVAL_EPISODES`` episodes a scenario), ``ca_attention`` launches
+    counted (one per step per scenario); leak non-decreasing in q, exactly
+    (shared draws); a batch-of-1 sweep equal to ``evaluate_sac``; then the
+    fig 9 placement example on the same params (7 launches at B = 1).
+    Returns (sweep launches, fig 9 launches, the sweep's leak)."""
+    import numpy as np
+
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import rollout as R
+    from repro_torch.figures.fig9_example import placement_example
+
+    t_phase = time.perf_counter()
+    policy = R.sac_policy(env.action_dims, cfg)
+    scenarios = SC.stack_scenarios(SC.scenario_grid(env.scenario(),
+                                                    monitor_prob=list(POP_QS)))
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = SC.evaluate_population(env, policy, params, scenarios,
+                                 episodes=EVAL_EPISODES, hist_len=cfg.hist_len)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts.pop("ca_attention")
+    expect = len(POP_QS) * env.episode_len
+    if launches != expect or any(counts.values()):
+        raise AssertionError(f"the q sweep launched ca_attention {launches} "
+                             f"times (expected {expect}), others {counts}")
+    for k, v in out.items():
+        if v.shape != (len(POP_QS),) or not np.isfinite(v).all():
+            raise AssertionError(f"q sweep {k}: {v}")
+    if not np.all(np.diff(out["leak"]) >= 0.0):
+        raise AssertionError(f"leak falls as q rises: {out['leak'].tolist()}")
+    one = SC.evaluate_population(env, policy, params,
+                                 SC.stack_scenarios([env.scenario()]),
+                                 episodes=EVAL_EPISODES, hist_len=cfg.hist_len)
+    ev = LP.evaluate_sac(env, params, cfg, episodes=EVAL_EPISODES)
+    if one["reward"][0] != ev["reward"] or one["leak"][0] != ev["leak"]:
+        raise AssertionError(f"batch-of-1 sweep {one} vs evaluate_sac {ev}")
+    log(f"[population] q sweep {list(POP_QS)} x {EVAL_EPISODES} episodes: leak "
+        f"{[round(float(x), 6) for x in out['leak']]}, reward "
+        f"{[round(float(x), 4) for x in out['reward']]}; ca_attention launches "
+        f"{launches} (expected {expect}); {secs:.3f} s host; a batch-of-1 "
+        f"sweep equals evaluate_sac ({ev}) [{card}]")
+
+    _reset_counts()
+    fig9 = placement_example(env, params, cfg)
+    torch.cuda.synchronize()
+    counts = _counts()
+    fig9_launches = counts.pop("ca_attention")
+    if fig9_launches != env.episode_len or any(counts.values()):
+        raise AssertionError(f"the fig 9 rollout launched ca_attention "
+                             f"{fig9_launches} times, others {counts}")
+    log(f"[population] fig 9 placement: plan {fig9['boundaries']} on devices "
+        f"{fig9['stage_devices']}, trainers {fig9['mean_trainer_dist_to_eave']:.1f} m "
+        f"and decoys {fig9['mean_decoy_dist_to_eave']:.1f} m from the nearest "
+        f"eavesdropper, leaked {fig9['leaked']:.4f}; ca_attention launches "
+        f"{fig9_launches} (B = 1); phase {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return launches, fig9_launches, out["leak"]
 
 
 # a short SAC run at U = 22 trainer devices and a history of 16 pairs:
@@ -2308,7 +2605,9 @@ def main() -> int:
     launches, env, cfg, params = phase_slice(torch, card)
     phase_trace(torch, card, env, cfg, params)
     select_launches, select_err = phase_select_action(torch, card, env, cfg, params)
+    pop_launches, fig9_launches, _ = phase_population(torch, card, env, cfg, params)
     del env, cfg, params
+    plan = phase_plan(torch, card)
     u22_launches = phase_sac_u22(torch, card)
     seq_launches = phase_sequential(torch, card)
     phase_baselines(torch, card)
@@ -2328,11 +2627,16 @@ def main() -> int:
     split_timing.update(phase_ssm_moe_timing(torch, card))
     log(f"[runs] launches per path: SAC slice ca_attention {launches}; "
         f"select_action rollout ca_attention {select_launches} (B = 1, max|err| "
-        f"{select_err:.3e}); U 22 SAC ca_attention {u22_launches}; sequential SAC "
+        f"{select_err:.3e}); q sweep ca_attention {pop_launches}; fig 9 placement "
+        f"ca_attention {fig9_launches} (B = 1); U 22 SAC ca_attention "
+        f"{u22_launches}; sequential SAC "
         f"ca_attention {seq_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
         f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
         f"{moe_model_launches}")
+    log(f"[runs] plan scorer: {plan['kernels_per_call']} kernels per call at "
+        f"every enumeration; card vs CPU {plan['cpu_err']:.3e}, vs plan_cost "
+        f"{plan['host_err']:.3e}")
     log(f"[runs] kernel max|err| on their main-path cases: ssd_scan checks "
         f"{ssd_check_err:.3e}, eval scans {ssd_err:.3e}; grouped_moe_ffn "
         f"checks {moe_check_err:.3e}, (B) layer {moe_err:.3e}")

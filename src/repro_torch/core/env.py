@@ -43,7 +43,8 @@ from repro_torch.core.channel import (
     state_time,
     tx_time,
 )
-from repro_torch.core.leakage import AnalyticLeakage, LeakDraws, draw_leakage
+from repro_torch.core.leakage import (AnalyticLeakage, LeakageModel, LeakDraws,
+                                     draw_leakage)
 from repro_torch.core.profiles import LayerProfile, profile_table
 from repro_torch.core.scenario import ScenarioParams, scenario_from_net
 from repro_torch.device import DeviceLike, resolve_device
@@ -54,9 +55,7 @@ NBINS = 4  # split-size bins
 OMEGA_1 = 5.0  # energy-violation penalty weight (Eq. 20)
 OMEGA_2 = 5.0  # time-violation penalty weight
 
-# the paper's leakage model; the attacker-measured EmpiricalLeakage of the
-# reference comes with the attack slice
-_LEAKAGE = AnalyticLeakage()
+_DEFAULT_LEAKAGE = AnalyticLeakage()
 
 
 class EnvState(NamedTuple):
@@ -93,6 +92,10 @@ class MHSLEnv:
     net: NetworkConfig = NetworkConfig()
     know_eave_locations: bool = True
     leak_scale: float = 1.0
+    # LeakageModel pricing the per-hop information values and the
+    # Monte-Carlo draw of step(); None = the paper's AnalyticLeakage. The
+    # attacker-measured EmpiricalLeakage comes with the attack slice.
+    leakage_model: Optional[LeakageModel] = None
     device: DeviceLike = field(default=None, compare=False)
 
     def __post_init__(self):
@@ -154,18 +157,61 @@ class MHSLEnv:
     def _params(self, params: Optional[ScenarioParams]) -> ScenarioParams:
         return self.scenario() if params is None else params
 
+    # ---- split-plan oracle -------------------------------------------------
+    def make_split_oracle(self):
+        """Oracle over every split of this env's profile.
+
+        Returns ``oracle(dev_pos, devices, p_tx, decoy_power, scenario=None,
+        device_mask=None)`` scoring all ``(L-1 choose S-1)`` boundary plans
+        (Eq. 10/11 static cost) in one batched pass on the env's device,
+        for a candidate device assignment ``devices`` (S,), per-hop trainer
+        powers ``p_tx`` (S-1,) and decoy powers ``decoy_power`` (S-1, U+1).
+        ``dev_pos`` is one env's (U+1, 2) positions (``st.dev_pos[i]`` of
+        an :class:`EnvState`). The result holds the stacked
+        ``boundaries`` (on the device) with per-plan ``delay``/``energy``
+        and a ``feasible`` mask against the scenario's budgets.
+        ``device_mask`` is an optional ``(U+1,)`` up/down mask: plans whose
+        assignment touches a down device are infeasible.
+        """
+        from repro_torch.core.splitting import (make_plan_scorer,
+                                                plan_devices_up,
+                                                stack_boundaries)
+
+        bounds = torch.as_tensor(stack_boundaries(self.L, self.S),
+                                 device=self.device)
+        scorer = make_plan_scorer(self.profile, self.device)
+
+        def oracle(dev_pos, devices, p_tx, decoy_power,
+                   scenario: Optional[ScenarioParams] = None,
+                   device_mask=None):
+            sp = self._params(scenario)
+            t, e = scorer(bounds, devices, dev_pos, p_tx, decoy_power, sp)
+            feasible = (t <= sp.gamma_t) & (e <= sp.gamma_e)
+            if device_mask is not None:
+                mask = torch.as_tensor(device_mask, device=self.device)
+                feasible = feasible & plan_devices_up(devices, mask)
+            return {"boundaries": bounds, "delay": t, "energy": e,
+                    "feasible": feasible}
+
+        return oracle
+
+    def _leakage(self) -> LeakageModel:
+        return (_DEFAULT_LEAKAGE if self.leakage_model is None
+                else self.leakage_model)
+
     @cached_property
     def _consts(self) -> Tuple[Tensor, ...]:
         # the profile's float64 host tables, cast to f32 exactly as the
         # reference's jnp.asarray does; torch.as_tensor alone would keep
-        # float64 and every leak and delay value would drift
+        # float64 and every leak and delay value would drift. The per-layer
+        # information values route through the LeakageModel.
         t = profile_table(self.profile)
 
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
         return (f32(t.act_bits), f32(t.grad_bits),
-                f32(_LEAKAGE.layer_values(t.leak_norm)),
+                f32(self._leakage().layer_values(t.leak_norm)),
                 f32(t.fwd_cum), f32(t.bwd_cum), f32(t.state_cum))
 
     # ---- randomness ----------------------------------------------------------
@@ -369,7 +415,7 @@ class MHSLEnv:
         delta = leak_v[boundary_layer] * sp.leak_scale
         leak = torch.where(
             has_hop,
-            _LEAKAGE.sample_leakage(draws, p_tx, d_tx_e, decoy_p,
+            self._leakage().sample_leakage(draws, p_tx, d_tx_e, decoy_p,
                                            decoy_dist_e, q_e, delta,
                                            sp.rayleigh_o),
             0.0)

@@ -1,29 +1,31 @@
-"""Eavesdropper & leakage model, analytic half (paper Theorem 1, Eq. 30).
+"""Eavesdropper & leakage model behind the :class:`LeakageModel` protocol.
 
-Port of the analytic part of ``repro.core.leakage``:
+Port of ``repro.core.leakage``:
   * an eavesdropper locks onto the max-SNR signal among {trainer} U decoys
     (Eq. 12) under Rayleigh fading, giving the capture probability
       P(e captures trainer) = prod_d  p_s m_s,e^-2 / (p_d m_d,e^-2 + p_s m_s,e^-2)
     (Theorem 1 / Eq. 37);
   * expected leakage of one hop = sum_e P_capture(e) * q_e * delta (Eq. 30);
-  * a Monte-Carlo draw of one hop's leakage (Eqs. 12-13, 20-21).
+  * a Monte-Carlo draw of one hop's leakage (Eqs. 12-13, 20-21);
+  * closed-form optimal powers for |D|=1 (Corollary 1) and |E|=1
+    (Corollary 2).
 
 Every function broadcasts over leading batch axes (hops, or the env
 population). ``jax.random`` streams cannot be reproduced in torch, so
 the Monte-Carlo draw takes its uniforms as an argument
-(:class:`LeakDraws`); :func:`draw_leakage` makes them from a
-``torch.Generator``. The learned-attacker ``EmpiricalLeakage`` waits for
-the attack slice.
+(:class:`LeakDraws`, where the reference takes a key);
+:func:`draw_leakage` makes them from a ``torch.Generator``. The
+learned-attacker ``EmpiricalLeakage`` waits for the attack slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
 
-from repro_torch.core.channel import channel_gain
+from repro_torch.core.channel import NetworkConfig, channel_gain
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -63,6 +65,28 @@ def draw_leakage(gen: torch.Generator, batch_shape, num_eaves: int,
     u = torch.rand(shape + (num_decoys + 1,), generator=gen, device=device)
     return LeakDraws(snr=1e-12 + u * (1.0 - 1e-12),
                      monitor=torch.rand(shape, generator=gen, device=device))
+
+
+@runtime_checkable
+class LeakageModel(Protocol):
+    """Unified per-hop leakage estimator.
+
+    ``evaluate(scenario, plan, draws=None, activations=None)`` returns the
+    per-hop leakage ``(H,)`` of ``plan`` under ``scenario``'s physics: the
+    expectation when ``draws`` is None, one Monte-Carlo draw per hop
+    otherwise. ``activations`` optionally carries the smashed activations
+    crossing each hop, for models that score them.
+
+    ``layer_values(leak_norm)`` maps the profile's per-layer information
+    table to the table this model prices hops with (identity for the
+    analytic model): the hook ``MHSLEnv`` threads through its reward.
+    """
+
+    def evaluate(self, scenario, plan: HopGeometry,
+                 draws: Optional[LeakDraws] = None,
+                 activations=None) -> Tensor: ...
+
+    def layer_values(self, leak_norm: np.ndarray) -> np.ndarray: ...
 
 
 @dataclass(frozen=True, eq=False)
@@ -121,10 +145,12 @@ class AnalyticLeakage:
         return hits * delta
 
     def evaluate(self, scenario, plan: HopGeometry,
-                 draws: Optional[LeakDraws] = None) -> Tensor:
+                 draws: Optional[LeakDraws] = None,
+                 activations=None) -> Tensor:
         """Per-hop leakage (H,) of ``plan`` under ``scenario``: the Eq. 30
         expectation, or one Monte-Carlo draw per hop when ``draws``
-        (leading axis H) is given."""
+        (leading axis H) is given. ``activations`` is ignored by the
+        analytic model."""
         if self.value_table is None:
             raise ValueError("evaluate() needs a per-layer value table - "
                              "construct the model via "
@@ -144,6 +170,48 @@ class AnalyticLeakage:
 
 
 _ANALYTIC = AnalyticLeakage()
+
+
+def plan_hop_geometry(boundaries, devices, dev_pos, eav_pos, p_tx, decoy_p,
+                      device: DeviceLike = None) -> HopGeometry:
+    """HopGeometry for the forward hops of one concrete split plan.
+
+    ``boundaries``/``devices`` are the (S,) plan arrays (cumulative layer
+    counts / device per stage), ``dev_pos`` (U+1, 2) and ``eav_pos``
+    (E, 2) the positions, ``p_tx`` scalar or (S-1,) trainer powers and
+    ``decoy_p`` (D,) or (S-1, D) decoy powers (decoy interference priced
+    at the eavesdropper, as in ``env.step``). The result lies on
+    ``dev_pos``'s device when it is a tensor, else on ``device``
+    (``cuda`` by default).
+    """
+    dev = (dev_pos.device if isinstance(dev_pos, torch.Tensor)
+           else resolve_device(device))
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    b = torch.as_tensor(boundaries, device=dev).long()
+    dv = torch.as_tensor(devices, device=dev).long()
+    h = b.shape[0] - 1
+    dev_pos, eav_pos = f32(dev_pos), f32(eav_pos)
+    tx_pos = dev_pos[dv[:-1]]  # (H, 2) transmitting stage
+    dist_tx_e = torch.linalg.vector_norm(eav_pos[None, :, :] - tx_pos[:, None, :],
+                                         dim=-1)
+    dde = torch.linalg.vector_norm(dev_pos[:, None, :] - eav_pos[None, :, :],
+                                   dim=-1)  # (D, E)
+    decoy_p = f32(decoy_p)
+    if decoy_p.dim() == 1:
+        decoy_p = decoy_p.expand(h, decoy_p.shape[0])
+    return HopGeometry(p_tx=f32(p_tx).expand(h), dist_tx_e=dist_tx_e,
+                       decoy_p=decoy_p, decoy_dist_e=dde.expand((h,) + dde.shape),
+                       boundary_layer=torch.clamp(b[:-1] - 1, min=0))
+
+
+def evaluate_leakage(model: LeakageModel, scenario, plan: HopGeometry,
+                     draws: Optional[LeakDraws] = None,
+                     activations=None) -> Tensor:
+    """Functional entry point of the protocol: per-hop leakage (H,)."""
+    return model.evaluate(scenario, plan, draws=draws, activations=activations)
 
 
 def capture_probability(p_tx, dist_tx_e, decoy_p, decoy_dist_e, o=1.0):
@@ -166,3 +234,65 @@ def sample_leakage(draws, p_tx, dist_tx_e, decoy_p, decoy_dist_e, q_e, delta,
     :meth:`AnalyticLeakage.sample_leakage`)."""
     return _ANALYTIC.sample_leakage(draws, p_tx, dist_tx_e, decoy_p,
                                     decoy_dist_e, q_e, delta, o)
+
+
+# ---------------------------------------------------------------------------
+# Corollaries: closed-form optimal powers
+# ---------------------------------------------------------------------------
+
+
+def _f32(*xs):
+    return tuple(torch.as_tensor(x, dtype=torch.float32) for x in xs)
+
+
+def optimal_powers_single_decoy(bits, dist_tx_rx, dist_tx_decoy, b_t, b_e,
+                                net: NetworkConfig) -> Tuple[Tensor, Tensor]:
+    """Corollary 1 (|D|=1): returns (p_s*, p_d*).
+
+    xi_0 p_s - xi_d p_d = chi_1 (rate constraint tight)
+    p_s + p_d = chi_2 = B_E / B_T (energy tight)
+
+    ``dist_tx_decoy`` is the decoy's interference distance at the
+    receiver. Where the energy budget is tight (xi_0 chi_2 < chi_1) the
+    interior solution would give the decoy negative power: the decoy is
+    clamped to 0 and the whole budget goes to the trainer. The energy
+    identity p_s + p_d = chi_2 holds in both regimes. Inputs are taken
+    in f32, as the reference evaluates them.
+    """
+    bits, dist_tx_rx, dist_tx_decoy, b_t, b_e = _f32(
+        bits, dist_tx_rx, dist_tx_decoy, b_t, b_e)
+    o = net.rayleigh_o
+    snr_req = 2.0 ** (bits / (b_t * net.bandwidth_hz)) - 1.0
+    xi0 = o / dist_tx_rx ** 2
+    xid = (o / dist_tx_decoy ** 2) * snr_req
+    chi1 = net.noise_w * snr_req
+    chi2 = b_e / b_t
+    p_d = torch.clamp((xi0 * chi2 - chi1) / (xi0 + xid), min=0.0)
+    # equals (chi1 + xid*chi2)/(xi0 + xid) in the interior regime
+    p_s = chi2 - p_d
+    return p_s, p_d
+
+
+def optimal_powers_single_eave(bits, dist_tx_rx, decoy_dist_e, b_t, b_e,
+                               net: NetworkConfig) -> Tuple[Tensor, Tensor]:
+    """Corollary 2 (|E|=1, decoy interference at the receiver ignored):
+    returns (p_s*, p_d* (D,)) for ``decoy_dist_e`` (D,) decoy ->
+    eavesdropper distances.
+
+    Clamped to physical powers: if the rate constraint alone demands more
+    than the whole energy budget (chi_1/xi_0 > chi_2) the trainer gets the
+    full budget and the decoys 0.
+    """
+    bits, dist_tx_rx, decoy_dist_e, b_t, b_e = _f32(
+        bits, dist_tx_rx, decoy_dist_e, b_t, b_e)
+    o = net.rayleigh_o
+    snr_req = 2.0 ** (bits / (b_t * net.bandwidth_hz)) - 1.0
+    xi0 = o / dist_tx_rx ** 2
+    chi1 = net.noise_w * snr_req
+    chi2 = b_e / b_t
+    p_s = torch.minimum(chi1 / xi0, chi2)
+    # water-levelling: equalize p_d m_{d,e}^-2 across decoys (Eq. 47-50)
+    budget = torch.clamp(chi2 - p_s, min=0.0)
+    denom = torch.sum(decoy_dist_e ** 2)
+    p_d = budget * decoy_dist_e ** 2 / torch.clamp(denom, min=1e-30)
+    return p_s, p_d

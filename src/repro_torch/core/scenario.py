@@ -1,16 +1,26 @@
-"""Scenario parameters as a runtime value (parameter half).
+"""Scenario parameters as a runtime value, and scenario sweeps.
 
-Port of the parameter half of ``repro.core.scenario``: the env's static
-structure (U devices, E_max eavesdroppers, S stages, number of power
-levels) stays on ``MHSLEnv`` and fixes every tensor shape; the dynamic
-physics lives in ``ScenarioParams``, a NamedTuple of f32 tensors passed
-as an argument through ``channel -> leakage -> env -> rollout ->
-trainers``. The scenario-batched trainers come in a later slice.
+Port of ``repro.core.scenario``: the env's static structure (U devices,
+E_max eavesdroppers, S stages, number of power levels) stays on
+``MHSLEnv`` and fixes every tensor shape; the dynamic physics lives in
+``ScenarioParams``, a NamedTuple of f32 tensors passed as an argument
+through ``channel -> leakage -> env -> rollout -> trainers``.
+
+A sweep is a stacked ``ScenarioParams`` (leading axis N, from
+:func:`scenario_grid` and :func:`stack_scenarios`). The population
+rollout and evaluator run its scenarios in turn, each replaying the same
+episode draws: one ``torch.Generator`` re-seeded with the same seed per
+scenario. Nothing compiles, so the reference's ``jit_cache_size`` has no
+counterpart. Per-scenario agents (``share_params=False``) come with
+``train_population`` in a later slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import itertools
+from typing import Dict, List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.channel import NetworkConfig
@@ -120,3 +130,143 @@ def with_active_eaves(base: ScenarioParams, count: int) -> ScenarioParams:
         raise ValueError(f"count must be in [0, {e}], got {count}")
     mask = (torch.arange(e, device=base.eave_mask.device) < count)
     return base._replace(eave_mask=mask.to(base.eave_mask.dtype))
+
+
+# ---------------------------------------------------------------------------
+# grid construction + stacking
+# ---------------------------------------------------------------------------
+
+
+def scenario_grid(base: ScenarioParams, **axes: Sequence) -> List[ScenarioParams]:
+    """Cartesian product over named parameter axes.
+
+    ``scenario_grid(base, monitor_prob=[0.3, 0.6], gamma_e=[50.0, 75.0])``
+    yields 4 scenarios in row-major order of the keyword arguments. The
+    special axis ``active_eaves`` takes integer counts and varies
+    ``eave_mask`` (padded-E sweep).
+    """
+    names = list(axes)
+    out = []
+    for combo in itertools.product(*(axes[n] for n in names)):
+        sp = base
+        for name, value in zip(names, combo):
+            if name == "active_eaves":
+                sp = with_active_eaves(sp, int(value))
+            else:
+                sp = replace_param(sp, name, value)
+        out.append(sp)
+    return out
+
+
+def stack_scenarios(scenarios: Sequence[ScenarioParams]) -> ScenarioParams:
+    """Stack N scenarios into one batched tuple (leading axis N)."""
+    if not scenarios:
+        raise ValueError("need at least one scenario")
+    return ScenarioParams(*(torch.stack(xs) for xs in zip(*scenarios)))
+
+
+def num_scenarios(stacked: ScenarioParams) -> int:
+    return int(stacked.monitor_prob.shape[0])
+
+
+def unstack_scenarios(stacked: ScenarioParams) -> List[ScenarioParams]:
+    """The N scenarios of a stacked tuple, in order."""
+    return [ScenarioParams(*(x[i] for x in stacked))
+            for i in range(num_scenarios(stacked))]
+
+
+# ---------------------------------------------------------------------------
+# population rollout / evaluation: one episode batch per scenario
+# ---------------------------------------------------------------------------
+
+
+def _check_population(share_params: bool, extra_record=None):
+    if not share_params:
+        raise NotImplementedError(
+            "per-scenario agents (share_params=False) come with "
+            "train_population")
+    if extra_record is not None:
+        raise NotImplementedError(
+            "the port's rollout records no extra fields (extra_record)")
+
+
+def _rollouts(env, policy, hist_len, params, seed, num_envs, scenarios):
+    """Each scenario's ``(num_envs, T, ...)`` trajectory, in turn, all from
+    the same draws: a generator on the env's device re-seeded with
+    ``seed`` per scenario draws the positions of ``num_envs`` fresh
+    geometries, then every step's policy and leakage noise, as
+    ``loops.evaluate_sac`` does."""
+    from repro_torch.core.agents import rollout as R
+
+    for sp in unstack_scenarios(scenarios):
+        gen = torch.Generator(device=env.device).manual_seed(seed)
+        st0 = env.reset(env.sample_positions(gen, num_envs, sp), sp)
+        yield R.rollout_episode(env, policy, params, st0, gen, hist_len, sp)[1]
+
+
+def make_population_rollout(env, policy, hist_len: int, *,
+                            share_params: bool = True, extra_record=None):
+    """Rollout of one shared agent over every scenario of a sweep.
+
+    Returns ``run(params, seed, num_envs, scenarios)`` where ``scenarios``
+    is a stacked ``ScenarioParams`` with leading axis N; trajectory leaves
+    come back ``(N, num_envs, T, ...)``. Every scenario replays the same
+    episode draws (a controlled comparison).
+    """
+    from repro_torch.tree import tree_map
+
+    _check_population(share_params, extra_record)
+
+    def run(params, seed: int, num_envs: int, scenarios: ScenarioParams):
+        trajs = list(_rollouts(env, policy, hist_len, params, seed, num_envs,
+                               scenarios))
+        return tree_map(lambda *xs: torch.stack(xs), trajs[0], *trajs[1:])
+
+    return run
+
+
+def make_population_evaluator(env, policy, hist_len: int = 1, *,
+                              share_params: bool = True, leakage_model=None):
+    """Evaluation of one shared agent over every scenario of a sweep.
+
+    Returns ``evaluate(params, seed, episodes, scenarios)`` ->
+    ``{"reward", "leak", "viol"}``, each an ``(N,)`` float64 tensor on the
+    host: per scenario the total of the episode batch over episodes and
+    steps divided by ``episodes``, with ``evaluate_sac``'s arithmetic (an
+    f32 sum of the ``(episodes, T)`` trajectory field on the device,
+    divided on the host). ``leakage_model`` overrides the env's
+    :class:`~repro_torch.core.leakage.LeakageModel` for this evaluation.
+    """
+    _check_population(share_params)
+    if leakage_model is not None:
+        env = dataclasses.replace(env, leakage_model=leakage_model)
+    keys = ("reward", "leak", "viol")
+
+    def evaluate(params, seed: int, episodes: int, scenarios: ScenarioParams):
+        sums = {k: [] for k in keys}
+        for traj in _rollouts(env, policy, hist_len, params, seed, episodes,
+                              scenarios):
+            for k in keys:
+                sums[k].append(traj[k].sum())
+        return {k: torch.stack(v).cpu().double() / episodes
+                for k, v in sums.items()}
+
+    return evaluate
+
+
+def evaluate_population(env, policy, params, scenarios: ScenarioParams, *,
+                        episodes: int = 20, seed: int = 1000,
+                        hist_len: int = 1, share_params: bool = True,
+                        leakage_model=None) -> Dict[str, np.ndarray]:
+    """Evaluate ``params`` across a stacked scenario batch (a fresh
+    geometry per episode, the same episode draws per scenario).
+
+    The seeds mirror ``loops.evaluate_sac``, so a batch-of-1 sweep
+    reproduces its numbers exactly. ``leakage_model`` swaps the leakage
+    pricing for this evaluation (analytic by default).
+    """
+    ev = make_population_evaluator(env, policy, hist_len,
+                                   share_params=share_params,
+                                   leakage_model=leakage_model)
+    out = ev(params, seed, episodes, scenarios)
+    return {k: v.numpy() for k, v in out.items()}

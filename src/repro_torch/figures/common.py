@@ -97,10 +97,13 @@ def curve(res, seconds: float):
             "chunk_seconds": res.chunk_seconds}
 
 
-def device_name(env: MHSLEnv) -> str:
-    if env.device.type == "cuda":
-        return torch.cuda.get_device_name(env.device)
-    return str(env.device)
+def device_name(where) -> str:
+    """The card's name for an env or a device on ``cuda``, else the
+    device."""
+    dev = torch.device(getattr(where, "device", where))
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return str(dev)
 
 
 def save_json(name: str, payload) -> str:

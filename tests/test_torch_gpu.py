@@ -131,6 +131,96 @@ def test_baselines_train_on_card(algo):
     assert all(leaf.is_cuda for leaf in tree_leaves(res.params))
 
 
+# the split planner: card against the CPU at the deepest zoo enumeration
+# (measured 1.6e-7 relative on an H100; chip_smoke.py's gate is the same)
+PLAN_RTOL = 2e-6
+
+
+def _plan_case(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.channel import NetworkConfig
+    from repro_torch.core.profiles import transformer_profile
+    from repro_torch.core.splitting import stack_boundaries
+    from repro_torch.figures.zoo_plan_scoring import plan_inputs
+
+    net = NetworkConfig(state_cycles_per_bit=0.01)
+    prof = transformer_profile(get_config(arch), batch=1, seq=2048)
+    pos, devices, p_tx, decoy = plan_inputs(4, net)
+    # in the scorer's argument order
+    return prof, stack_boundaries(prof.num_layers, 4), (devices, pos, p_tx, decoy), net
+
+
+@pytest.mark.gpu
+def test_plan_scorer_on_card_matches_cpu_at_nemotron():
+    """The batched scorer on cuda against its CPU evaluation over the full
+    S 4 enumeration of Nemotron-4-340B (96 layers, 138 415 plans), state
+    priced, rtol 2e-6; the best delays agree to the same tolerance."""
+    _card()
+    from repro_torch.core.splitting import make_plan_scorer
+
+    prof, bounds, inputs, net = _plan_case("nemotron-4-340b")
+    assert len(bounds) == 138415
+    t, e = make_plan_scorer(prof, "cuda")(bounds, *inputs, net)
+    assert t.is_cuda and e.is_cuda
+    tc, ec = make_plan_scorer(prof, "cpu")(bounds, *inputs, net)
+    np.testing.assert_allclose(t.cpu().numpy(), tc.numpy(), rtol=PLAN_RTOL)
+    np.testing.assert_allclose(e.cpu().numpy(), ec.numpy(), rtol=PLAN_RTOL)
+    np.testing.assert_allclose(float(t.min()), float(tc.min()), rtol=PLAN_RTOL)
+    # plan_cost prices its hops on a cuda ScenarioParams' device
+    from repro_torch.core.scenario import scenario_from_net
+    from repro_torch.core.splitting import SplitPlan, plan_cost
+
+    devices, pos, p_tx, decoy = inputs
+    plan = SplitPlan(tuple(int(x) for x in bounds[int(t.argmin())]),
+                     tuple(int(d) for d in devices))
+    np.testing.assert_allclose(
+        plan_cost(prof, plan, pos, p_tx, decoy,
+                  scenario_from_net(net, device="cuda")),
+        plan_cost(prof, plan, pos, p_tx, decoy, net), rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_plan_scorer_kernels_do_not_depend_on_plans():
+    """The CUDA kernels of one scorer call are the same at 4 495 plans
+    (Jamba) and at 138 415 (Nemotron): no per-plan work on the host."""
+    _card()
+    from repro_torch.core.splitting import make_plan_scorer
+    from repro_torch.figures.zoo_plan_scoring import device_ops_per_call
+
+    counts = []
+    for arch in ("jamba-v0.1-52b", "nemotron-4-340b"):
+        prof, bounds, inputs, net = _plan_case(arch)
+        scorer = make_plan_scorer(prof, "cuda")
+        b = torch.as_tensor(bounds, device="cuda")
+        counts.append(device_ops_per_call(lambda: scorer(b, *inputs, net))[0])
+    assert counts[0] == counts[1] > 0
+
+
+@pytest.mark.gpu
+def test_evaluate_population_launches_ca_attention_per_step():
+    """A five-point q sweep through ``evaluate_population`` on cuda: one
+    ca_attention launch per rollout step per scenario (5 x 7), leak
+    non-decreasing in q."""
+    _card()
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import rollout as R
+    from repro_torch.core.agents import sac as SAC
+
+    env = _resnet_env()
+    cfg = SAC.SACConfig(**TINY)
+    params = SAC.init_agent(torch.Generator().manual_seed(0), env.obs_dim,
+                            env.action_dims, cfg, device="cuda")
+    qs = [0.3, 0.45, 0.6, 0.75, 0.9]
+    scenarios = SC.stack_scenarios(SC.scenario_grid(env.scenario(), monitor_prob=qs))
+    before = CA.launches
+    out = SC.evaluate_population(env, R.sac_policy(env.action_dims, cfg), params,
+                                 scenarios, episodes=8, hist_len=cfg.hist_len)
+    torch.cuda.synchronize()
+    assert CA.launches - before == len(qs) * env.episode_len
+    assert out["leak"].shape == (len(qs),) and np.isfinite(out["reward"]).all()
+    assert np.all(np.diff(out["leak"]) >= 0.0)
+
+
 @pytest.mark.gpu
 def test_select_action_through_the_kernel_at_b1():
     """select_action on cuda launches ca_attention once at B = 1, and its
