@@ -80,6 +80,19 @@ Phases (each raises on failure; any failure exits non-zero):
    trained on the port and held to the JAX runs committed in
    ``tests/data/torch_band_reference.json``; the negative control (ICM-CA
    never leaving warmup) must fall outside the ICM-CA band;
+4g. population training and checkpoints: fig 8's two-scenario ICM-CA
+   ``train_population`` at full width for 2 chunks of 16 envs, its
+   ``ca_attention`` launches exactly twice ``train_sac``'s at the same
+   episodes, envs and config, host seconds per chunk beside
+   ``train_sac``'s; the kernel against its plain version at fig 6's
+   shapes (obs 30, pair 54, I 4, B 16 and 128); save / restore seconds
+   and bytes of a population's checkpoint; ``train_sac`` and a
+   two-scenario ``train_population`` stopped after 2 of 4 chunks and
+   resumed, held bit-identical to uninterrupted runs (two of which must
+   agree bit for bit first); the population band: fig 8's population
+   (``figures.band.POP_CARD_BAND``) on 3 seeds against the JAX runs
+   committed in ``tests/data/torch_population_reference.json``, every
+   metric inside, the population never leaving warmup outside;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1261,6 +1274,277 @@ def phase_band(torch, card):
         raise AssertionError(f"arms outside the band: {outside}")
     if B.inside(ctrl):
         raise AssertionError("the negative control is inside the ICM-CA band")
+
+
+# ---------------------------------------------------------------------------
+# 4g. population training and checkpoints
+# ---------------------------------------------------------------------------
+
+# fig 8's stack (know_eave_locations 1, 0) at full width: 2 chunks of 16
+# envs, the second updating
+POP_TRAIN_NUM_ENVS = 16
+POP_TRAIN_EPISODES = 32
+POP_TRAIN_WARMUP = 16
+# fig 6's padded env (num_eaves 4): obs 30, pair 54, I 4; B 16 in the
+# rollout of 16 envs, B 128 in the update
+FIG6_CA_WIDTHS = (30, 54, 64)
+FIG6_CA_BATCHES = (16, 128)
+
+
+def _host_chunk_s(res):
+    """The median host seconds of a run's updating chunks."""
+    return statistics.median(s for s, u in zip(res.chunk_seconds, res.chunk_updated) if u)
+
+
+def phase_population_train(torch, card):
+    """fig 8's two-scenario ICM-CA population at full width for 2 chunks of
+    16 envs, beside ``train_sac`` at the same episodes, envs and config,
+    the counters reset before and read after each: the population launches
+    ca_attention exactly twice as often (its scenarios run in turn), host
+    seconds per chunk of both; every curve and parameter finite. Then the
+    kernel against its plain version at fig 6's shapes (obs 30, pair 54,
+    I 4, B 16 and 128), and the save / restore seconds and archive bytes
+    of the population's whole training state. Returns (launches, worst
+    f32 error at fig 6's shapes, checkpoint numbers)."""
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import action_space as A
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+    from repro_torch.figures import band as B
+    from repro_torch.kernels import ca_attention as CA
+    from repro_torch.tree import tree_leaves
+
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    cfg = SAC.SACConfig()
+    scens = B.pop_scenarios(env, B.POP_CARD_BAND)  # fig 8's stack
+    kw = dict(episodes=POP_TRAIN_EPISODES, seed=0, warmup_episodes=POP_TRAIN_WARMUP,
+              num_envs=POP_TRAIN_NUM_ENVS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = LP.train_sac(env, cfg, **kw)
+    torch.cuda.synchronize()
+    sac_s = time.perf_counter() - t0
+    sac_counts = _counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    pop = SC.train_population(env, cfg, scens, **kw)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts.pop("ca_attention")
+    per_run = env.episode_len + cfg.updates_per_step * env.episode_len * POP_TRAIN_NUM_ENVS
+    if (launches != 2 * sac_counts["ca_attention"] or launches != 2 * per_run
+            or any(counts.values())):
+        raise AssertionError(f"the population launched ca_attention {launches} times "
+                             f"(train_sac {sac_counts['ca_attention']}, expected 2 x "
+                             f"{per_run}), others {counts}")
+    for r in pop.results:
+        if len(r.episode_reward) != POP_TRAIN_EPISODES or len(r.metrics) != 1:
+            raise AssertionError("population curve lengths")
+        _finite_run(r, "population")
+    for leaf in tree_leaves(pop.params):
+        if leaf.shape[0] != 2 or leaf.device.type != "cuda" or not torch.isfinite(leaf).all():
+            raise AssertionError("population params")
+    pop_chunk, sac_chunk = _host_chunk_s(pop.results[0]), _host_chunk_s(res)
+    log(f"[population] train_population (fig 8's stack, SACConfig()) {POP_TRAIN_EPISODES} "
+        f"episodes x {POP_TRAIN_NUM_ENVS} envs: ca_attention launches {launches} = 2 x "
+        f"train_sac's {sac_counts['ca_attention']}; host s per chunk "
+        f"{['%.3f' % x for x in pop.results[0].chunk_seconds]} vs train_sac "
+        f"{['%.3f' % x for x in res.chunk_seconds]}: updating chunk {pop_chunk:.3f} s vs "
+        f"{sac_chunk:.3f} s ({pop_chunk / sac_chunk:.2f}x); runs {pop_s:.3f} / {sac_s:.3f} s; "
+        f"last rewards {[round(r.episode_reward[-1], 3) for r in pop.results]} [{card}]")
+
+    env6 = B.pop_env(B.POP_CPU_BAND)
+    obs_dim, pair_dim, c = FIG6_CA_WIDTHS
+    if (env6.obs_dim, env6.obs_dim + A.flat_dim(env6.action_dims)) != (obs_dim, pair_dim):
+        raise AssertionError(f"fig 6's env: obs {env6.obs_dim}")
+    worst = max(_ca_check_case(torch, CA, b, 4, obs_dim, pair_dim, c)
+                for b in FIG6_CA_BATCHES)
+    return launches, worst, _checkpoint_cost(torch, card, env, cfg, pop)
+
+
+def _checkpoint_cost(torch, card, env, cfg, pop):
+    """Save and restore seconds and archive bytes of a two-scenario
+    population's training state at ``cfg`` (the trained params, fresh
+    AdamW states, two full replay buffers, the generators), as
+    ``train_population`` saves it."""
+    import shutil
+
+    from repro_torch.checkpoint import train_state as TS
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import rollout as R
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.tree import tree_index, tree_leaves, tree_stack
+
+    _, init_opt = SAC.make_update(env.action_dims, cfg)
+    state = dict(
+        params=pop.params,
+        opt_state=tree_stack([init_opt(tree_index(pop.params, s)) for s in range(2)]),
+        buf=tree_stack([R.buffer_init(cfg.buffer_size, LP.sac_example(env, cfg)).data
+                        for _ in range(2)]),
+        run_gen=TS.generator_leaf(torch.Generator()),
+        replay_gens=torch.stack([TS.generator_leaf(torch.Generator(device="cuda"))
+                                 for _ in range(2)]))
+    d = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = TS.save_train_checkpoint(str(d), 0, state, {"ep": 0})
+    save_s = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    _, back, _ = TS.load_train_checkpoint(str(d), state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(state))):
+        raise AssertionError("checkpoint round trip differs")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[checkpoint] a two-scenario population's state (buffer_size {cfg.buffer_size}): "
+        f"{size} bytes, save {save_s:.3f} s, restore {load_s:.3f} s [{card}]")
+    return dict(bytes=size, save_s=save_s, load_s=load_s)
+
+
+# stop/resume: 4 chunks of 2 envs at full width with a batch of 16 and one
+# update per env step (chunks 2-4 update), stopped after chunk 2
+RESUME_CFG = dict(batch=16, buffer_size=2000, updates_per_step=1)
+RESUME_KW = dict(seed=3, warmup_episodes=2, num_envs=2)
+RESUME_EPISODES = 8
+RESUME_STOP = 4
+
+
+def _run_diff(a, b):
+    """Largest difference between two runs' curves and final params
+    (a ``TrainResult`` or a ``PopulationResult`` each)."""
+    from repro_torch.tree import tree_leaves
+
+    ra = getattr(a, "results", [a])
+    rb = getattr(b, "results", [b])
+    worst = 0.0
+    for x, y in zip(ra, rb):
+        for k in ("episode_reward", "episode_leak", "episode_violation",
+                  "states_explored"):
+            u, v = getattr(x, k), getattr(y, k)
+            if len(u) != len(v):
+                return math.inf
+            worst = max([worst] + [abs(p - q) for p, q in zip(u, v)])
+    for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        worst = max(worst, float((p - q).abs().max()))
+    return worst
+
+
+def phase_resume(torch, card):
+    """``train_sac`` and fig 8's two-scenario ``train_population`` on the
+    card for 4 chunks, twice, then stopped after 2 chunks (a checkpoint)
+    and resumed to 4. The two uninterrupted runs must be bit-identical;
+    the resumed run must then be bit-identical to them too (where two
+    reruns differ, the resume is held to their difference, never more).
+    Returns {run: (rerun difference, resume difference)}."""
+    import shutil
+
+    from repro_torch.checkpoint import train_state as TS
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import resnet101_profile
+    from repro_torch.figures import band as B
+
+    env = MHSLEnv(profile=resnet101_profile(batch=1))
+    cfg = SAC.SACConfig(**RESUME_CFG)
+    scens = B.pop_scenarios(env, B.POP_CARD_BAND)  # fig 8's stack
+    base = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(base, ignore_errors=True)
+    runs = {
+        "train_sac": lambda **k: LP.train_sac(env, cfg, **RESUME_KW, **k),
+        "train_population": lambda **k: SC.train_population(env, cfg, scens,
+                                                            **RESUME_KW, **k),
+    }
+    out = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        a = run(episodes=RESUME_EPISODES)
+        b = run(episodes=RESUME_EPISODES)
+        ck = str(base / name)
+        run(episodes=RESUME_STOP, checkpoint_dir=ck, checkpoint_every=RESUME_STOP)
+        if TS.latest_checkpoint_step(ck) != RESUME_STOP:
+            raise AssertionError(f"{name}: no checkpoint at episode {RESUME_STOP}")
+        c = run(episodes=RESUME_EPISODES, checkpoint_dir=ck,
+                checkpoint_every=RESUME_STOP)
+        torch.cuda.synchronize()
+        rerun, resumed = _run_diff(a, b), _run_diff(a, c)
+        out[name] = (rerun, resumed)
+        log(f"[resume] {name}: {RESUME_EPISODES} episodes x {RESUME_KW['num_envs']} envs, "
+            f"stopped at {RESUME_STOP} and resumed: rerun max|diff| {rerun:.3e}, resumed "
+            f"vs uninterrupted {resumed:.3e} "
+            f"({'bit-identical' if resumed == 0 else 'NOT bit-identical'}); "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        if resumed > rerun:
+            raise AssertionError(f"{name}: the resumed run differs by {resumed}, two "
+                                 f"uninterrupted runs by {rerun}")
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def pop_band_config():
+    """The configuration the population band phase trains
+    (``band.POP_CARD_BAND``); ``tests/data/torch_population_reference.json``
+    must hold it."""
+    from repro_torch.figures import band as B
+
+    return B.POP_CARD_BAND
+
+
+def phase_population_band(torch, card):
+    """The population band on the card: fig 8's two-scenario ICM-CA
+    population (``band.POP_CARD_BAND``) trained on the port on the band's
+    first ``POP_CARD_TORCH_SEEDS`` seeds, every metric (per scenario
+    reward, leak, states; the paired reward difference) held to the JAX
+    ``train_population`` runs of ``tests/data/torch_population_reference.json``
+    by ``band.compare``; the counters reset before and read after. The
+    negative control (never leaving warmup) must fall outside."""
+    from repro_torch.figures import band as B
+
+    cfg = pop_band_config()
+    ref = B.load_reference(ROOT / "tests" / "data" / "torch_population_reference.json")["card"]
+    if ref["config"] != json.loads(json.dumps(cfg)):
+        raise AssertionError("torch_population_reference.json was made at another "
+                             "configuration than band.POP_CARD_BAND")
+    env = B.pop_env(cfg)
+    names = B.pop_metric_names(cfg)
+    seeds = cfg["seeds"][:B.POP_CARD_TORCH_SEEDS]
+    chunks = math.ceil(cfg["episodes"] / cfg["num_envs"])
+    upd_chunks = sum(1 for c in range(chunks) if c * cfg["num_envs"] >= cfg["warmup"])
+    per_run = 2 * upd_chunks * (2 * env.episode_len * cfg["num_envs"] + env.episode_len)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = [B.pop_metrics(B.run_population(env, cfg, s), cfg["last_k"]) for s in seeds]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    if counts.pop("ca_attention") != per_run * len(seeds) or any(counts.values()):
+        raise AssertionError(f"the population band launched {_counts()}, expected "
+                             f"ca_attention {per_run * len(seeds)}")
+    res = B.compare(ref["runs"], rows, names)
+    log(f"[pop band] fig 8's population x {len(seeds)} torch seeds vs "
+        f"{len(ref['runs'])} JAX seeds: {'inside' if B.inside(res) else 'OUTSIDE'}; "
+        + "; ".join(f"{m} torch {r['torch_mean']:.4f}+-{r['torch_std']:.4f} jax "
+                    f"{r['jax_mean']:.4f}+-{r['jax_std']:.4f} |d| {r['distance']:.4f} "
+                    f"margin {r['margin']:.4f}" for m, r in res.items())
+        + f"; {secs:.1f} s, ca_attention {per_run * len(seeds)} [{card}]")
+    ctrl_rows = [B.pop_metrics(B.run_population(env, cfg, s, warmup=cfg["episodes"]),
+                               cfg["last_k"]) for s in seeds]
+    ctrl = B.compare(ref["runs"], ctrl_rows, names)
+    log("[pop band] negative control (never leaving warmup): "
+        f"{'inside' if B.inside(ctrl) else 'outside'}; " + "; ".join(
+            f"{m} |d| {r['distance']:.4f} margin {r['margin']:.4f} "
+            f"({r['distance'] / r['margin']:.2f}x)" for m, r in ctrl.items()))
+    if not B.inside(res):
+        raise AssertionError("the population is outside its band")
+    if B.inside(ctrl):
+        raise AssertionError("the negative control is inside the population band")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2621,6 +2905,9 @@ def main() -> int:
     moe_model_launches = phase_moe_model(torch, card)
     torch.cuda.empty_cache()
     phase_band(torch, card)
+    pop_train_launches, fig6_err, ckpt = phase_population_train(torch, card)
+    resume = phase_resume(torch, card)
+    phase_population_band(torch, card)
     timing = phase_ca_timing(torch, card)
     t = timing[(128, 4, (28, 52, 64))]
     split_timing = phase_split_timing(torch, card)
@@ -2630,13 +2917,17 @@ def main() -> int:
         f"{select_err:.3e}); q sweep ca_attention {pop_launches}; fig 9 placement "
         f"ca_attention {fig9_launches} (B = 1); U 22 SAC ca_attention "
         f"{u22_launches}; sequential SAC "
-        f"ca_attention {seq_launches}; split "
+        f"ca_attention {seq_launches}; fig 8 population (2 chunks) ca_attention "
+        f"{pop_train_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
         f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
         f"{moe_model_launches}")
     log(f"[runs] plan scorer: {plan['kernels_per_call']} kernels per call at "
         f"every enumeration; card vs CPU {plan['cpu_err']:.3e}, vs plan_cost "
         f"{plan['host_err']:.3e}")
+    log(f"[runs] ca_attention at fig 6's shapes (obs 30, pair 54) max|err| "
+        f"{fig6_err:.3e}; checkpoint {ckpt['bytes']} bytes, save {ckpt['save_s']:.3f} s, "
+        f"restore {ckpt['load_s']:.3f} s; resume (rerun, resumed) max|diff| {resume}")
     log(f"[runs] kernel max|err| on their main-path cases: ssd_scan checks "
         f"{ssd_check_err:.3e}, eval scans {ssd_err:.3e}; grouped_moe_ffn "
         f"checks {moe_check_err:.3e}, (B) layer {moe_err:.3e}")

@@ -1,9 +1,11 @@
 """Training loops: episode rollout + off-policy updates (Algorithm 1).
 
 Port of ``repro.core.agents.loops`` (``train_sac`` / ``evaluate_sac``)
-without the population mesh and checkpoints, which come in later slices.
+with the reference's stop/resume checkpoints (``checkpoint_dir``,
+``checkpoint_every``, ``resume``), without the population mesh.
 ``TrainResult`` and the chunk bookkeeping are shared with the DQN and PPO
-baselines (``dqn.train_dqn``, ``ppo.train_ppo``).
+baselines (``dqn.train_dqn``, ``ppo.train_ppo``) and with
+``scenario.train_population``.
 Each chunk (reset, batched rollout of ``num_envs`` episodes, replay
 write, ``num_envs * episode_len * updates_per_step`` gradient steps,
 metric reduction) is one call of ``rollout.make_train_chunk``; its
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import train_state as TS
 from repro_torch.core.agents import action_space as A
 from repro_torch.core.agents import rollout as R
 from repro_torch.core.agents import sac as SAC
@@ -78,10 +81,22 @@ def combine_key_lanes(packed: np.ndarray) -> np.ndarray:
     return (p[..., 0] << np.uint64(32)) | p[..., 1]
 
 
+CHUNK_FIELDS = ("reward", "leak", "viol", "obs_keys")
+
+
 def _chunk_metrics(result: TrainResult, seen: set, m, ep: int, episodes: int,
                    num_envs: int) -> None:
     """The chunk's one device->host transfer, then per-episode bookkeeping."""
-    host = {k: m[k].cpu().numpy() for k in ("reward", "leak", "viol", "obs_keys")}
+    host_chunk_metrics(result, seen, {k: m[k].cpu().numpy() for k in CHUNK_FIELDS},
+                       m["update"] if m["did_update"] else None, ep, episodes,
+                       num_envs)
+
+
+def host_chunk_metrics(result: TrainResult, seen: set, host, update, ep: int,
+                       episodes: int, num_envs: int) -> None:
+    """Per-episode bookkeeping of a chunk from its :data:`CHUNK_FIELDS`
+    on the host; ``update`` is the chunk's dict of update metric means,
+    or ``None`` where it did not update."""
     keys = combine_key_lanes(host["obs_keys"])  # (num_envs, T)
     for i in range(num_envs):
         if ep + i >= episodes:
@@ -91,8 +106,8 @@ def _chunk_metrics(result: TrainResult, seen: set, m, ep: int, episodes: int,
         result.episode_leak.append(float(host["leak"][i]))
         result.episode_violation.append(float(host["viol"][i]))
         result.states_explored.append(len(seen))
-    if m["did_update"]:
-        result.metrics.append({k: float(v) for k, v in m["update"].items()})
+    if update is not None:
+        result.metrics.append({k: float(v) for k, v in update.items()})
 
 
 def traj_chunk_metrics(result: TrainResult, seen: set, traj, update, ep: int,
@@ -115,10 +130,38 @@ def check_run(env: MHSLEnv, num_envs: int, device: DeviceLike, who: str):
                          f"the env is on {env.device}")
 
 
+CURVES = ("episode_reward", "episode_leak", "episode_violation",
+          "states_explored")
+
+
+def curves_state(result: TrainResult) -> Dict:
+    """A result's four per-episode curves, for a checkpoint's host state."""
+    return {k: getattr(result, k) for k in CURVES}
+
+
+def restore_curves(result: TrainResult, saved: Dict) -> None:
+    for k in CURVES:
+        setattr(result, k, list(saved[k]))
+
+
+def save_due(checkpoint_dir, checkpoint_every: int, ep: int, last_saved) -> bool:
+    """Whether a chunk boundary at ``ep`` saves: the first boundary of a
+    run, then every ``checkpoint_every`` episodes (the reference's rule)."""
+    return bool(checkpoint_dir and checkpoint_every
+                and (last_saved is None or ep - last_saved >= checkpoint_every))
+
+
+def resumable(checkpoint_dir, resume: bool) -> bool:
+    return bool(checkpoint_dir and resume
+                and TS.latest_checkpoint_step(checkpoint_dir) is not None)
+
+
 def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
               seed: int = 0, warmup_episodes: int = 10,
               resample_positions: bool = False, num_envs: int = 1,
-              scenario=None, device: DeviceLike = None) -> TrainResult:
+              scenario=None, device: DeviceLike = None,
+              checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+              resume: bool = True) -> TrainResult:
     """ICM-CA SAC training on the batched engine.
 
     Runs on ``env.device``; ``device``, when given, must name the same
@@ -135,11 +178,22 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
     Randomness: weights come from a CPU generator seeded with ``seed``;
     positions, actions, leakage draws and replay indices from a generator
     on the device seeded with ``seed + 1``.
+
+    ``checkpoint_dir`` and ``checkpoint_every`` save the whole loop state
+    at chunk boundaries every ``checkpoint_every`` episodes, and once at
+    the end: params, optimizer state, replay storage, both generators'
+    states and, without ``resample_positions``, the fixed positions (the
+    ``.npz``); the episode counter, the four curves, the explored-state
+    set and the replay ring's pointers (the ``.json``). With ``resume``
+    (the default) the newest checkpoint in the directory is restored and
+    training goes on from its episode; the resumed run is bit-identical
+    to an uninterrupted one. A checkpoint of another run (seed, envs,
+    warmup, resampling, ``cfg`` or ``scenario`` differ) is refused.
     """
     check_run(env, num_envs, device, "train_sac")
     adims = env.action_dims
-    params = SAC.init_agent(torch.Generator().manual_seed(seed), env.obs_dim,
-                            adims, cfg, device=env.device)
+    init_gen = torch.Generator().manual_seed(seed)
+    params = SAC.init_agent(init_gen, env.obs_dim, adims, cfg, device=env.device)
     update, init_opt = SAC.make_update(adims, cfg)
     opt_state = init_opt(params)
     gen = torch.Generator(device=env.device).manual_seed(seed + 1)
@@ -156,8 +210,44 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
                                  scenario)
     result = TrainResult()
     seen: set = set()
+    meta = dict(seed=seed, num_envs=num_envs, warmup_episodes=warmup_episodes,
+                resample_positions=resample_positions, cfg=repr(cfg),
+                scenario=TS.pytree_fingerprint(scenario))
+
+    def device_state():
+        state = dict(params=params, opt_state=opt_state, buf=buf.data,
+                     gen=TS.generator_leaf(gen),
+                     init_gen=TS.generator_leaf(init_gen))
+        if not resample_positions:  # the one geometry every env replays
+            state["positions"] = tuple(x[:1] for x in positions())
+        return state
+
+    def save(ep_now: int) -> None:
+        TS.save_train_checkpoint(
+            checkpoint_dir, ep_now, device_state(),
+            dict(ep=ep_now, meta=meta, **curves_state(result),
+                 seen=sorted(seen), buf_ptr=buf.ptr, buf_size=buf.size))
+
     ep = 0
+    last_saved = None
+    if resumable(checkpoint_dir, resume):
+        _, dev, host = TS.load_train_checkpoint(checkpoint_dir, device_state())
+        ep = last_saved = TS.validate_resume(host, meta, episodes, checkpoint_dir)
+        params, opt_state = dev["params"], dev["opt_state"]
+        buf = R.BufferState(data=dev["buf"], ptr=host["buf_ptr"],
+                            size=host["buf_size"])
+        TS.restore_generator(gen, dev["gen"])
+        TS.restore_generator(init_gen, dev["init_gen"])
+        if not resample_positions:
+            fixed = tuple(x.expand(num_envs, -1, -1) for x in dev["positions"])
+            positions = lambda: fixed  # noqa: E731
+        restore_curves(result, host)
+        seen = set(host["seen"])
+
     while ep < episodes:
+        if save_due(checkpoint_dir, checkpoint_every, ep, last_saved):
+            save(ep)
+            last_saved = ep
         t0 = time.perf_counter()
         params, opt_state, metrics = chunk(params, opt_state, buf, positions(),
                                            gen, ep >= warmup_episodes, scenario)
@@ -165,6 +255,8 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
         result.chunk_seconds.append(time.perf_counter() - t0)
         result.chunk_updated.append(metrics["did_update"])
         ep += num_envs
+    if checkpoint_dir and last_saved != ep:
+        save(ep)
 
     result.params = params
     return result

@@ -313,8 +313,11 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
     metric reduction.
 
     Returns ``chunk(params, opt_state, buf, positions, gen, train,
-    scenario=None) -> (params, opt_state, metrics)``; ``buf`` is written
-    in place. ``positions`` are the per-env ``(dev, eav)`` reset positions.
+    scenario=None, update_gen=None) -> (params, opt_state, metrics)``;
+    ``buf`` is written in place. ``positions`` are the per-env ``(dev,
+    eav)`` reset positions. The rollout draws from ``gen``, and so do the
+    replay indices unless ``update_gen`` is given (a population shares
+    its rollout draws across scenarios but not its replay indices).
     ``metrics`` stay on the device::
 
         {"reward"|"leak"|"viol": (num_envs,) episode sums,
@@ -327,7 +330,7 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
     fused = make_fused_update(update_fn, batch_size, n_updates)
 
     def chunk(params, opt_state, buf: BufferState, positions, gen, train: bool,
-              scenario=None):
+              scenario=None, update_gen=None):
         st0 = env.reset(positions, scenario)
         policy = train_policy if train else explore_policy
         _, traj = rollout_episode(env, policy, params, st0, gen, hist_len,
@@ -337,7 +340,8 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
         upd = None
         did_update = bool(train) and buf.size >= batch_size
         if did_update:
-            params, opt_state, upd = fused(params, opt_state, buf, gen)
+            params, opt_state, upd = fused(
+                params, opt_state, buf, gen if update_gen is None else update_gen)
         metrics = dict(reduce_traj(traj), update=upd, did_update=did_update)
         return params, opt_state, metrics
 

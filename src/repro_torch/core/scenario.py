@@ -10,15 +10,22 @@ A sweep is a stacked ``ScenarioParams`` (leading axis N, from
 :func:`scenario_grid` and :func:`stack_scenarios`). The population
 rollout and evaluator run its scenarios in turn, each replaying the same
 episode draws: one ``torch.Generator`` re-seeded with the same seed per
-scenario. Nothing compiles, so the reference's ``jit_cache_size`` has no
-counterpart. Per-scenario agents (``share_params=False``) come with
-``train_population`` in a later slice.
+scenario. They take one agent for all scenarios, or with
+``share_params=False`` a stacked one per scenario (leading axis N), as
+:func:`train_population` makes them. ``train_population`` trains one
+ICM-CA SAC agent per scenario in lockstep: each chunk runs every
+scenario's rollout, replay write and updates in turn, on the reference's
+sharing of draws (the geometry and the rollout noise shared, weights and
+replay indices per scenario). Nothing compiles, so the reference's
+``jit_cache_size`` has no counterpart, and there is no population mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, NamedTuple, Sequence
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -180,28 +187,29 @@ def unstack_scenarios(stacked: ScenarioParams) -> List[ScenarioParams]:
 # ---------------------------------------------------------------------------
 
 
-def _check_population(share_params: bool, extra_record=None):
-    if not share_params:
-        raise NotImplementedError(
-            "per-scenario agents (share_params=False) come with "
-            "train_population")
+def _check_population(extra_record=None):
     if extra_record is not None:
         raise NotImplementedError(
             "the port's rollout records no extra fields (extra_record)")
 
 
-def _rollouts(env, policy, hist_len, params, seed, num_envs, scenarios):
+def _rollouts(env, policy, hist_len, params, seed, num_envs, scenarios,
+              share_params=True):
     """Each scenario's ``(num_envs, T, ...)`` trajectory, in turn, all from
     the same draws: a generator on the env's device re-seeded with
     ``seed`` per scenario draws the positions of ``num_envs`` fresh
     geometries, then every step's policy and leakage noise, as
-    ``loops.evaluate_sac`` does."""
+    ``loops.evaluate_sac`` does. Without ``share_params``, scenario ``s``
+    runs slice ``s`` of the stacked ``params`` (the reference's
+    ``in_axes=0``)."""
     from repro_torch.core.agents import rollout as R
+    from repro_torch.tree import tree_index
 
-    for sp in unstack_scenarios(scenarios):
+    for s, sp in enumerate(unstack_scenarios(scenarios)):
         gen = torch.Generator(device=env.device).manual_seed(seed)
         st0 = env.reset(env.sample_positions(gen, num_envs, sp), sp)
-        yield R.rollout_episode(env, policy, params, st0, gen, hist_len, sp)[1]
+        p = params if share_params else tree_index(params, s)
+        yield R.rollout_episode(env, policy, p, st0, gen, hist_len, sp)[1]
 
 
 def make_population_rollout(env, policy, hist_len: int, *,
@@ -211,16 +219,17 @@ def make_population_rollout(env, policy, hist_len: int, *,
     Returns ``run(params, seed, num_envs, scenarios)`` where ``scenarios``
     is a stacked ``ScenarioParams`` with leading axis N; trajectory leaves
     come back ``(N, num_envs, T, ...)``. Every scenario replays the same
-    episode draws (a controlled comparison).
+    episode draws (a controlled comparison). ``share_params=False`` takes
+    one agent per scenario, stacked on a leading N axis (as
+    :func:`train_population` makes them).
     """
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_stack
 
-    _check_population(share_params, extra_record)
+    _check_population(extra_record)
 
     def run(params, seed: int, num_envs: int, scenarios: ScenarioParams):
-        trajs = list(_rollouts(env, policy, hist_len, params, seed, num_envs,
-                               scenarios))
-        return tree_map(lambda *xs: torch.stack(xs), trajs[0], *trajs[1:])
+        return tree_stack(list(_rollouts(env, policy, hist_len, params, seed,
+                                         num_envs, scenarios, share_params)))
 
     return run
 
@@ -236,8 +245,8 @@ def make_population_evaluator(env, policy, hist_len: int = 1, *,
     f32 sum of the ``(episodes, T)`` trajectory field on the device,
     divided on the host). ``leakage_model`` overrides the env's
     :class:`~repro_torch.core.leakage.LeakageModel` for this evaluation.
+    ``share_params=False`` takes stacked per-scenario params.
     """
-    _check_population(share_params)
     if leakage_model is not None:
         env = dataclasses.replace(env, leakage_model=leakage_model)
     keys = ("reward", "leak", "viol")
@@ -245,7 +254,7 @@ def make_population_evaluator(env, policy, hist_len: int = 1, *,
     def evaluate(params, seed: int, episodes: int, scenarios: ScenarioParams):
         sums = {k: [] for k in keys}
         for traj in _rollouts(env, policy, hist_len, params, seed, episodes,
-                              scenarios):
+                              scenarios, share_params):
             for k in keys:
                 sums[k].append(traj[k].sum())
         return {k: torch.stack(v).cpu().double() / episodes
@@ -270,3 +279,187 @@ def evaluate_population(env, policy, params, scenarios: ScenarioParams, *,
                                    leakage_model=leakage_model)
     out = ev(params, seed, episodes, scenarios)
     return {k: v.numpy() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# population training: one SAC agent per scenario, trained in lockstep
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PopulationResult:
+    """Per-scenario training curves and the agents' parameters, stacked
+    on a leading scenario axis."""
+
+    results: List[Any] = field(default_factory=list)  # List[loops.TrainResult]
+    params: Any = None
+
+
+def draw_seed(gen: torch.Generator) -> int:
+    """One seed from a CPU generator (the population's run generator)."""
+    return int(torch.randint(0, 2 ** 62, (), generator=gen))
+
+
+def population_seeds(seed: int, n: int) -> Dict[str, Any]:
+    """The seeds :func:`train_population` draws before its first chunk,
+    and the run generator, positioned at the first chunk's seed: from a
+    CPU generator seeded with ``seed``, in order, scenario by scenario its
+    weight seed and its replay seed, then the geometry seed."""
+    run = torch.Generator().manual_seed(seed)
+    per = [(draw_seed(run), draw_seed(run)) for _ in range(n)]
+    return dict(init=[a for a, _ in per], replay=[b for _, b in per],
+                geometry=draw_seed(run), run=run)
+
+
+def train_population(env, cfg, scenarios: ScenarioParams, *,
+                     episodes: int = 200, seed: int = 0,
+                     warmup_episodes: int = 10, num_envs: int = 1,
+                     resample_positions: bool = False,
+                     checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 0, resume: bool = True,
+                     device=None) -> PopulationResult:
+    """Train one ICM-CA SAC agent per scenario of ``scenarios`` (stacked,
+    leading axis N), all in lockstep.
+
+    Each chunk runs every scenario's ``rollout.make_train_chunk`` in turn
+    (rollout of ``num_envs`` episodes, replay write, ``num_envs *
+    episode_len * updates_per_step`` gradient steps), then brings the
+    reduced metrics of all scenarios to the host together. Chunking,
+    warmup rounding and bookkeeping are ``loops.train_sac``'s.
+
+    Randomness, as the reference shares it (:func:`population_seeds`):
+    a CPU generator seeded with ``seed`` (the run generator) draws, per
+    scenario in order, the seed of its weights (a CPU generator, as
+    ``train_sac``'s) and the seed of its replay indices (a generator on
+    the device, used by that scenario's updates only), then one geometry
+    seed, then one rollout seed per chunk. Without
+    ``resample_positions``, each scenario's one geometry comes from a
+    device generator seeded with the geometry seed, so all scenarios share
+    it; in each chunk, each scenario's rollout runs on a device generator
+    seeded with the chunk's rollout seed (with ``resample_positions`` it
+    draws the chunk's positions first), so the scenarios share the
+    positions, the Gumbel action noise and the leakage noise, and differ
+    by their physics and their agents.
+
+    ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` behave as in
+    ``loops.train_sac``: the stacked params, optimizer states and replay
+    storage, the run generator's and every replay generator's states and
+    the fixed geometry are saved at chunk boundaries with every scenario's
+    curves, explored-state set and ring pointers, under a run fingerprint
+    that includes the scenario stack's. There is no ``mesh``: one card.
+    """
+    from repro_torch.checkpoint import train_state as TS
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import rollout as R
+    from repro_torch.core.agents import sac as SAC
+    from repro_torch.tree import tree_index, tree_stack
+
+    LP.check_run(env, num_envs, device, "train_population")
+    n = num_scenarios(scenarios)
+    sps = unstack_scenarios(scenarios)
+    adims = env.action_dims
+    seeds = population_seeds(seed, n)
+    run_gen = seeds["run"]
+    params = [SAC.init_agent(torch.Generator().manual_seed(s), env.obs_dim,
+                             adims, cfg, device=env.device)
+              for s in seeds["init"]]
+    update, init_opt = SAC.make_update(adims, cfg)
+    opt_state = [init_opt(p) for p in params]
+    ugens = [torch.Generator(device=env.device).manual_seed(s)
+             for s in seeds["replay"]]
+    bufs = [R.buffer_init(cfg.buffer_size, LP.sac_example(env, cfg))
+            for _ in range(n)]
+    chunk = R.make_train_chunk(
+        env, R.uniform_policy(adims), R.sac_policy(adims, cfg), update,
+        hist_len=cfg.hist_len, fields=LP.SAC_FIELDS, batch_size=cfg.batch,
+        n_updates=cfg.updates_per_step * env.episode_len * num_envs,
+    )
+    fixed = None
+    if not resample_positions:
+        fixed = [env.sample_positions(
+            torch.Generator(device=env.device).manual_seed(seeds["geometry"]),
+            1, sp) for sp in sps]
+
+    def positions(s: int, rgen):
+        if resample_positions:
+            return env.sample_positions(rgen, num_envs, sps[s])
+        return tuple(x.expand(num_envs, -1, -1) for x in fixed[s])
+
+    pop = PopulationResult(results=[LP.TrainResult() for _ in range(n)])
+    seen: List[set] = [set() for _ in range(n)]
+    meta = dict(seed=seed, num_envs=num_envs, num_scenarios=n,
+                warmup_episodes=warmup_episodes,
+                resample_positions=resample_positions, cfg=repr(cfg),
+                scenario=TS.pytree_fingerprint(scenarios))
+
+    def device_state():
+        state = dict(params=tree_stack(params), opt_state=tree_stack(opt_state),
+                     buf=tree_stack([b.data for b in bufs]),
+                     run_gen=TS.generator_leaf(run_gen),
+                     replay_gens=torch.stack([TS.generator_leaf(g) for g in ugens]))
+        if fixed is not None:
+            state["positions"] = tree_stack(fixed)
+        return state
+
+    def save(ep_now: int) -> None:
+        TS.save_train_checkpoint(
+            checkpoint_dir, ep_now, device_state(),
+            dict(ep=ep_now, meta=meta,
+                 results=[LP.curves_state(r) for r in pop.results],
+                 seen=[sorted(x) for x in seen],
+                 buf_ptr=[b.ptr for b in bufs], buf_size=[b.size for b in bufs]))
+
+    ep = 0
+    last_saved = None
+    if LP.resumable(checkpoint_dir, resume):
+        _, dev, host = TS.load_train_checkpoint(checkpoint_dir, device_state())
+        ep = last_saved = TS.validate_resume(host, meta, episodes, checkpoint_dir)
+        params = [tree_index(dev["params"], s) for s in range(n)]
+        opt_state = [tree_index(dev["opt_state"], s) for s in range(n)]
+        bufs = [R.BufferState(data=tree_index(dev["buf"], s), ptr=p, size=z)
+                for s, (p, z) in enumerate(zip(host["buf_ptr"], host["buf_size"]))]
+        TS.restore_generator(run_gen, dev["run_gen"])
+        for g, leaf in zip(ugens, dev["replay_gens"]):
+            TS.restore_generator(g, leaf)
+        if fixed is not None:
+            fixed = [tree_index(dev["positions"], s) for s in range(n)]
+        for res, saved in zip(pop.results, host["results"]):
+            LP.restore_curves(res, saved)
+        seen = [set(x) for x in host["seen"]]
+
+    while ep < episodes:
+        if LP.save_due(checkpoint_dir, checkpoint_every, ep, last_saved):
+            save(ep)
+            last_saved = ep
+        t0 = time.perf_counter()
+        rseed = draw_seed(run_gen)
+        train = ep >= warmup_episodes
+        ms = []
+        for s in range(n):
+            rgen = torch.Generator(device=env.device).manual_seed(rseed)
+            pos = positions(s, rgen)
+            params[s], opt_state[s], m = chunk(params[s], opt_state[s], bufs[s],
+                                               pos, rgen, train, sps[s],
+                                               update_gen=ugens[s])
+            ms.append(m)
+        # one transfer per field for all scenarios, after the last chunk
+        host = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
+                for k in LP.CHUNK_FIELDS}
+        upd = None
+        if ms[0]["did_update"]:  # every scenario's buffer fills alike
+            upd = {k: torch.stack([m["update"][k] for m in ms]).cpu().tolist()
+                   for k in ms[0]["update"]}
+        secs = time.perf_counter() - t0
+        for s in range(n):
+            LP.host_chunk_metrics(
+                pop.results[s], seen[s], {k: v[s] for k, v in host.items()},
+                None if upd is None else {k: v[s] for k, v in upd.items()},
+                ep, episodes, num_envs)
+            pop.results[s].chunk_seconds.append(secs)
+            pop.results[s].chunk_updated.append(ms[s]["did_update"])
+        ep += num_envs
+    if checkpoint_dir and last_saved != ep:
+        save(ep)
+
+    pop.params = tree_stack(params)
+    return pop

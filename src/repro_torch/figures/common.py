@@ -3,10 +3,15 @@
 metric, the standard agents of figs 4-6 and JSON output.
 
 The episode counts are the reference's quick ones (``BenchConfig(
-quick=True)``: 160 episodes, 15 of warmup). There is no population mesh
-and no checkpointing yet. Curves go to ``experiments/torch_bench/`` under
-the working directory (``TORCH_BENCH_OUT`` overrides it), each with the
-device it ran on.
+quick=True)``: 160 episodes, 15 of warmup). There is no population mesh.
+Curves go to ``experiments/torch_bench/`` under the working directory
+(``TORCH_BENCH_OUT`` overrides it), each with the device it ran on.
+
+Checkpoints, as the reference's ``BenchConfig.ckpt``: a driver given
+``--checkpoint-dir DIR`` saves each SAC agent or population under
+``ckpt(DIR, name)`` every ``--checkpoint-every`` episodes and resumes
+from there when run again; ``--fresh`` ignores what is saved. Off
+without a directory.
 """
 from __future__ import annotations
 
@@ -60,14 +65,29 @@ def resnet_env(device: DeviceLike = None) -> MHSLEnv:
     return MHSLEnv(profile=resnet101_profile(batch=1), device=device)
 
 
+def ckpt(checkpoint_dir, name: str):
+    """The checkpoint directory of one agent or population (``None`` when
+    checkpointing is off)."""
+    if checkpoint_dir is None:
+        return None
+    return os.path.join(checkpoint_dir, name)
+
+
 def train_standard_agents(env: MHSLEnv, seed: int = 0, *,
                           episodes: int = EPISODES, warmup: int = WARMUP,
                           algos=("icm_ca", "sac", "ppo"), scenario=None,
-                          num_envs: int = 1):
+                          num_envs: int = 1, checkpoint_dir=None,
+                          checkpoint_every: int = 0, resume: bool = True,
+                          ckpt_ns=None):
     """The agent-training preamble of figs 4-6: ``{name: {"params",
     "cfg", "result", "seconds"}}`` for each of ``algos`` (``icm_ca``: full
     SAC; ``sac``: no ICM, no CA; ``ppo``; ``dqn``), all on one seed, at
-    the reference's configurations."""
+    the reference's configurations.
+
+    The SAC arms checkpoint under ``ckpt(checkpoint_dir, ckpt_ns/name)``
+    (PPO and DQN have no checkpoints, as in the reference). Different
+    figures train agents of the same names, so checkpointing is off
+    unless the caller names a namespace ``ckpt_ns``."""
     out = {}
     for name in algos:
         t0 = time.perf_counter()
@@ -75,7 +95,10 @@ def train_standard_agents(env: MHSLEnv, seed: int = 0, *,
             cfg = (SACConfig() if name == "icm_ca"
                    else SACConfig(use_icm=False, use_ca=False))
             res = train_sac(env, cfg, episodes=episodes, warmup_episodes=warmup,
-                            seed=seed, num_envs=num_envs, scenario=scenario)
+                            seed=seed, num_envs=num_envs, scenario=scenario,
+                            checkpoint_dir=(ckpt(checkpoint_dir, f"{ckpt_ns}/{name}")
+                                            if ckpt_ns else None),
+                            checkpoint_every=checkpoint_every, resume=resume)
         elif name == "ppo":
             cfg = PPOConfig()
             res = train_ppo(env, cfg, episodes=episodes, seed=seed,
@@ -119,9 +142,27 @@ def emit_csv_row(name: str, us_per_call: float, derived: str) -> None:
     print(f"{name},{us_per_call:.1f},{derived}", flush=True)
 
 
-def parse_args(doc: str):
-    """The drivers' one flag: ``--num-envs``, the env population of a
-    chunk."""
+def add_checkpoint_args(ap) -> None:
+    """``--checkpoint-dir``, ``--checkpoint-every`` and ``--fresh``."""
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save (and resume) the SAC agents under this directory")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="episodes between checkpoints (0: only at the end)")
+    ap.add_argument("--fresh", action="store_true",
+                    help="ignore saved checkpoints and train from scratch")
+
+
+def parse_args(doc: str, argv=None, checkpoints: bool = False):
+    """The drivers' flags: ``--num-envs``, the env population of a chunk,
+    and with ``checkpoints`` those of :func:`add_checkpoint_args`."""
     ap = argparse.ArgumentParser(description=doc)
     ap.add_argument("--num-envs", type=int, default=1)
-    return ap.parse_args()
+    if checkpoints:
+        add_checkpoint_args(ap)
+    return ap.parse_args(argv)
+
+
+def ckpt_kwargs(args) -> dict:
+    """The checkpoint keywords of a driver's ``main`` from its flags."""
+    return dict(checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every, resume=not args.fresh)

@@ -15,8 +15,8 @@ import numpy as np
 from repro_torch.core.agents.loops import train_sac
 from repro_torch.core.agents.sac import SACConfig
 from repro_torch.figures.common import (
-    EPISODES, WARMUP, curve, derived_seed, device_name, emit_csv_row,
-    episodes_to_reach, parse_args, resnet_env, save_json,
+    EPISODES, WARMUP, ckpt, ckpt_kwargs, curve, derived_seed, device_name,
+    emit_csv_row, episodes_to_reach, parse_args, resnet_env, save_json,
 )
 
 VARIANTS = {
@@ -27,7 +27,8 @@ VARIANTS = {
 
 
 def main(num_envs: int = 1, seed: int = 0, device=None,
-         episodes: int = EPISODES, warmup: int = WARMUP):
+         episodes: int = EPISODES, warmup: int = WARMUP, checkpoint_dir=None,
+         checkpoint_every: int = 0, resume: bool = True):
     env = resnet_env(device)
     curves = {}
     # each variant on its own derived seed, as in the reference
@@ -35,7 +36,9 @@ def main(num_envs: int = 1, seed: int = 0, device=None,
         t0 = time.perf_counter()
         res = train_sac(env, SACConfig(**flags), episodes=episodes,
                         warmup_episodes=warmup, seed=derived_seed(seed, i),
-                        num_envs=num_envs)
+                        num_envs=num_envs,
+                        checkpoint_dir=ckpt(checkpoint_dir, f"fig3/{name}"),
+                        checkpoint_every=checkpoint_every, resume=resume)
         curves[name] = curve(res, time.perf_counter() - t0)
         emit_csv_row(f"fig3/{name}", curves[name]["seconds"] * 1e6 / episodes,
                      f"final_reward={np.mean(res.episode_reward[-10:]):.3f}")
@@ -63,4 +66,5 @@ def main(num_envs: int = 1, seed: int = 0, device=None,
 
 
 if __name__ == "__main__":
-    main(parse_args(__doc__).num_envs)
+    args = parse_args(__doc__, checkpoints=True)
+    main(args.num_envs, **ckpt_kwargs(args))

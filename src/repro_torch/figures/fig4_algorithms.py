@@ -11,17 +11,20 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.figures.common import (
-    EPISODES, WARMUP, curve, device_name, emit_csv_row, episodes_to_reach,
-    parse_args, resnet_env, save_json, train_standard_agents,
+    EPISODES, WARMUP, ckpt_kwargs, curve, device_name, emit_csv_row,
+    episodes_to_reach, parse_args, resnet_env, save_json, train_standard_agents,
 )
 
 
 def main(num_envs: int = 1, seed: int = 0, device=None,
-         episodes: int = EPISODES, warmup: int = WARMUP):
+         episodes: int = EPISODES, warmup: int = WARMUP, checkpoint_dir=None,
+         checkpoint_every: int = 0, resume: bool = True):
     env = resnet_env(device)
     agents = train_standard_agents(env, seed, episodes=episodes, warmup=warmup,
                                    algos=("icm_ca", "ppo", "dqn"),
-                                   num_envs=num_envs)
+                                   num_envs=num_envs, checkpoint_dir=checkpoint_dir,
+                                   checkpoint_every=checkpoint_every,
+                                   resume=resume, ckpt_ns="fig4")
     curves = {name: curve(a["result"], a["seconds"]) for name, a in agents.items()}
     finals = {k: float(np.mean(v["reward"][-10:])) for k, v in curves.items()}
     thresh = 0.9 * finals["icm_ca"]
@@ -46,4 +49,5 @@ def main(num_envs: int = 1, seed: int = 0, device=None,
 
 
 if __name__ == "__main__":
-    main(parse_args(__doc__).num_envs)
+    args = parse_args(__doc__, checkpoints=True)
+    main(args.num_envs, **ckpt_kwargs(args))

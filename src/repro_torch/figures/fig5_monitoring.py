@@ -22,8 +22,8 @@ from repro_torch.core.scenario import (
     evaluate_population, scenario_grid, stack_scenarios,
 )
 from repro_torch.figures.common import (
-    EPISODES, WARMUP, device_name, emit_csv_row, resnet_env, save_json,
-    train_standard_agents,
+    EPISODES, WARMUP, add_checkpoint_args, ckpt_kwargs, device_name,
+    emit_csv_row, resnet_env, save_json, train_standard_agents,
 )
 
 QS = [0.3, 0.45, 0.6, 0.75, 0.9]
@@ -32,7 +32,8 @@ EVAL_EPISODES = 15  # the reference's quick evaluation
 
 def main(num_envs: int = 1, seed: int = 0, device=None,
          episodes: int = EPISODES, warmup: int = WARMUP,
-         eval_episodes: int = EVAL_EPISODES, leakage: str = "analytic"):
+         eval_episodes: int = EVAL_EPISODES, leakage: str = "analytic",
+         checkpoint_dir=None, checkpoint_every: int = 0, resume: bool = True):
     if leakage != "analytic":
         raise NotImplementedError(
             f"--leakage {leakage}: the attacker-measured EmpiricalLeakage "
@@ -41,7 +42,9 @@ def main(num_envs: int = 1, seed: int = 0, device=None,
     adims = env.action_dims
     agents = train_standard_agents(env, seed, episodes=episodes, warmup=warmup,
                                    algos=("icm_ca", "sac", "ppo"),
-                                   num_envs=num_envs)
+                                   num_envs=num_envs, checkpoint_dir=checkpoint_dir,
+                                   checkpoint_every=checkpoint_every,
+                                   resume=resume, ckpt_ns="fig5")
     scenarios = stack_scenarios(scenario_grid(env.scenario(), monitor_prob=QS))
 
     leak = {}
@@ -81,5 +84,6 @@ if __name__ == "__main__":
     ap.add_argument("--num-envs", type=int, default=1)
     ap.add_argument("--leakage", default="analytic",
                     choices=("analytic", "empirical"))
+    add_checkpoint_args(ap)
     a = ap.parse_args()
-    main(a.num_envs, leakage=a.leakage)
+    main(a.num_envs, leakage=a.leakage, **ckpt_kwargs(a))

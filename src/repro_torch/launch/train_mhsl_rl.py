@@ -26,9 +26,11 @@ the CPU) and the executed shape. Without ``--reduced`` the executed
 model has the arch's published widths and ``--depth`` layers. Weights
 and tokens are random, from ``--seed``. The routes, compute dtype and
 learning rate are the example's (:data:`STAGE_IMPL`, :data:`EVAL_IMPL`,
-:data:`COMPUTE_DTYPE`, :data:`LR`). ``--shard-envs`` and checkpointing
-(``--checkpoint-dir``, ``--checkpoint-every``, ``--fresh``) are not
-ported and raise.
+:data:`COMPUTE_DTYPE`, :data:`LR`). ``--checkpoint-dir DIR`` saves the
+controller's training (step 1) there every ``--checkpoint-every``
+episodes and resumes it when run again (``--fresh`` ignores a saved
+one), as the example does; ``--shard-envs`` (the population mesh) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -145,11 +147,11 @@ def parse_args(argv=None):
     ap.add_argument("--shard-envs", action="store_true",
                     help="not ported: population meshes come later")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported: checkpoints come later")
-    ap.add_argument("--checkpoint-every", type=int, default=None,
-                    help="not ported: checkpoints come later")
+                    help="save/resume the RL training state under this directory")
+    ap.add_argument("--checkpoint-every", type=int, default=20,
+                    help="episodes between checkpoints (with --checkpoint-dir)")
     ap.add_argument("--fresh", action="store_true",
-                    help="not ported: checkpoints come later")
+                    help="ignore an existing checkpoint and train from scratch")
     ap.add_argument("--reduced", action="store_true",
                     help="execute the arch's reduced() widths (CPU runs)")
     ap.add_argument("--depth", type=int, default=8,
@@ -162,10 +164,8 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if (args.shard_envs or args.checkpoint_dir or args.fresh
-            or args.checkpoint_every is not None):
-        ap.error("--shard-envs, --checkpoint-dir, --checkpoint-every and "
-                 "--fresh are not ported yet")
+    if args.shard_envs:
+        ap.error("--shard-envs is not ported yet")
     return args
 
 
@@ -189,7 +189,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{args.num_envs} batched envs) on {dev}", flush=True)
     res = LP.train_sac(env, sac_cfg, episodes=args.episodes, seed=args.seed,
                        warmup_episodes=WARMUP_EPISODES,
-                       num_envs=args.num_envs)
+                       num_envs=args.num_envs,
+                       checkpoint_dir=args.checkpoint_dir,
+                       checkpoint_every=args.checkpoint_every,
+                       resume=not args.fresh)
     print(f"      reward: first10={np.mean(res.episode_reward[:10]):.2f} "
           f"last10={np.mean(res.episode_reward[-10:]):.2f}", flush=True)
 

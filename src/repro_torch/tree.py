@@ -57,3 +57,13 @@ def value_and_grad(fn: Callable, tree: Any):
              for p, g in zip(leaves, grads)]
     aux = tree_map(lambda x: x.detach(), aux)
     return loss.detach(), aux, tree_unflatten(tree, grads)
+
+
+def tree_stack(trees: List[Any]) -> Any:
+    """Stack structurally equal trees leafwise along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def tree_index(tree: Any, i: int) -> Any:
+    """Slice ``i`` of every leaf's leading axis (undoes :func:`tree_stack`)."""
+    return tree_map(lambda x: x[i], tree)

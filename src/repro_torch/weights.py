@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim import OptState
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_index, tree_leaves, tree_map, tree_stack
 
 
 def _to_torch(x, dev):
@@ -118,3 +118,36 @@ def model_opt_state_to_numpy(opt_state: Any):
     return OptState(step=opt_state.step.cpu().numpy(),
                     mu=model_params_to_numpy(opt_state.mu),
                     nu=model_params_to_numpy(opt_state.nu))
+
+
+def population_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """The stacked params of a JAX population (``train_population``; every
+    leaf with a leading scenario axis, numpy leaves) -> the port's stacked
+    params, scenario by scenario through :func:`sac_params_from_jax`."""
+    n = len(tree_leaves(np_tree)[0])
+    return tree_stack([sac_params_from_jax(tree_map(lambda x: x[s], np_tree), device)
+                       for s in range(n)])
+
+
+def population_params_to_numpy(params: Any):
+    """The port's stacked population params -> numpy arrays, stacked."""
+    n = tree_leaves(params)[0].shape[0]
+    return tree_map(lambda *xs: np.stack(xs),
+                    *[sac_params_to_numpy(tree_index(params, s)) for s in range(n)])
+
+
+def population_opt_state_from_jax(np_tree: Any, device: DeviceLike = None):
+    """A JAX population's stacked ``{actor, critic, icm}`` AdamW states
+    (leading scenario axis) -> the port's, stacked, through
+    :func:`sac_opt_state_from_jax`."""
+    n = len(tree_leaves(np_tree)[0])
+    return tree_stack([sac_opt_state_from_jax(tree_map(lambda x: x[s], np_tree), device)
+                       for s in range(n)])
+
+
+def population_opt_state_to_numpy(opt_state: Any):
+    """The port's stacked population AdamW states -> numpy, stacked."""
+    n = tree_leaves(opt_state)[0].shape[0]
+    return tree_map(lambda *xs: np.stack(xs),
+                    *[sac_opt_state_to_numpy(tree_index(opt_state, s))
+                      for s in range(n)])

@@ -222,6 +222,65 @@ def test_evaluate_population_launches_ca_attention_per_step():
 
 
 @pytest.mark.gpu
+def test_train_population_two_chunks_on_card():
+    """fig 8's two-scenario population on cuda for a warm-up chunk and an
+    updating chunk of 4 envs: exactly 2 x (one ca_attention launch per
+    gradient step and per trained rollout step), per-scenario curves, the
+    stacked params on the card."""
+    _card()
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import sac as SAC
+
+    env = _resnet_env()
+    scens = SC.stack_scenarios(SC.scenario_grid(env.scenario(),
+                                                know_eave_locations=[1.0, 0.0]))
+    before = CA.launches
+    pop = SC.train_population(env, SAC.SACConfig(**TINY), scens, episodes=8,
+                              warmup_episodes=4, num_envs=4)
+    torch.cuda.synchronize()
+    assert CA.launches - before == 2 * (2 * env.episode_len * 4 + env.episode_len)
+    for res in pop.results:
+        assert res.chunk_updated == [False, True] and len(res.episode_reward) == 8
+        assert np.isfinite(res.episode_reward).all()
+    for leaf in tree_leaves(pop.params):
+        assert leaf.is_cuda and leaf.shape[0] == 2 and bool(torch.isfinite(leaf).all())
+
+
+@pytest.mark.gpu
+def test_cuda_generator_state_resumes(tmp_path):
+    """A CUDA generator's Philox state through a checkpoint archive: the
+    draws after a restore repeat the draws after the save; and a
+    ``train_sac`` stopped and resumed on cuda gives the uninterrupted
+    run's curve."""
+    _card()
+    from repro_torch.checkpoint import store as ST
+    from repro_torch.checkpoint import train_state as TS
+    from repro_torch.core.agents import loops as LP
+    from repro_torch.core.agents import sac as SAC
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    torch.rand(100, generator=g, device="cuda")
+    path = str(tmp_path / "g.npz")
+    ST.save_pytree({"gen": TS.generator_leaf(g)}, path)
+    after = torch.rand(64, generator=g, device="cuda")
+    fresh = torch.Generator(device="cuda")
+    like = {"gen": TS.generator_leaf(fresh)}
+    TS.restore_generator(fresh, ST.load_pytree(path, like)["gen"])
+    assert torch.equal(torch.rand(64, generator=fresh, device="cuda"), after)
+
+    env = _resnet_env()
+    cfg = SAC.SACConfig(**TINY)
+    kw = dict(warmup_episodes=4, num_envs=4, seed=2)
+    ref = LP.train_sac(env, cfg, episodes=12, **kw)
+    ck = str(tmp_path / "sac")
+    LP.train_sac(env, cfg, episodes=8, checkpoint_dir=ck, **kw)
+    res = LP.train_sac(env, cfg, episodes=12, checkpoint_dir=ck, **kw)
+    assert res.episode_reward == ref.episode_reward
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(res.params),
+                                                 tree_leaves(ref.params)))
+
+
+@pytest.mark.gpu
 def test_select_action_through_the_kernel_at_b1():
     """select_action on cuda launches ca_attention once at B = 1, and its
     action equals the plain route's (the plain version's s', the same

@@ -25,6 +25,7 @@ from repro_torch.core.agents.ppo import PPOConfig, init_ppo, ppo_policy  # noqa:
 from repro_torch.core.env import MHSLEnv  # noqa: E402
 from repro_torch.core.leakage import AnalyticLeakage  # noqa: E402
 from repro_torch.core.profiles import resnet101_profile  # noqa: E402
+from repro_torch.tree import tree_stack  # noqa: E402
 
 QS = [0.3, 0.45, 0.6, 0.75, 0.9]
 EPISODES = 6
@@ -135,8 +136,9 @@ def test_leak_is_monotone_in_q(env, agent, who):
 
 def test_leakage_model_override_and_refusals(env, agent):
     """``leakage_model=`` prices the evaluation with another model (halved
-    layer values halve the leak exactly); per-scenario agents and extra
-    records raise until ``train_population``."""
+    layer values halve the leak exactly); per-scenario agents
+    (``share_params=False``) that are copies of one agent give the shared
+    agent's numbers; extra records raise."""
     cfg, params = agent
     policy = R.sac_policy(env.action_dims, cfg)
     scenarios = TSC.stack_scenarios(TSC.scenario_grid(env.scenario(),
@@ -152,8 +154,10 @@ def test_leakage_model_override_and_refusals(env, agent):
                                    leakage_model=Halved(), **kw)
     np.testing.assert_array_equal(half["leak"], base["leak"] * 0.5)
     assert env.leakage_model is None
-    with pytest.raises(NotImplementedError, match="train_population"):
-        TSC.evaluate_population(env, policy, params, scenarios,
-                                share_params=False, **kw)
+    copies = tree_stack([params, params])
+    per = TSC.evaluate_population(env, policy, copies, scenarios,
+                                  share_params=False, **kw)
+    for k in base:
+        np.testing.assert_array_equal(per[k], base[k])
     with pytest.raises(NotImplementedError):
         TSC.make_population_rollout(env, policy, 1, extra_record=lambda *a: {})

@@ -15,6 +15,15 @@ repository root::
 
 ``--only card`` or ``--only cpu`` remakes one band and keeps the other's
 entry from the existing file.
+
+``--only population`` trains the population bands instead
+(``POP_CARD_BAND``: fig 8's two-scenario ICM-CA population at full width;
+``POP_CPU_BAND``: fig 6's four-scenario one on the env padded to four
+eavesdroppers, at tiny widths) with the JAX package's
+``train_population``, and writes, per band and seed, the population's
+metrics (``band.pop_metrics``) to
+``tests/data/torch_population_reference.json``. Without ``--only`` both
+files are remade.
 """
 from __future__ import annotations
 
@@ -23,14 +32,18 @@ import json
 import os
 import time
 
+from dataclasses import replace
+
 import jax
 
 from repro.core.agents.dqn import DQNConfig, train_dqn
 from repro.core.agents.loops import train_sac
 from repro.core.agents.ppo import PPOConfig, train_ppo
 from repro.core.agents.sac import SACConfig
+from repro.core.channel import NetworkConfig
 from repro.core.env import MHSLEnv
 from repro.core.profiles import resnet101_profile
+from repro.core.scenario import scenario_grid, stack_scenarios, train_population
 from repro_torch.figures import band as B
 
 
@@ -58,23 +71,53 @@ def make_band(band):
     return {"config": band, "arms": arms}
 
 
+def make_population_band(band):
+    net = NetworkConfig()
+    if band["num_eaves"] is not None:
+        net = replace(net, num_eaves=band["num_eaves"])
+    env = MHSLEnv(profile=resnet101_profile(batch=1), net=net)
+    scenarios = stack_scenarios(scenario_grid(env.scenario(), **band["grid"]))
+    t0 = time.perf_counter()
+    runs = []
+    for seed in band["seeds"]:
+        pop = train_population(env, SACConfig(**band["sac"]), scenarios,
+                               episodes=band["episodes"], seed=seed,
+                               warmup_episodes=band["warmup"],
+                               num_envs=band["num_envs"])
+        runs.append(dict(seed=seed, **B.pop_metrics(pop, band["last_k"])))
+    secs = time.perf_counter() - t0
+    print(f"population {band['grid']}: {len(band['seeds'])} seeds in "
+          f"{secs:.1f} s", flush=True)
+    return {"config": band, "runs": runs, "seconds": secs}
+
+
+def _write(path, bands):
+    out = {"generator": "tools/jax_band_reference.py", "jax": jax.__version__}
+    out.update(bands)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=("card", "cpu"))
+    ap.add_argument("--only", choices=("card", "cpu", "population"))
     ap.add_argument("--out", default=str(B.REFERENCE))
+    ap.add_argument("--pop-out", default=str(B.POP_REFERENCE))
     args = ap.parse_args()
-    out = {}
-    if args.only and os.path.exists(args.out):
-        with open(args.out) as f:
-            out = json.load(f)
-    out["generator"] = "tools/jax_band_reference.py"
-    out["jax"] = jax.__version__
-    for name, band in (("card", B.CARD_BAND), ("cpu", B.CPU_BAND)):
-        if args.only in (None, name):
-            out[name] = make_band(band)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"wrote {args.out}")
+    if args.only in (None, "card", "cpu"):
+        out = {}
+        if args.only and os.path.exists(args.out):
+            with open(args.out) as f:
+                out = json.load(f)
+        for name, band in (("card", B.CARD_BAND), ("cpu", B.CPU_BAND)):
+            if args.only in (None, name):
+                out[name] = make_band(band)
+        _write(args.out, out)
+    if args.only in (None, "population"):
+        _write(args.pop_out, {
+            name: make_population_band(band)
+            for name, band in (("card", B.POP_CARD_BAND), ("cpu", B.POP_CPU_BAND))})
 
 
 if __name__ == "__main__":
