@@ -93,6 +93,28 @@ Phases (each raises on failure; any failure exits non-zero):
    (``figures.band.POP_CARD_BAND``) on 3 seeds against the JAX runs
    committed in ``tests/data/torch_population_reference.json``, every
    metric inside, the population never leaving warmup outside;
+4h. serving: (S1) Qwen2.5-3B at published widths and full depth (36
+   layers), f32, through the continuous-batching engine on a 32-request
+   Poisson trace (16 slots): every greedy completion bitwise equal to
+   ``generate_reference``'s; at temperature 0.7 every completion bitwise
+   equal to static batching's (``run_static``) and the 4 longest to
+   ``generate_reference``'s; the decode logits of those 4 against a
+   teacher-forced full forward; greedy static batching serving the same
+   tokens; a traced decode tick (kernels, device-busy share, beside the
+   weight-read bound). (S2) the same model on the pipelined runner, 4
+   stages (the plan of 4b when it has 4 stages, else 9/18/27/36): f32
+   tokens equal to S1's; bf16 with ``stage_impl="pallas"`` and a bf16
+   wire, every ``stage_mlp_block`` call of one prefill and one decode
+   step held to its plain version, 36 launches a pass, and the prefill's
+   and the decode step's logits held to the f32 runner's on the same
+   prompts and tokens (``SERVE_BF16_REL``). (S3) Mamba2-370m at full width
+   and depth, a cached prefill (8 x 128) whose 48 scans run on
+   ``ssd_scan`` (each held to its plain version), then 31 decode steps:
+   tokens against an ``impl="auto"`` prefill's, logits against a
+   teacher-forced forward. (S4) Qwen3-MoE-30B-A3B at published widths,
+   depth 4, dropless, 8 slots: the engine against its reference in
+   tokens and logits. The stage kernel at the decode (16 rows) and
+   prefill (2 048 rows) shapes and the scan at S3's shape are timed;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -109,6 +131,7 @@ of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -1854,7 +1877,7 @@ def phase_split(torch, card):
         f"last {losses[-1]:.4f}; held-out loss call {res['eval_seconds']:.3f} s; "
         f"whole launcher run {wall:.3f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    return counts, flash_err
+    return counts, flash_err, res["plan_full"]
 
 
 def _eval_flash_check(torch, res):
@@ -2865,6 +2888,621 @@ def phase_ssm_moe_timing(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4h. serving
+# ---------------------------------------------------------------------------
+
+# (S1) Qwen2.5-3B at published widths and full depth, f32, one card
+SERVE_S1 = dict(arch="qwen2_5_3b", reduced=False, num_slots=16,
+                arrival_slots=8, prompt_pad=128, max_new=64, decode_chunk=8)
+SERVE_TRACE = dict(n_requests=32, rate_per_sec=64.0, plen_range=(4, 128),
+                   gen_range=(4, 64), seed=0)
+SERVE_TEMPERATURE = 0.7
+SERVE_DEVICE = "cuda"
+SERVE_TF_REQUESTS = 4  # requests whose decode logits meet a teacher-forced forward
+# decode logits (engine, through the KV cache) against a teacher-forced
+# full forward at the same positions, f32, as a share of max|forward|: the
+# two take every product at other shapes, so cuBLAS sums in other orders
+SERVE_TF_REL = 1e-3
+SERVE_DEFAULT_BOUNDS = (9, 18, 27, 36)
+# stage kernel calls on the bf16 pipelined runner against
+# stage_mlp_block_ref on their own inputs: two bf16 ulps of max|ref|
+SERVE_STAGE_REL = 2.0 ** -6
+# the bf16 pipelined runner's logits (bf16 activations and wire through 36
+# layers) against the f32 single-device runner's, as a share of max|f32|
+SERVE_BF16_REL = 0.05
+# (S3) Mamba2-370m at full width and depth: batch, prompt, decode steps
+SERVE_MAMBA = (8, 128, 32)
+# (S4) Qwen3-MoE-30B-A3B at published widths, depth 4 of 48
+SERVE_S4 = dict(arch="qwen3_moe_30b_a3b", reduced=False, num_layers=4,
+                num_slots=8, arrival_slots=8, prompt_pad=64, max_new=32,
+                decode_chunk=8)
+SERVE_S4_TRACE = dict(n_requests=8, rate_per_sec=64.0, plen_range=(4, 64),
+                      gen_range=(4, 32), seed=1)
+# two implementations (kernel vs plain scan route; the MoE engine vs its
+# reference, whose grouped products may take other shapes): a token
+# mismatch passes only where the reference's top-2 logit gap is under
+# SERVE_TIE_ATOL, and the logits agree within SERVE_MOE_REL of max|ref|
+SERVE_TIE_ATOL = 1e-3
+SERVE_MOE_REL = 1e-4
+
+
+@contextmanager
+def _recorded_samples(torch, rids):
+    """Record the f32 logits row every sampling call of the engine and of
+    the reference sees for the requests ``rids``, keyed ``(rid, token
+    index)``; the first occurrence of a key wins (later prefills re-sample
+    token 0 of slots they did not admit)."""
+    from repro_torch.serving import batching as SBAT
+    from repro_torch.serving import engine as SENG
+
+    rec = {}
+    orig = SBAT._row_sample
+    want = torch.tensor(sorted(rids), device=SERVE_DEVICE)
+
+    def recording(logits, base_key, req_id, token_idx, temperature):
+        tok = orig(logits, base_key, req_id, token_idx, temperature)
+        idx = torch.as_tensor(token_idx, device=logits.device).expand(req_id.shape)
+        rows = torch.isin(req_id, want).nonzero().flatten()
+        if rows.numel():
+            lg = logits[rows].float().cpu()
+            for j, (r, k) in enumerate(zip(req_id[rows].tolist(), idx[rows].tolist())):
+                rec.setdefault((r, k), lg[j])
+        return tok
+
+    SBAT._row_sample = SENG._row_sample = recording
+    try:
+        yield rec
+    finally:
+        SBAT._row_sample = SENG._row_sample = orig
+
+
+def _first_mismatch(a, b):
+    """Index of the first differing token of two sequences (None if equal)."""
+    a, b = list(a), list(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _top2_gap(row):
+    top = row.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def _serve_trace(torch, svc, trace, label):
+    """One engine tick of decode (no arrivals, all slots busy) under the
+    profiler: kernels and device time per decode step, busy share."""
+    saved = _counts()
+    with _traced(torch) as prof:
+        t0 = time.perf_counter()
+        svc.state, _ = svc.step(svc.params, svc.state, *trace, 0, free_slots=0)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    _reset_counts(saved)
+    steps = svc.cfg.decode_chunk
+    kern = _log_kernels(torch, prof, f"serving {label} decode tick")
+    dev_us = sum(e.self_device_time_total for e in kern)
+    n_kern = sum(e.count for e in kern)
+    if dev_us == 0:
+        raise AssertionError("the profiler saw no device time in a decode tick")
+    return host_s, dev_us / 1e3, n_kern, steps
+
+
+def _fill_slots(svc, rng, vocab):
+    """Admit a request into every slot (prompt_pad tokens, max_new
+    wanted), one arrival buffer at a time."""
+    import numpy as np
+
+    cfg = svc.cfg
+    a, p = cfg.arrival_slots, cfg.prompt_pad
+    admitted = 0
+    while admitted < cfg.num_slots:
+        k = min(a, cfg.num_slots - admitted)
+        ap = rng.integers(0, vocab, (a, p))
+        args = (ap, [p] * a, [cfg.max_new] * a,
+                [5000 + admitted + i for i in range(a)])
+        svc.state, _ = svc.step(svc.params, svc.state, *args, k,
+                                free_slots=cfg.num_slots - admitted)
+        admitted += k
+    return (np.zeros((a, p), np.int64), [1] * a, [1] * a, [-1] * a)
+
+
+def _serve_s1(torch, card, out):
+    """(S1): the engine, its references, the teacher-forced forward and
+    static batching on Qwen2.5-3B at full depth, f32, one card."""
+    import numpy as np
+
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models import model as M
+    from repro_torch.serving import (Request, ServeConfig, ServingService,
+                                     generate_reference, init_engine_state,
+                                     poisson_trace)
+    from repro_torch.serving.service import init_model_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = ServeConfig(**SERVE_S1)
+    mcfg = cfg.model_config()
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, mcfg, SERVE_DEVICE)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[serve S1] {mcfg.name}: {mcfg.num_layers} layers, D {mcfg.d_model}, "
+        f"vocab {mcfg.vocab_size}, {nbytes} B of f32 weights, drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    trace = poisson_trace(vocab_size=mcfg.vocab_size, **SERVE_TRACE)
+    svc = ServingService(cfg, params, device=SERVE_DEVICE)
+    # warm-up (cuBLAS handles, allocator) on two requests outside the trace
+    svc.run([Request(rid=1000 + i, prompt=np.arange(1, 9, dtype=np.int32),
+                     gen_target=4) for i in range(2)])
+    svc.state = init_engine_state(svc.runner, cfg.num_slots, cfg.prompt_pad,
+                                  cfg.max_new)
+    _reset_counts()
+    res = svc.run(list(trace))
+    torch.cuda.synchronize()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the f32 single-device engine launched {counts}")
+    if res["num_requests"] != len(trace):
+        raise AssertionError(f"{res['num_requests']} of {len(trace)} requests served")
+    log(f"[serve S1] engine (greedy, f32): {res['num_requests']} requests, "
+        f"{res['ticks']} ticks, {res['wall_seconds']:.3f} s; "
+        f"{res['requests_per_sec']:.3f} requests/s, {res['tokens_per_sec']:.1f} "
+        f"tokens/s, p50 {res['p50_latency_s']:.3f} s, p99 "
+        f"{res['p99_latency_s']:.3f} s, slot occupancy {res['slot_occupancy']:.4f}; "
+        f"kernel launches {counts} [{card}]")
+    out["s1_engine"] = res
+
+    t0 = time.perf_counter()
+    for r in trace:
+        ref = generate_reference(svc.runner, params, r.prompt,
+                                 gen_target=r.gen_target, max_new=cfg.max_new,
+                                 prompt_pad=cfg.prompt_pad, slots=cfg.num_slots,
+                                 base_key=svc.base_key, req_id=r.rid)
+        got = res["completions"][r.rid]
+        if not np.array_equal(ref.cpu().numpy(), got):
+            raise AssertionError(f"S1 greedy request {r.rid}: engine {got.tolist()} "
+                                 f"!= reference {ref.tolist()}")
+    log(f"[serve S1] every greedy completion bitwise equal to generate_reference "
+        f"({len(trace)} requests, {time.perf_counter() - t0:.3f} s)")
+
+    # temperature: the engine once more (recording the logits of the 4
+    # longest requests); every completion against static batching at the
+    # same temperature (each row draws by its own request and token, and
+    # a row of a fixed-shape batch does not depend on the other rows), the
+    # 4 longest against generate_reference, then the teacher-forced forward
+    hot_cfg = dataclasses.replace(cfg, temperature=SERVE_TEMPERATURE)
+    hot = ServingService(hot_cfg, params, device=SERVE_DEVICE)
+    longest = sorted(trace, key=lambda r: -r.gen_target)[:SERVE_TF_REQUESTS]
+    with _recorded_samples(torch, [r.rid for r in longest]) as rec:
+        res_t = hot.run(list(trace))
+    t0 = time.perf_counter()
+    st_t = run_static(hot_cfg, list(trace), params=params, device=SERVE_DEVICE)
+    same = 0
+    for r in trace:
+        got = res_t["completions"][r.rid]
+        if not np.array_equal(st_t["completions"][r.rid], got):
+            raise AssertionError(f"S1 T={SERVE_TEMPERATURE} request {r.rid}: engine "
+                                 f"{got.tolist()} != static batching "
+                                 f"{st_t['completions'][r.rid].tolist()}")
+        same += np.array_equal(got, res["completions"][r.rid])
+    for r in longest:
+        ref = generate_reference(hot.runner, params, r.prompt,
+                                 gen_target=r.gen_target, max_new=cfg.max_new,
+                                 prompt_pad=cfg.prompt_pad, slots=cfg.num_slots,
+                                 temperature=SERVE_TEMPERATURE,
+                                 base_key=hot.base_key, req_id=r.rid)
+        got = res_t["completions"][r.rid]
+        if not np.array_equal(ref.cpu().numpy(), got):
+            raise AssertionError(f"S1 T={SERVE_TEMPERATURE} request {r.rid}: engine "
+                                 f"{got.tolist()} != reference {ref.tolist()}")
+    log(f"[serve S1] at temperature {SERVE_TEMPERATURE}: every completion bitwise "
+        f"equal to static batching's ({len(trace)} requests), the {len(longest)} "
+        f"longest to generate_reference ({time.perf_counter() - t0:.3f} s; {same} "
+        f"equal to the greedy ones)")
+    worst, top = 0.0, 0.0
+    for r in longest:
+        toks = res_t["completions"][r.rid]
+        seq = np.concatenate([r.prompt, toks[:-1]]).astype(np.int64)
+        with torch.no_grad():
+            full, _, _ = M.forward(params, torch.from_numpy(seq[None]).to(SERVE_DEVICE), mcfg,
+                                   compute_dtype=torch.float32)
+        full = full[0].float().cpu()
+        for k in range(len(toks)):
+            want = full[r.plen - 1 + k]
+            got = rec[(r.rid, k)]
+            worst = max(worst, float((got - want).abs().max()))
+            top = max(top, float(want.abs().max()))
+    if not worst <= SERVE_TF_REL * top:
+        raise AssertionError(f"S1 decode logits vs teacher-forced forward: "
+                             f"{worst} > {SERVE_TF_REL} x {top}")
+    log(f"[serve S1] decode logits of {len(longest)} requests "
+        f"({sum(len(res_t['completions'][r.rid]) for r in longest)} tokens) vs a "
+        f"teacher-forced full forward at the same positions: max|diff| {worst:.3e} "
+        f"(max|logit| {top:.3e}, limit {SERVE_TF_REL:g} x max) [{card}]")
+    del rec, hot
+
+    st = run_static(cfg, list(trace), params=params, device=SERVE_DEVICE)
+    for r in trace:
+        if not np.array_equal(st["completions"][r.rid], res["completions"][r.rid]):
+            raise AssertionError(f"S1 static batching request {r.rid} differs")
+    log(f"[serve S1] static batching (run_static) serves the engine's tokens; "
+        f"{st['wall_seconds']:.3f} s, {st['requests_per_sec']:.3f} requests/s, "
+        f"{st['tokens_per_sec']:.1f} tokens/s, p50 {st['p50_latency_s']:.3f} s, "
+        f"p99 {st['p99_latency_s']:.3f} s, slot occupancy "
+        f"{st['slot_occupancy']:.4f} [{card}]")
+    out["s1_static"] = st
+
+    # one decode tick with every slot busy, traced
+    svc.state = init_engine_state(svc.runner, cfg.num_slots, cfg.prompt_pad,
+                                  cfg.max_new)
+    idle = _fill_slots(svc, np.random.default_rng(7), mcfg.vocab_size)
+    host_s, dev_ms, n_kern, steps = _serve_trace(torch, svc, idle, "S1")
+    kv = sum(t.numel() * t.element_size() for t in tree_leaves(svc.state.caches))
+    bound = (nbytes + kv) / HBM_BYTES_PER_S * 1e3
+    log(f"[serve S1] one decode tick ({steps} steps x {cfg.num_slots} slots, "
+        f"profiled): {host_s * 1e3:.3f} ms host, {dev_ms:.3f} ms device busy, busy "
+        f"share {dev_ms / 1e3 / host_s:.3f}; per decode step {n_kern / steps:.0f} "
+        f"kernels, {dev_ms / steps:.3f} ms device, {host_s * 1e3 / steps:.3f} ms "
+        f"host; weight-read bound {bound:.3f} ms a step ({nbytes} B of weights + "
+        f"{kv} B of KV at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) [{card}]")
+    out["s1_tick"] = dict(host_ms=host_s * 1e3 / steps, dev_ms=dev_ms / steps,
+                          kernels=n_kern / steps, bound_ms=bound,
+                          busy=dev_ms / 1e3 / host_s)
+    del svc
+    return cfg, mcfg, params, trace, res
+
+
+def _serve_s2(torch, card, out, cfg, mcfg, params, trace, res, plan_full):
+    """(S2): the same model on the pipelined runner, 4 stages: f32 tokens
+    equal to S1's; bf16 through the stage kernel, its calls held to the
+    plain version, launches counted."""
+    import numpy as np
+
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.serving import PipelineRunner, ServingService
+    from repro_torch.serving.service import make_runner
+
+    if (plan_full is not None and len(plan_full) == 4
+            and int(plan_full[-1]) == mcfg.num_layers):
+        bounds, which = tuple(int(b) for b in plan_full), "the plan learned in 4b"
+    else:
+        bounds, which = SERVE_DEFAULT_BOUNDS, "the default (no 4-stage plan from 4b)"
+    log(f"[serve S2] boundaries {bounds}: {which}")
+    svc = ServingService(dataclasses.replace(cfg, boundaries=bounds), params,
+                         device=SERVE_DEVICE)
+    if not isinstance(svc.runner, PipelineRunner):
+        raise AssertionError(f"S2 runs on {type(svc.runner).__name__}")
+    _reset_counts()
+    res_p = svc.run(list(trace))
+    torch.cuda.synchronize()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the f32 pipelined engine launched {counts}")
+    for r in trace:
+        if not np.array_equal(res_p["completions"][r.rid], res["completions"][r.rid]):
+            raise AssertionError(f"S2 f32 pipelined request {r.rid} differs from S1")
+    log(f"[serve S2] f32 pipelined engine ({len(bounds)} stages, stage_impl "
+        f"reference): every completion equal to S1's; {res_p['wall_seconds']:.3f} s, "
+        f"{res_p['tokens_per_sec']:.1f} tokens/s, p50 {res_p['p50_latency_s']:.3f} s, "
+        f"p99 {res_p['p99_latency_s']:.3f} s [{card}]")
+    del svc
+
+    pr16 = PipelineRunner(mcfg, bounds, pipe=PipelineConfig(
+        stage_impl="pallas", compute_dtype="bfloat16", wire_dtype="bfloat16"),
+        device=SERVE_DEVICE)
+    n, p = cfg.num_slots, cfg.prompt_pad
+    prompts = np.zeros((n, p), np.int64)
+    for i, r in enumerate(trace[:n]):
+        prompts[i, :r.plen] = r.prompt
+    prompts = torch.from_numpy(prompts).to(SERVE_DEVICE)
+    plen = torch.tensor([r.plen for r in trace[:n]], device=SERVE_DEVICE)
+    rows_n = torch.arange(n, device=SERVE_DEVICE)
+    # the f32 single-device runner on the same prompts: the last prompt
+    # position's logits, then one decode step on its greedy tokens
+    f32r = make_runner(cfg, mcfg, SERVE_DEVICE)
+    with torch.no_grad():
+        caches = f32r.init_caches(n, p + cfg.max_new)
+        logits, caches = f32r.prefill(params, caches, prompts)
+        ref_last = logits[rows_n, plen - 1].float()
+        del logits
+        tok = ref_last.argmax(-1)
+        ref_dec, _ = f32r.decode(params, tok[:, None], caches, plen)
+        ref_dec = ref_dec.float()
+    del caches, f32r
+    calls = []
+    entry = SB.stage_mlp_block
+
+    def recording(norm_w, mlp, x, **kw):
+        y = entry(norm_w, mlp, x, **kw)
+        calls.append((norm_w, mlp, x, kw, y))
+        return y
+
+    caches = pr16.init_caches(n, p + cfg.max_new)
+    torch.cuda.synchronize()
+    SB.stage_mlp_block = recording
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        logits, caches = pr16.prefill(params, caches, prompts)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        last = logits[rows_n, plen - 1].float()
+        t0 = time.perf_counter()
+        dl, caches = pr16.decode(params, tok[:, None], caches, plen)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    finally:
+        SB.stage_mlp_block = entry
+    counts = _counts()
+    expect = {k: 0 for k in counts}
+    expect["stage_mlp_block"] = 2 * mcfg.num_layers
+    if counts != expect:
+        raise AssertionError(f"S2 bf16 launches {counts}, expected {expect}")
+    rows = sorted({c[2].shape[:-1] for c in calls})
+    worst, worst_rel = 0.0, 0.0
+    for i, (norm_w, mlp, x, kw, y) in enumerate(calls):
+        with torch.no_grad():
+            ref = SB.stage_mlp_block_ref(norm_w, mlp, x, **kw)
+        if y.dtype != torch.bfloat16 or not torch.isfinite(y).all():
+            raise AssertionError(f"S2 stage call {i}: {y.dtype}, finite "
+                                 f"{bool(torch.isfinite(y).all())}")
+        err = float((y.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        if rel > SERVE_STAGE_REL:
+            raise AssertionError(f"S2 stage call {i} (x {tuple(x.shape)}): {err}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    del calls
+    # the bf16 runner's logits against the f32 runner's: a share of
+    # max|f32|; a token split passes only where the f32 top-2 gap is under
+    # twice that share (each of the two logits may move by it)
+    top = max(float(ref_last.abs().max()), float(ref_dec.abs().max()))
+    errs, splits = [], []
+    for what, got, ref in (("prefill", last, ref_last), ("decode", dl, ref_dec)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"S2 bf16 {what} logits not finite")
+        err = float((got - ref).abs().max())
+        if not err <= SERVE_BF16_REL * top:
+            raise AssertionError(f"S2 bf16 {what} logits vs f32: {err} > "
+                                 f"{SERVE_BF16_REL} x {top}")
+        errs.append(err)
+        for row in (got.argmax(-1) != ref.argmax(-1)).nonzero().flatten().tolist():
+            gap = _top2_gap(ref[row])
+            if gap >= 2 * SERVE_BF16_REL * top:
+                raise AssertionError(f"S2 bf16 {what} row {row}: token differs from "
+                                     f"f32 with an f32 top-2 gap {gap}")
+            splits.append((what, row, gap))
+    log(f"[serve S2] bf16 pipelined runner (stage_impl pallas, bf16 wire): one "
+        f"prefill ({n} x {p}) {pre_s:.3f} s and one decode step {dec_s * 1e3:.3f} ms "
+        f"host; launches {counts} ({mcfg.num_layers} a pass); the "
+        f"{counts['stage_mlp_block']} stage_mlp_block calls (x shapes {rows}) vs "
+        f"stage_mlp_block_ref: max|err| {worst:.3e}, {worst_rel:.3e} of max|ref| "
+        f"(limit {SERVE_STAGE_REL:g}) [{card}]")
+    log(f"[serve S2] bf16 pipelined logits vs the f32 single-device runner's on the "
+        f"same prompts and tokens: prefill (last prompt position) max|diff| "
+        f"{errs[0]:.3e}, decode step {errs[1]:.3e} (max|f32 logit| {top:.3e}, limit "
+        f"{SERVE_BF16_REL:g} x max); greedy tokens {2 * n - len(splits)} of {2 * n} "
+        f"equal, splits (pass, row, f32 top-2 gap) {splits} [{card}]")
+    del caches, logits, dl
+    out["stage_launches"] = counts["stage_mlp_block"]
+    out["stage_err"] = worst
+    out["stage_rel"] = worst_rel
+
+
+def _serve_kernel_timing(torch, card, out):
+    """The stage kernel at the serving shapes (decode: 16 rows; prefill:
+    16 x 128 rows), bf16 x, f32 weights, and the scan at S3's prefill
+    shape, each beside its plain version and its bound; launches here do
+    not count."""
+    from repro_torch.kernels import stage_block as SB
+
+    saved = SB.launches
+    for label, rows in (("decode", (16, 1)), ("prefill", (16, 128))):
+        nw, params, x = _stage_inputs(torch, rows, 2048, 11008, "swiglu",
+                                      torch.bfloat16, seed=70 + rows[1])
+        t = _compare(torch, {
+            "kernel": lambda: SB.stage_mlp_block(nw, params, x, activation="swiglu"),
+            "plain": lambda: SB.stage_mlp_block_ref(nw, params, x, activation="swiglu"),
+        }, iters=10, reps=5)
+        n_rows = rows[0] * rows[1]
+        bound, by, nbytes, flops = stage_bound(n_rows, 2048, 11008, True, 2, 4,
+                                               BF16_FLOPS_PER_S)
+        out[f"stage_{label}"] = dict(rows=n_rows, ms=t["kernel"], plain_ms=t["plain"],
+                                     bound_ms=bound, bound_by=by)
+        log(f"[time] stage_mlp_block at the serving {label} shape ({n_rows} rows, "
+            f"D 2048, F 11008, swiglu, bf16 x, f32 weights), device (graph "
+            f"replay): kernel {t['kernel']:.6f} ms ({bound / t['kernel']:.3f} of "
+            f"the bound), plain {t['plain']:.6f} ms; bound {bound:.6f} ms ({by}; "
+            f"{nbytes} B, {flops} FLOP at bf16 peak) [{card}]")
+        del nw, params, x
+    SB.launches = saved
+    # the scan at S3's prefill shape (Mamba2-370m, batch 8 x 128 tokens)
+    from repro_torch.kernels import ssd_scan as SK
+
+    saved = SK.launches
+    b, p = SERVE_MAMBA[:2]
+    x, dt, a, bm, cm = _ssd_inputs(torch, b, p, 32, 64, 128, seed=72)
+    t = _compare(torch, {
+        "kernel": lambda: SK.ssd_scan(x, dt, a, bm, cm, chunk=64),
+        "plain": lambda: SK.ssd_scan_ref(x, dt, a, bm, cm, chunk=64),
+    }, iters=20, reps=5)
+    bound, by, nbytes, flops, _ = ssd_bound(b, p, 32, 64, 128, 64)
+    out["ssd_prefill"] = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
+                              bound_by=by)
+    log(f"[time] ssd_scan at the serving prefill shape (B {b}, S {p}, H 32, P 64, "
+        f"N 128, chunk 64, f32), device (graph replay): kernel {t['kernel']:.6f} ms "
+        f"({bound / t['kernel']:.3f} of the bound), plain {t['plain']:.6f} ms; bound "
+        f"{bound:.6f} ms ({by}; {nbytes} B, {flops} FLOP as 3xTF32) [{card}]")
+    SK.launches = saved
+
+
+def _serve_s3(torch, card, out):
+    """(S3): Mamba2-370m at full width and depth: a cached prefill through
+    the scan kernel (each scan held to its plain version), 32 greedy
+    decode steps, against the ``impl="auto"`` prefill's tokens and a
+    teacher-forced forward's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SK
+    from repro_torch.models import model as M
+
+    b, p, steps = SERVE_MAMBA
+    mcfg = get_config("mamba2-370m")
+    g = torch.Generator(device=SERVE_DEVICE).manual_seed(3)
+    params = M.init_params(g, mcfg, device=SERVE_DEVICE)
+    prompts = torch.randint(0, mcfg.vocab_size, (b, p), generator=g,
+                            device=SERVE_DEVICE)
+    f32 = torch.float32
+    dec = M.make_decode_step(mcfg, compute_dtype=f32)
+
+    def serve(impl):
+        pre = M.make_prefill_step(mcfg, impl=impl, compute_dtype=f32)
+        caches = M.init_caches(mcfg, b, p + steps, dtype=f32, device=SERVE_DEVICE)
+        with torch.no_grad():
+            lg, caches = pre(params, prompts, caches)
+            logits, toks = [lg], [lg.argmax(-1)]
+            for i in range(steps - 1):
+                lg, caches = dec(params, toks[-1][:, None], caches, p + i)
+                logits.append(lg)
+                toks.append(lg.argmax(-1))
+        return torch.stack(logits, 1).cpu(), torch.stack(toks, 1).cpu()
+
+    calls = []
+    entry = SK.ssd_scan
+
+    def recording(*a, **kw):
+        y = entry(*a, **kw)
+        calls.append((a, kw, y))
+        return y
+
+    SK.ssd_scan = recording
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        lk, tk = serve("pallas")
+        wall = time.perf_counter() - t0
+    finally:
+        SK.ssd_scan = entry
+    counts = _counts()
+    expect = {k: 0 for k in counts}
+    expect["ssd_scan"] = mcfg.num_layers
+    if counts != expect:
+        raise AssertionError(f"S3 launches {counts}, expected {expect}")
+    worst = 0.0
+    for i, (a, kw, y) in enumerate(calls):
+        with torch.no_grad():
+            ref = SK.ssd_scan_ref(*a, **kw)
+        worst = max(worst, _ssd_compare(torch, y, ref, f"S3 prefill scan {i}"))
+    del calls
+    la, ta = serve("auto")
+    mism, gaps = 0, []
+    for row in range(b):
+        k = _first_mismatch(tk[row].tolist(), ta[row].tolist())
+        if k is not None:
+            gap = _top2_gap(la[row, k])
+            gaps.append(gap)
+            if gap >= SERVE_TIE_ATOL:
+                raise AssertionError(f"S3 row {row}: tokens split at step {k} with a "
+                                     f"top-2 gap {gap}")
+            mism += 1
+    seq = torch.cat([prompts.cpu(), tk[:, :-1]], 1).to(SERVE_DEVICE)
+    with torch.no_grad():
+        full, _, _ = M.forward(params, seq, mcfg, compute_dtype=f32)
+    full = full[:, p - 1:].float().cpu()
+    err = float((full - lk).abs().max())
+    top = float(full.abs().max())
+    if not err <= SERVE_TF_REL * top:
+        raise AssertionError(f"S3 decode logits vs teacher-forced: {err} > "
+                             f"{SERVE_TF_REL} x {top}")
+    log(f"[serve S3] {mcfg.name} ({mcfg.num_layers} layers, f32), batch {b}, prompt "
+        f"{p}: prefill through ssd_scan ({counts['ssd_scan']} launches, each scan vs "
+        f"ssd_scan_ref max|err| {worst:.3e}) + {steps - 1} decode steps in "
+        f"{wall:.3f} s host; greedy tokens vs the impl=auto prefill's: {b - mism} "
+        f"of {b} rows equal, {mism} split at near ties (top-2 gaps {gaps}); decode "
+        f"logits vs a teacher-forced forward max|diff| {err:.3e} (max|logit| "
+        f"{top:.3e}, limit {SERVE_TF_REL:g} x max) [{card}]")
+    out["ssd_launches"] = counts["ssd_scan"]
+    out["ssd_err"] = worst
+
+
+def _serve_s4(torch, card, out):
+    """(S4): Qwen3-MoE-30B-A3B at published widths, depth 4, dropless,
+    8 slots: the engine against its reference in tokens (tie rule) and
+    logits (tolerance)."""
+    import numpy as np
+
+    from repro_torch.serving import (ServeConfig, ServingService,
+                                     generate_reference, poisson_trace)
+
+    cfg = ServeConfig(**SERVE_S4)
+    svc = ServingService(cfg, device=SERVE_DEVICE)
+    mcfg = svc.model_cfg
+    trace = poisson_trace(vocab_size=mcfg.vocab_size, **SERVE_S4_TRACE)
+    rids = [r.rid for r in trace]
+    _reset_counts()
+    with _recorded_samples(torch, rids) as eng:
+        res = svc.run(list(trace))
+    torch.cuda.synchronize()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"S4 launched {counts} (dropless reference route)")
+    with _recorded_samples(torch, rids) as refl:
+        refs = {r.rid: generate_reference(
+            svc.runner, svc.params, r.prompt, gen_target=r.gen_target,
+            max_new=cfg.max_new, prompt_pad=cfg.prompt_pad, slots=cfg.num_slots,
+            base_key=svc.base_key, req_id=r.rid).cpu().numpy() for r in trace}
+    equal, worst, top, splits = 0, 0.0, 0.0, []
+    for r in trace:
+        got, ref = res["completions"][r.rid], refs[r.rid]
+        k = _first_mismatch(got, ref)
+        upto = len(ref) if k is None else k + 1
+        for i in range(upto):
+            a, b = eng[(r.rid, i)], refl[(r.rid, i)]
+            worst = max(worst, float((a - b).abs().max()))
+            top = max(top, float(b.abs().max()))
+        if k is None:
+            equal += 1
+            continue
+        gap = _top2_gap(refl[(r.rid, k)])
+        splits.append((r.rid, k, gap))
+        if gap >= SERVE_TIE_ATOL:
+            raise AssertionError(f"S4 request {r.rid}: tokens split at step {k}, "
+                                 f"reference top-2 gap {gap}")
+    if not worst <= SERVE_MOE_REL * top:
+        raise AssertionError(f"S4 engine vs reference logits {worst} > "
+                             f"{SERVE_MOE_REL} x {top}")
+    log(f"[serve S4] {mcfg.name} at depth {mcfg.num_layers} (dropless, f32, "
+        f"{cfg.num_slots} slots): {res['num_requests']} requests, "
+        f"{res['tokens_per_sec']:.1f} tokens/s, p50 {res['p50_latency_s']:.3f} s; "
+        f"{equal} of {len(trace)} completions equal to generate_reference, splits "
+        f"(rid, step, reference top-2 gap) {splits}; logits max|diff| {worst:.3e} "
+        f"(max|logit| {top:.3e}, limit {SERVE_MOE_REL:g} x max); launches {counts} "
+        f"[{card}]")
+
+
+def phase_serving(torch, card, plan_full):
+    """4h. serving: (S1) Qwen2.5-3B at full depth on the engine, (S2) on
+    the pipelined runner, (S3) Mamba2-370m's cached decode, (S4)
+    Qwen3-MoE-30B-A3B at depth 4. Each path runs with every launch
+    counter at 0 just before and read just after."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    cfg, mcfg, params, trace, res = _serve_s1(torch, card, out)
+    _serve_s2(torch, card, out, cfg, mcfg, params, trace, res, plan_full)
+    del params
+    torch.cuda.empty_cache()
+    _serve_kernel_timing(torch, card, out)
+    _serve_s3(torch, card, out)
+    torch.cuda.empty_cache()
+    _serve_s4(torch, card, out)
+    torch.cuda.empty_cache()
+    log(f"[serve] phase wall time {time.perf_counter() - t_phase:.1f} s; the phase's "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2895,7 +3533,7 @@ def main() -> int:
     u22_launches = phase_sac_u22(torch, card)
     seq_launches = phase_sequential(torch, card)
     phase_baselines(torch, card)
-    split_launches, flash_err = phase_split(torch, card)
+    split_launches, flash_err, plan_full = phase_split(torch, card)
     phase_split_parity(torch)
     torch.cuda.empty_cache()
     mamba_launches, ssd_err = phase_mamba(torch, card)
@@ -2908,6 +3546,9 @@ def main() -> int:
     pop_train_launches, fig6_err, ckpt = phase_population_train(torch, card)
     resume = phase_resume(torch, card)
     phase_population_band(torch, card)
+    torch.cuda.empty_cache()
+    serve = phase_serving(torch, card, plan_full)
+    torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
     t = timing[(128, 4, (28, 52, 64))]
     split_timing = phase_split_timing(torch, card)
@@ -2921,7 +3562,9 @@ def main() -> int:
         f"{pop_train_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
         f"(B) MoE layer {moe_layer_launches}; (C) Qwen3-MoE-30B-A3B "
-        f"{moe_model_launches}")
+        f"{moe_model_launches}; serving: S2 bf16 pipelined stage_mlp_block "
+        f"{serve['stage_launches']}, S3 Mamba2-370m prefill ssd_scan "
+        f"{serve['ssd_launches']}")
     log(f"[runs] plan scorer: {plan['kernels_per_call']} kernels per call at "
         f"every enumeration; card vs CPU {plan['cpu_err']:.3e}, vs plan_cost "
         f"{plan['host_err']:.3e}")
@@ -2931,6 +3574,10 @@ def main() -> int:
     log(f"[runs] kernel max|err| on their main-path cases: ssd_scan checks "
         f"{ssd_check_err:.3e}, eval scans {ssd_err:.3e}; grouped_moe_ffn "
         f"checks {moe_check_err:.3e}, (B) layer {moe_err:.3e}")
+    log(f"[runs] kernel max|err| on the serving paths (not in the kernels line, "
+        f"whose max_abs_err stays the main-path case's): S2 stage_mlp_block "
+        f"{serve['stage_err']:.3e} ({serve['stage_rel']:.3e} of max|ref|), S3 "
+        f"ssd_scan {serve['ssd_err']:.3e}")
     kernels = [{
         "name": "ca_attention",
         "route": "cuda",
@@ -2945,12 +3592,12 @@ def main() -> int:
         "library_ms": None,
     }]
     for kname, replaces, err, n in (
-            ("stage_mlp_block", "src/repro/kernels/stage_block.py:58", stage_err,
-             split_launches["stage_mlp_block"]),
+            ("stage_mlp_block", "src/repro/kernels/stage_block.py:58",
+             stage_err, split_launches["stage_mlp_block"] + serve["stage_launches"]),
             ("flash_attention", "src/repro/kernels/flash_attention.py:30",
              flash_err, split_launches["flash_attention"]),
-            ("ssd_scan", "src/repro/kernels/ssd_scan.py:26", ssd_err,
-             mamba_launches["ssd_scan"]),
+            ("ssd_scan", "src/repro/kernels/ssd_scan.py:26",
+             ssd_err, mamba_launches["ssd_scan"] + serve["ssd_launches"]),
             ("grouped_moe_ffn", "src/repro/kernels/moe_dispatch.py:80",
              moe_check_err, moe_layer_launches["grouped_moe_ffn"])):
         kernels.append({

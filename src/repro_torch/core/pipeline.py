@@ -30,9 +30,11 @@ MoE router's ``aux``. ``PipelineConfig.transport`` keeps the reference's
 two values: the reference's ``"overlap"`` issues a tick's hops before its
 compute and ``"sync"`` after it, but both hand each buffer over exactly
 one tick after it was made, so in one process they are the same schedule.
-Not in this slice (they raise ``NotImplementedError``): ``env_axis`` data
-parallelism, the union layout for mixed block periods (Jamba), pipelined
-serving (``pipeline_serve_fns``) and stage hops across cards.
+Pipelined serving (:func:`pipeline_serve_fns`) runs the reference's
+serial token ring over per-stage KV rings (:func:`stage_kv_caches`).
+Not ported (they raise ``NotImplementedError``): ``env_axis`` data
+parallelism, the union layout for mixed block periods (Jamba, MoE every
+k layers) and stage hops across cards.
 """
 from __future__ import annotations
 
@@ -365,6 +367,111 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
     return fn
 
 
-def pipeline_serve_fns(*args, **kwargs):
-    """Pipelined serving (per-stage KV rings) comes with the serving slice."""
-    raise NotImplementedError("pipeline_serve_fns comes with the serving slice")
+# ---------------------------------------------------------------------------
+# serving: the token ring over per-stage KV rings
+# ---------------------------------------------------------------------------
+
+
+def _attention_only(cfg: ModelConfig, what: str) -> None:
+    if any(kind != "A" for kind, _, _ in M.signature(cfg)):
+        raise ValueError(
+            f"{what}: SSM/hybrid archs are unservable - padded batched "
+            "prefill relies on causal masking, which protects KV attention "
+            "but not recurrent scan state")
+
+
+def stage_kv_caches(cfg: ModelConfig, boundaries: Sequence[int],
+                    num_slots: int, cache_len: int, dtype=torch.float32,
+                    device=None):
+    """Per-stage KV rings for pipelined serving, zero-filled.
+
+    Returns ``{"k", "v"}`` of shape ``(S, max_len, B, kv_len, KH, hd)``,
+    the reference's layout: stage ``k``'s ring holds only its own layers'
+    entries (row ``i`` of stage ``k`` is global layer ``boundaries[k-1] +
+    i``); the rows past a stage's length pad the layout and stay zero."""
+    from repro_torch.device import resolve_device
+
+    _attention_only(cfg, "stage_kv_caches")
+    lens = stage_lengths(boundaries)
+    kv_len = (min(cache_len, cfg.attention_window)
+              if cfg.attention_window is not None else cache_len)
+    shape = (len(lens), max(lens), num_slots, kv_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
+                       pipe: PipelineConfig = PipelineConfig(
+                           compute_dtype="float32")):
+    """The serving passes of a split plan: ``(prefill, decode)`` with the
+    serving engine's runner signatures.
+
+    * ``prefill(params, caches, prompts)``: ``prompts`` (B, P) ->
+      ``(logits (B, P, V) f32, caches)``, a fresh-sequence pass (scalar
+      cache index 0) through every stage.
+    * ``decode(params, tok, caches, pos)``: ``tok`` (B, 1), ``pos`` (B,)
+      per-slot entry counts -> ``(logits (B, V) f32, caches)``.
+
+    Both run the reference's serial token ring in one process: stage
+    ``t`` runs its own layers over its own KV ring, then its output hops
+    to stage ``t + 1`` cast to ``pipe.wire`` and back to the compute dtype
+    (the Eq. 1 transmission); the last stage's final norm and LM head give
+    the logits, in f32 as the reference's masked ``psum`` returns them.
+    ``pipe.stage_impl="pallas"`` routes each dense MLP half-block through
+    the stage kernel. Attention-only configs of period 1 run; SSM and
+    hybrid configs and capacity MoE are refused as the reference refuses
+    them, and periods above 1 (MoE every k layers) need the union layout,
+    which is not ported."""
+    _attention_only(cfg, "pipeline serving")
+    sig = M.signature(cfg)
+    if any(is_moe for _, is_moe, _ in sig) and cfg.moe.dispatch != "dropless":
+        raise ValueError(
+            "pipeline serving: capacity-dropping MoE is unservable (padded "
+            "prefill rows steal expert capacity from real rows); set "
+            "moe.dispatch='dropless'")
+    ranges = _stage_ranges(cfg, boundaries, None)
+    slot_sig = sig[0]
+    blk_impl, cdtype, wdtype = pipe.block_impl, pipe.dtype, pipe.wire
+
+    def ring_pass(params, caches, x, positions, cache_index):
+        slot = params["slots"][0]
+        plan = L.cache_plan(cfg, positions, cache_index, x.shape[0], x.shape[1],
+                            caches["k"].shape[3])
+        new_k, new_v = [], []
+        for t, (lo, hi) in enumerate(ranges):
+            if t > 0:  # the hop: wire-dtype bytes
+                x = x.to(wdtype).to(cdtype)
+            ks, vs = [], []
+            for i, layer in enumerate(range(lo, hi)):
+                x, nc, _ = M.block_apply(
+                    M.layer_params(slot, layer), x, cfg, slot_sig,
+                    positions=positions,
+                    cache={"k": caches["k"][t, i], "v": caches["v"][t, i]},
+                    cache_index=cache_index, impl=blk_impl, plan=plan)
+                ks.append(nc["k"])
+                vs.append(nc["v"])
+            pad = caches["k"].shape[1] - (hi - lo)  # padding rows stay
+            new_k.append(torch.cat([torch.stack(ks), caches["k"][t, hi - lo:]])
+                         if pad else torch.stack(ks))
+            new_v.append(torch.cat([torch.stack(vs), caches["v"][t, hi - lo:]])
+                         if pad else torch.stack(vs))
+        xh = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = (xh @ _head(params, cfg).to(x.dtype)).float()
+        return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+
+    def prefill(params, caches, prompts):
+        x = params["embed"].to(cdtype)[prompts.long()]
+        positions = torch.arange(prompts.shape[1], device=prompts.device)
+        with torch.inference_mode():
+            return ring_pass(params, caches, x, positions, 0)
+
+    def decode(params, tok, caches, pos):
+        x = params["embed"].to(cdtype)[tok.long()]
+        pos = pos.long()
+        with torch.inference_mode():
+            logits, caches = ring_pass(params, caches, x, pos[:, None], pos)
+        return logits[:, -1], caches
+
+    return prefill, decode

@@ -1,17 +1,18 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention, MLPs, MoE.
 
-Port of ``repro.models.layers``, cache-free paths only. Everything is
-functional: ``init_*`` returns a dict of tensors, the ``*_apply``-style
-functions consume it. Activations run in their own dtype (bf16 in
-production) with f32 norm, rope, softmax and router arithmetic, and
-every rounding point sits where the reference puts it. Cached decode and
-``flash_decode`` come with the serving slice; the all-to-all MoE across
-cards (``moe_a2a``) with the multi-card work.
+Port of ``repro.models.layers``. Everything is functional: ``init_*``
+returns a dict of tensors, the ``*_apply``-style functions consume it.
+Activations run in their own dtype (bf16 in production) with f32 norm,
+rope, softmax and router arithmetic, and every rounding point sits where
+the reference puts it. Attention takes a KV cache for serving (a scalar
+or a per-row cache index, and the sliding-window ring). The distributed
+``flash_decode`` over a length-sharded cache and the all-to-all MoE
+across cards (``moe_a2a``) come with the multi-card work.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -194,18 +195,113 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, q_offset: int = 0,
     return out[:, :sq].to(q.dtype)
 
 
-def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
-                    kv_cache=None, cache_index=None, impl: str = "auto"):
-    """Self-attention with GQA + RoPE, cache-free.
+class CachePlan(NamedTuple):
+    """What every attention layer of one cached forward shares: the rope
+    angles of the inputs' positions, each row's write positions in the
+    cache (B, s), and the additive f32 mask, broadcastable to (B, H, s, C).
+    :func:`cache_plan` makes it once per forward instead of per layer."""
 
-    ``impl``: ``"dense"``, ``"chunked"``, ``"pallas"`` (the hand-written
+    cos: Tensor
+    sin: Tensor
+    rows: Tensor
+    bias: Tensor
+
+
+def cache_plan(cfg: ModelConfig, positions: Tensor, cache_index, batch: int,
+               s: int, cache_len: int) -> CachePlan:
+    """The :class:`CachePlan` of ``s`` inputs at ``positions`` ((S,), or
+    (B, S) for a vector index) written into a ``cache_len``-entry cache
+    after ``cache_index`` entries (a scalar or a (B,) vector).
+
+    A cache of exactly ``cfg.attention_window`` entries is a ring when one
+    token is decoded: the token lands at ``t % C``, and entry ``i`` holds
+    absolute position ``t - ((t - i) mod C)``, valid iff >= 0. Otherwise
+    the write starts at ``cache_index``, clamped to ``[0, C - s]`` so that
+    it fits, as ``jax.lax.dynamic_update_slice`` clamps it (an index at the
+    edge lands where the reference puts it), and the mask is causal on the
+    unclamped positions, within the window if there is one."""
+    if s > cache_len:
+        raise ValueError(f"a {s}-token update does not fit a {cache_len}-entry cache")
+    dev = positions.device
+    idx = torch.as_tensor(cache_index, device=dev).to(torch.long)
+    vec = idx.dim() == 1
+    window = cfg.attention_window
+    ent = torch.arange(cache_len, device=dev)
+    if window is not None and cache_len == window and s == 1:
+        start = idx % cache_len
+        t = idx[:, None] if vec else idx
+        ok = (t - torch.remainder(t - ent, cache_len)) >= 0
+        bias = torch.where(ok, 0.0, -math.inf)
+        bias = bias[:, None, None, :] if vec else bias[None, None, None, :]
+    else:
+        start = idx
+        ok = ent <= positions[..., None]  # (s, C) or (B, s, C)
+        ok = ok & (ent < ((idx[:, None, None] if vec else idx) + s))
+        if window is not None:
+            ok = ok & (ent > (positions[..., None] - window))
+        bias = torch.where(ok, 0.0, -math.inf)
+        bias = bias[:, None] if vec else bias[None, None]
+    start = torch.clamp(start.expand(batch), 0, cache_len - s)
+    rows = start[:, None] + torch.arange(s, device=dev)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    return CachePlan(cos, sin, rows, bias.float())
+
+
+def _row_cache_update(cache: Tensor, fresh: Tensor, rows: Tensor) -> Tensor:
+    """Slot-indexed KV write: row ``b`` of ``cache`` (B, C, KH, hd) takes
+    ``fresh[b]`` (s, KH, hd) at entries ``rows[b]`` (s,), each row at its
+    own position (``CachePlan.rows``, which holds the reference's clamp).
+    Returns a new tensor."""
+    b, s = rows.shape
+    idx = rows[:, :, None, None].expand(b, s, *cache.shape[2:])
+    return cache.scatter(1, idx, fresh.to(cache.dtype))
+
+
+def _cached_attention(q: Tensor, ck: Tensor, cv: Tensor, bias: Tensor,
+                      v_dtype) -> Tensor:
+    """Attention of q (B, s, H, hd) over the whole cache (B, C, KH, hd)
+    with an additive f32 ``bias`` broadcast to (B, H, s, C): f32 scores
+    and softmax, the weights rounded to ``v_dtype`` before ``w @ v``. The
+    query heads of one KV head are one group of the products (head ``h``
+    reads KV head ``h // (H / KH)``, as ``_repeat_kv`` orders them), so
+    the cache is never copied per query head."""
+    b, s, h, hd = q.shape
+    c, kh = ck.shape[1], ck.shape[2]
+    g = h // kh
+    scores = torch.einsum("bqkgd,bckd->bkgqc", q.reshape(b, s, kh, g, hd).float(),
+                          ck.float()).reshape(b, h, s, c) / math.sqrt(hd)
+    w = torch.softmax(scores + bias, dim=-1).to(v_dtype)
+    if cv.dtype != w.dtype:  # a cache dtype other than the activations'
+        dt = torch.promote_types(cv.dtype, w.dtype)
+        w, cv = w.to(dt), cv.to(dt)
+    out = torch.einsum("bkgqc,bckd->bqkgd", w.reshape(b, kh, g, s, c), cv)
+    return out.reshape(b, s, h, hd)
+
+
+def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
+                    kv_cache=None, cache_index=None, impl: str = "auto",
+                    plan: Optional[CachePlan] = None):
+    """Self-attention with GQA + RoPE.
+
+    ``positions``: (S,) absolute positions, or (B, S) per-row positions
+    when ``cache_index`` is a vector. Without a cache, ``impl`` picks the
+    route: ``"dense"``, ``"chunked"``, ``"pallas"`` (the hand-written
     flash-attention kernel, :mod:`repro_torch.kernels.flash_attention`,
     forward only) or ``"auto"`` (chunked above 2048 tokens, else dense).
-    ``positions``: (S,) absolute positions. Returns ``(out, None)``.
+
+    ``kv_cache``: ``{"k", "v"}`` of shape (B, C, KH, hd), decode and
+    prefill for serving; ``cache_index`` is the number of valid entries
+    already in it, a scalar or a (B,) vector of per-row counts (each row
+    writes its fresh K/V at its own position and masks its own history),
+    with the sliding-window ring of :func:`cache_plan`. ``plan``: the
+    forward's shared :class:`CachePlan` (made here when None). The cached
+    path ignores ``impl``, as the reference's does. The reference's
+    distributed flash-decode branch needs an active distribution context
+    (a length-sharded cache on a device mesh); the port has none, so that
+    branch is never taken.
+
+    Returns ``(out, new_cache)``, ``new_cache`` None without a cache.
     """
-    if kv_cache is not None or cache_index is not None:
-        raise NotImplementedError(
-            "cached attention (decode) comes with the serving slice")
     b, s, d = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -219,11 +315,25 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kh, hd)
     v = v.reshape(b, s, kh, hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if kv_cache is not None and plan is None:
+        plan = cache_plan(cfg, positions, cache_index, b, s, kv_cache["k"].shape[1])
+    if plan is not None:
+        # one rope pass over the query and key heads together (the same
+        # arithmetic per element, half the launches of a decode step's rope)
+        qk = apply_rope(torch.cat([q, k], dim=2), plan.cos, plan.sin)
+        q, k = qk[:, :, :h], qk[:, :, h:]
+    else:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    if impl == "pallas":
+    new_cache = None
+    if kv_cache is not None:
+        ck = _row_cache_update(kv_cache["k"], k, plan.rows)
+        cv = _row_cache_update(kv_cache["v"], v, plan.rows)
+        out = _cached_attention(q, ck, cv, plan.bias, v.dtype)
+        new_cache = {"k": ck, "v": cv}
+    elif impl == "pallas":
         from repro_torch.kernels.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, causal=True, window=cfg.attention_window)
@@ -233,8 +343,8 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
         out = dense_attention(q, k, v, q_offset=0, window=cfg.attention_window)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    out = out.reshape(b, s, h * hd).to(dt)
-    return out @ params["wo"].to(dt), None
+    out = out.reshape(b, s, h * hd).to(dt)  # the cache dtype may differ
+    return out @ params["wo"].to(dt), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ reference's layout, so weights carry over leaf for leaf: ``{"embed":
 (V, D), "final_norm": (D,), "slots": (slot_0, ..., slot_{p-1}),
 ["lm_head": (D, V)]}``, where slot ``i`` holds the tensors of layers
 ``i, i + p, i + 2p, ...`` stacked on a leading axis. The forward is a
-Python loop over the layers. Modality frontends and caches (serving) are
-not ported and raise.
+Python loop over the layers; for serving it threads the KV and SSM
+caches (:func:`init_caches`, the same stacked per-slot layout) through
+the same loop. Modality frontends are not ported and raise.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, slot_sig,
 
 
 def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
-                cache=None, cache_index=None, impl: str = "auto"):
+                cache=None, cache_index=None, impl: str = "auto", plan=None):
     """One residual block. Returns ``(x, new_cache, aux)``.
 
     ``impl="pallas_stage"`` (the split executor's
@@ -94,21 +95,33 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
     Mamba half on ``"auto"``; ``impl="pallas"`` takes the attention half
     through the flash kernel and the Mamba half through the scan kernel.
     An MoE half-block takes the config's dispatch whatever ``impl`` is:
-    ``moe_apply_dropless`` with its default route, or ``moe_apply``."""
+    ``moe_apply_dropless`` with its default route, or ``moe_apply``.
+
+    ``cache`` (serving): ``{"k", "v"}`` for an attention block, ``{"ssm",
+    "conv"}`` for a Mamba block, with ``cache_index`` the entries already
+    seen (a scalar or a (B,) vector); ``new_cache`` is the updated cache,
+    ``{}`` without one. ``plan``: the forward's shared
+    ``layers.CachePlan`` for an attention block (made per block when
+    None)."""
     kind, is_moe, has_mlp = slot_sig
-    if cache is not None or cache_index is not None:
-        raise NotImplementedError("cached blocks come with the serving slice")
     if impl not in BLOCK_IMPLS:
         raise ValueError(f"unknown block impl {impl!r}; have {BLOCK_IMPLS}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     half_impl = "auto" if impl == "pallas_stage" else impl
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "A":
-        out, _ = L.attention_apply(p["attn"], h, cfg, positions=positions,
-                                   impl=half_impl)
+        out, new_kv = L.attention_apply(
+            p["attn"], h, cfg, positions=positions,
+            kv_cache=None if cache is None else {"k": cache["k"], "v": cache["v"]},
+            cache_index=cache_index, impl=half_impl, plan=plan)
+        new_cache = {} if new_kv is None else new_kv
     else:
-        out, _ = S.mamba_apply(p["mamba"], h, cfg,
-                               use_pallas=half_impl == "pallas")
+        out, (new_ssm, new_conv) = S.mamba_apply(
+            p["mamba"], h, cfg,
+            ssm_state=None if cache is None else cache["ssm"],
+            conv_state=None if cache is None else cache["conv"],
+            use_pallas=half_impl == "pallas")
+        new_cache = {} if cache is None else {"ssm": new_ssm, "conv": new_conv}
     x = x + out
     if has_mlp:
         if is_moe:
@@ -125,7 +138,7 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
                                 activation=cfg.activation, eps=cfg.norm_eps)
         else:
             x = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps)
-    return x, {}, aux
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +181,47 @@ def layer_params(slot, i: int):
 
 
 # ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, device: DeviceLike = None):
+    """Per-slot stacked caches (leading dim = repeats), zero-filled: an
+    attention slot ``{"k", "v"}`` (R, B, kv_len, KH, hd) in ``dtype``
+    (kv_len = ``min(cache_len, window)`` under a sliding window), a Mamba
+    slot ``{"ssm"}`` (R, B, H, P, N) in f32 and ``{"conv"}`` (R, B, K-1,
+    di + 2N) in ``dtype``.
+
+    Zeros, never ``torch.empty``: the serving engine never clears a freed
+    slot and leans on every cache entry being finite (a masked finite
+    value weighs exactly 0; a NaN would poison the row max)."""
+    sig = signature(cfg)
+    period = find_period(sig)
+    repeats = cfg.num_layers // period
+    dev = resolve_device(device)
+    kv_len = (min(cache_len, cfg.attention_window)
+              if cfg.attention_window is not None else cache_len)
+    caches = []
+    for si in range(period):
+        if sig[si][0] == "A":
+            shape = (repeats, batch, kv_len, cfg.num_kv_heads, cfg.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            sc = cfg.ssm
+            di = sc.d_inner(cfg.d_model)
+            nh = sc.num_heads(cfg.d_model)
+            caches.append({
+                "ssm": torch.zeros((repeats, batch, nh, sc.head_dim, sc.d_state),
+                                   dtype=torch.float32, device=dev),
+                "conv": torch.zeros((repeats, batch, sc.d_conv - 1,
+                                     di + 2 * sc.d_state), dtype=dtype, device=dev),
+            })
+    return tuple(caches)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -175,41 +229,72 @@ def layer_params(slot, i: int):
 def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
             cache_index=None, frontend_feats=None, impl: str = "auto",
             remat: bool = False, compute_dtype=torch.bfloat16):
-    """tokens: (B, S) int. Returns ``(logits, None, aux)``, ``aux`` the sum
-    of the MoE blocks' router losses.
+    """tokens: (B, S) int. Returns ``(logits, new_caches, aux)``, ``aux``
+    the sum of the MoE blocks' router losses.
 
-    ``remat`` recomputes each period of blocks in the backward pass
-    (``torch.utils.checkpoint``); the value is the same either way."""
-    if caches is not None or cache_index is not None:
-        raise NotImplementedError("cached forward comes with the serving slice")
+    With ``caches`` (from :func:`init_caches`) the blocks read and write
+    them at ``cache_index``: a scalar count of entries already seen (the
+    inputs sit at ``cache_index + arange(S)``) or a (B,) vector of
+    per-row counts (row ``b`` at ``cache_index[b] + arange(S)``, the
+    serving engine's slots); ``new_caches`` has the same layout, None
+    without caches. ``remat`` recomputes each period of blocks in the
+    backward pass (``torch.utils.checkpoint``); the value is the same
+    either way."""
     if frontend_feats is not None:
         raise NotImplementedError("modality frontends are not ported")
     _no_frontend(cfg)
     sig = signature(cfg)
     period = find_period(sig)
-    x = params["embed"].to(compute_dtype)[tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
+    x = params["embed"].to(compute_dtype)[tokens.long()]
+    s = x.shape[1]
+    steps = torch.arange(s, device=x.device)
+    if cache_index is None:
+        positions = steps
+    else:
+        idx = torch.as_tensor(cache_index, device=x.device).to(torch.long)
+        # per-row positions (B, S) for a vector index, else (S,)
+        positions = idx[:, None] + steps if idx.dim() == 1 else idx + steps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the attention layers' shared rope angles, write rows and mask
+    plan = None
+    attn = [si for si in range(period) if sig[si][0] == "A"]
+    if caches is not None and attn:
+        plan = L.cache_plan(cfg, positions, cache_index, x.shape[0], s,
+                            caches[attn[0]]["k"].shape[2])
 
-    def run(blocks, xact, aux):
+    def run(blocks, layer_caches, xact, aux):
+        new = []
         for si in range(period):
-            xact, _, a = block_apply(blocks[si], xact, cfg, sig[si],
-                                     positions=positions, impl=impl)
+            xact, nc, a = block_apply(
+                blocks[si], xact, cfg, sig[si], positions=positions,
+                cache=None if layer_caches is None else layer_caches[si],
+                cache_index=cache_index, impl=impl, plan=plan)
+            new.append(nc)
             aux = aux + a
-        return xact, aux
+        return xact, aux, new
 
+    per_layer = []
     for r in range(cfg.num_layers // period):
         blocks = [layer_params(slot, r) for slot in params["slots"]]
-        if remat and torch.is_grad_enabled():
+        layer_caches = None if caches is None else [
+            layer_params(c, r) for c in caches]
+        if remat and torch.is_grad_enabled() and caches is None:
             from torch.utils.checkpoint import checkpoint
 
-            x, aux = checkpoint(run, blocks, x, aux, use_reentrant=False)
+            x, aux = checkpoint(lambda b, xx, a: run(b, None, xx, a)[:2],
+                                blocks, x, aux, use_reentrant=False)
         else:
-            x, aux = run(blocks, x, aux)
+            x, aux, new = run(blocks, layer_caches, x, aux)
+            per_layer.append(new)
+    new_caches = None
+    if caches is not None:
+        new_caches = tuple(
+            tree_map(lambda *xs: torch.stack(xs), *[nc[si] for nc in per_layer])
+            for si in range(period))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = x @ head.to(compute_dtype)
-    return logits, None, aux
+    return logits, new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +358,34 @@ def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
         return params, opt_state, {"loss": loss, "aux": aux, "total": total}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, impl="auto",
+                      compute_dtype=torch.bfloat16):
+    """``prefill(params, tokens, caches) -> (last logits (B, V), caches)``:
+    a fresh-sequence pass (scalar cache index 0) through ``caches``."""
+
+    def prefill(params, tokens, caches, frontend_feats=None):
+        logits, new_caches, _ = forward(
+            params, tokens, cfg, caches=caches, cache_index=0,
+            frontend_feats=frontend_feats, impl=impl,
+            compute_dtype=compute_dtype)
+        return logits[:, -1], new_caches
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, *, impl="auto",
+                     compute_dtype=torch.bfloat16):
+    """``decode(params, tokens (B, 1), caches, cache_index) -> (logits
+    (B, V), caches)``; ``cache_index`` is the tokens already seen, a
+    scalar (a lockstep batch) or a (B,) vector (per-slot counts, the
+    serving engine)."""
+
+    def decode(params, tokens, caches, cache_index):
+        logits, new_caches, _ = forward(
+            params, tokens, cfg, caches=caches, cache_index=cache_index,
+            impl=impl, compute_dtype=compute_dtype)
+        return logits[:, -1], new_caches
+
+    return decode

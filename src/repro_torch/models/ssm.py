@@ -1,15 +1,16 @@
 """Mamba-2 (SSD, state-space duality) block [arXiv:2405.21060].
 
-Port of ``repro.models.ssm``, cache-free path. The chunked SSD algorithm:
-an intra-chunk quadratic (attention-like) term plus the recurrent state
-carried across chunks. :func:`ssd_chunked` is the plain PyTorch route;
+Port of ``repro.models.ssm``. The chunked SSD algorithm: an intra-chunk
+quadratic (attention-like) term plus the recurrent state carried across
+chunks. :func:`ssd_chunked` is the plain PyTorch route;
 ``mamba_apply(use_pallas=True)`` takes the hand-written scan kernel
 (:mod:`repro_torch.kernels.ssd_scan`), which computes the same chunk
-recurrence from a zero state. The rounding points are the reference's:
-``in_proj`` and the convolution run in the activation dtype, ``dt`` goes
-through ``softplus`` in f32, the scan runs in f32, and the gated RMSNorm
-computes in f32 and rounds back. The single-token recurrent step and the
-``ssm_state``/``conv_state`` caches come with the serving slice.
+recurrence from a zero state. For serving, :func:`ssd_decode_step` is the
+single-token recurrent step and :func:`mamba_apply` carries the
+``ssm_state`` / ``conv_state`` caches. The rounding points are the
+reference's: ``in_proj`` and the convolution run in the activation dtype,
+``dt`` goes through ``softplus`` in f32, the scan runs in f32, and the
+gated RMSNorm computes in f32 and rounds back.
 """
 from __future__ import annotations
 
@@ -90,6 +91,18 @@ def ssd_chunked(x: Tensor, dt: Tensor, a: Tensor, b: Tensor, c: Tensor,
     return y[:, :s], hprev
 
 
+def ssd_decode_step(x: Tensor, dt: Tensor, a: Tensor, b: Tensor, c: Tensor,
+                    h: Tensor):
+    """One recurrent step: ``h' = exp(dt a) h + dt x b^T``, ``y = h' c``.
+    x (B, 1, H, P), dt (B, 1, H), a (H,), b/c (B, 1, N), h (B, H, P, N).
+    Returns ``(y (B, 1, H, P), h')``."""
+    dec = torch.exp(dt[:, 0, :] * a[None, :])  # (B, H)
+    upd = torch.einsum("bhp,bn->bhpn", x[:, 0] * dt[:, 0, :, None], b[:, 0])
+    h_new = h * dec[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h_new, c[:, 0])[:, None]
+    return y, h_new
+
+
 # ---------------------------------------------------------------------------
 # full Mamba-2 block
 # ---------------------------------------------------------------------------
@@ -126,13 +139,13 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def causal_conv1d(x: Tensor, w: Tensor, bias: Tensor, state=None):
     """Depthwise causal convolution as a sum of shifted slices, then silu.
-    x: (B, S, C); w: (K, C). Returns ``(y, last K-1 input rows)``."""
-    if state is not None:
-        raise NotImplementedError("the conv state (decode) comes with the "
-                                  "serving slice")
+    x: (B, S, C); w: (K, C); ``state`` the previous K-1 input rows
+    (B, K-1, C), zeros when None. Returns ``(y, last K-1 input rows)``."""
     k = w.shape[0]
     s = x.shape[1]
-    x_ext = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    x_ext = torch.cat([state, x], dim=1)
     y = x_ext[:, 0:s, :] * w[0][None, None, :]
     for i in range(1, k):
         y = y + x_ext[:, i:i + s, :] * w[i][None, None, :]
@@ -143,13 +156,17 @@ def causal_conv1d(x: Tensor, w: Tensor, bias: Tensor, state=None):
 
 def mamba_apply(params, x: Tensor, cfg: ModelConfig, *, ssm_state=None,
                 conv_state=None, use_pallas: bool = False):
-    """Mamba-2 block, cache-free: x (B, S, D) -> ``(y, (h_final,
-    conv_tail))``. ``use_pallas`` runs the scan through the hand-written
-    kernel (forward only, from a zero state); otherwise
-    :func:`ssd_chunked`."""
-    if ssm_state is not None or conv_state is not None:
-        raise NotImplementedError("cached Mamba (decode) comes with the "
-                                  "serving slice")
+    """Mamba-2 block: x (B, S, D) -> ``(y, (ssm_state', conv_state'))``.
+
+    Without states (training, held-out loss) the scan starts from zero.
+    With states and S == 1 it is one recurrent decode step
+    (:func:`ssd_decode_step`); with states and S > 1 (a cached prefill)
+    :func:`ssd_chunked` starts from ``ssm_state``. ``use_pallas`` runs a
+    scan of more than one step through the hand-written kernel, which, as
+    the reference's kernel, starts from a zero state: a passed
+    ``ssm_state`` is dropped there, as the reference drops it. The conv
+    state continues the convolution across calls and comes back in its
+    own dtype."""
     bsz, s, d = x.shape
     sc = cfg.ssm
     di = sc.d_inner(d)
@@ -160,21 +177,33 @@ def mamba_apply(params, x: Tensor, cfg: ModelConfig, *, ssm_state=None,
     zxbcdt = x @ params["in_proj"].to(dtv)
     z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out, new_conv = causal_conv1d(conv_in, params["conv_w"].to(dtv),
-                                       params["conv_b"].to(dtv))
+    decode = ssm_state is not None and s == 1
+    conv_out, new_conv = causal_conv1d(
+        conv_in, params["conv_w"].to(dtv), params["conv_b"].to(dtv),
+        state=None if conv_state is None else conv_state.to(dtv))
+    if conv_state is not None and new_conv is not None:
+        new_conv = new_conv.to(conv_state.dtype)
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     a = -torch.exp(params["a_log"])
 
     xh = xin.reshape(bsz, s, nh, sc.head_dim)
-    if use_pallas:
+    if decode:
+        y, new_ssm = ssd_decode_step(xh.float(), dt, a, bmat.float(),
+                                     cmat.float(), ssm_state.float())
+    elif use_pallas:
         from repro_torch.kernels.ssd_scan import ssd_scan
 
-        y, new_ssm = ssd_scan(xh.float(), dt, a, bmat.float(), cmat.float(),
-                              chunk=sc.chunk)
+        # from a zero state: ssm_state is dropped, as in the reference;
+        # the kernel takes contiguous tensors (x, B and C are views of the
+        # conv output in an f32 block)
+        y, new_ssm = ssd_scan(xh.float().contiguous(), dt, a,
+                              bmat.float().contiguous(),
+                              cmat.float().contiguous(), chunk=sc.chunk)
     else:
-        y, new_ssm = ssd_chunked(xh.float(), dt, a, bmat.float(), cmat.float(),
-                                 chunk=sc.chunk)
+        y, new_ssm = ssd_chunked(
+            xh.float(), dt, a, bmat.float(), cmat.float(), chunk=sc.chunk,
+            h0=None if ssm_state is None else ssm_state.float())
     y = y + xh.float() * params["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, di).to(dtv)
     # gated RMSNorm (Mamba-2)

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ca_attention as CA  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 
 def _card():
@@ -794,3 +794,100 @@ def test_grouped_moe_ffn_kernel_rejects_what_it_does_not_take():
         with pytest.raises(ValueError):
             MD.grouped_moe_ffn(buf.t().contiguous().t(), eid, params,
                                activation="swiglu")
+
+
+# ---------------------------------------------------------------------------
+# serving: the stage kernel at decode rows, the engine and the cached model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stage_mlp_block_at_decode_rows_on_card(rows, dtype):
+    """The stage kernel at the pipelined runner's decode rows (one token
+    per slot: 1, 8 and 16 rows, far under the tensor-core body's 256-row
+    tile) at Qwen2.5-3B's widths, f32 weights, against its plain version:
+    bf16 within two ulps of the largest output, f32 ``atol 1e-4``."""
+    _card()
+    from repro_torch.kernels import stage_block as SB
+
+    dt = getattr(torch, dtype)
+    params, nw, x, _ = _stage_case(rows, 2048, 11008, "swiglu", dt, seed=rows)
+    params = {k: v.cuda() for k, v in params.items()}
+    nw, x = nw.cuda(), x.reshape(rows, 1, 2048).cuda()
+    before = SB.launches
+    with torch.no_grad():
+        out = SB.stage_mlp_block(nw, params, x, activation="swiglu")
+        ref = SB.stage_mlp_block_ref(nw, params, x, activation="swiglu")
+    torch.cuda.synchronize()
+    assert SB.launches == before + 1
+    assert out.dtype == dt and out.shape == x.shape
+    top = float(ref.float().abs().max())
+    atol = STAGE_ATOL_F32 if dtype == "float32" else STAGE_REL[dtype] * top
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_engine_matches_reference_on_card(temperature):
+    """A reduced Qwen2.5-3B served by the engine on the card: 7 requests
+    through 3 slots, every completion bitwise ``generate_reference``'s."""
+    _card()
+    from repro_torch.serving import (ServeConfig, ServingService,
+                                     generate_reference, poisson_trace)
+
+    cfg = ServeConfig(num_slots=3, arrival_slots=2, prompt_pad=8, max_new=8,
+                      decode_chunk=2, temperature=temperature)
+    svc = ServingService(cfg)
+    assert svc.params["embed"].device.type == "cuda"
+    trace = poisson_trace(n_requests=7, rate_per_sec=50.0,
+                          vocab_size=svc.model_cfg.vocab_size,
+                          plen_range=(2, 8), gen_range=(2, 8), seed=3)
+    res = svc.run(trace)
+    assert res["num_requests"] == 7
+    for r in trace:
+        ref = generate_reference(svc.runner, svc.params, r.prompt,
+                                 gen_target=r.gen_target, max_new=8,
+                                 prompt_pad=8, slots=3, temperature=temperature,
+                                 base_key=svc.base_key, req_id=r.rid)
+        assert np.array_equal(res["completions"][r.rid], ref.cpu().numpy()), r.rid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-370m"])
+def test_cached_forward_on_card_matches_cpu(arch):
+    """A prefill and 4 decode steps at per-row positions of the reduced
+    model, f32, on the card against the same on the CPU: logits and
+    caches within ``rtol 1e-4`` of max|cpu| (f32 products summed in other
+    orders; TF32 off)."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2, 1)))
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        caches = M.init_caches(cfg, 2, 14, dtype=torch.float32, device=dev)
+        pre = M.make_prefill_step(cfg, compute_dtype=torch.float32)
+        dec = M.make_decode_step(cfg, compute_dtype=torch.float32)
+        outs = []
+        with torch.no_grad():
+            lg, caches = pre(p, prompts.to(dev), caches)
+            outs.append(lg)
+            pos = torch.tensor([8, 6], device=dev)
+            for i in range(4):
+                lg, caches = dec(p, feed[i].to(dev), caches, pos + i)
+                outs.append(lg)
+        return [o.cpu() for o in outs] + [t.cpu() for t in tree_leaves(caches)]
+
+    for a, b in zip(run("cuda"), run("cpu")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * max(float(b.abs().max()), 1e-6))

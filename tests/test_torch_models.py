@@ -369,7 +369,9 @@ def test_bf16_loss_fn_matches_jax_default():
 
 def test_model_refuses_unported_blocks():
     """Every block kind is ported (attention, Mamba, dense MLP, MoE, and
-    hybrid periods); what is not (modality frontends, caches) raises."""
+    hybrid periods), and so are the caches of serving
+    (``tests/test_torch_cache.py``); what is not (modality frontends)
+    raises."""
     for arch in ("pixtral-12b", "musicgen-large"):
         with pytest.raises(NotImplementedError):
             TM.init_params(torch.Generator().manual_seed(0),
@@ -378,11 +380,12 @@ def test_model_refuses_unported_blocks():
     tp = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError):
-        TM.forward(tp, tok, cfg, caches=())
-    with pytest.raises(NotImplementedError):
-        TM.block_apply(TM.layer_params(tp["slots"][0], 0),
-                       torch.zeros((1, 4, cfg.d_model)), cfg, TM.signature(cfg)[0],
-                       positions=torch.arange(4), cache={})
+        TM.forward(tp, tok, cfg, frontend_feats=torch.zeros((1, 2, 8)))
+    caches = TM.init_caches(cfg, 1, 8, dtype=torch.float32, device="cpu")
+    logits, new, _ = TM.forward(tp, tok, cfg, caches=caches, cache_index=0,
+                                compute_dtype=torch.float32)
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert new[0]["k"].shape == caches[0]["k"].shape
 
 
 def test_init_params_has_the_reference_layout():

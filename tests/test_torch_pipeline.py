@@ -201,8 +201,8 @@ def test_boundary_validation():
         TPIPE.pipeline_step_fn(tcfg, (2, 4), 2, env_axis="env")
     with pytest.raises(NotImplementedError):
         TPIPE.pipeline_step_fn(TC.get_config("jamba-v0.1-52b").reduced(), (1, 2), 2)
-    with pytest.raises(NotImplementedError):
-        TPIPE.pipeline_serve_fns(tcfg, (2, 4))
+    with pytest.raises(ValueError):  # serving checks its plan too
+        TPIPE.pipeline_serve_fns(tcfg, (1, 3))
     for bad in (dict(transport="async"), dict(schedule="gpipe"),
                 dict(stage_impl="cuda")):
         with pytest.raises(ValueError):

@@ -182,8 +182,10 @@ def test_causal_conv1d_matches_jax():
     y, st = TS.causal_conv1d(*_t(x, w, bias))
     _close(y.numpy(), yr)
     np.testing.assert_array_equal(st.numpy(), np.asarray(sr))
-    with pytest.raises(NotImplementedError):
-        TS.causal_conv1d(*_t(x, w, bias), state=torch.zeros(2, 3, 24))
+    # a zero state is the zero padding (the conv state of serving is held
+    # to JAX in tests/test_torch_cache.py)
+    y0, st0 = TS.causal_conv1d(*_t(x, w, bias), state=torch.zeros(2, 3, 24))
+    assert torch.equal(y0, y) and torch.equal(st0, st)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -206,9 +208,18 @@ def test_mamba_apply_matches_jax(use_pallas, dtype):
     rtol = RTOL if dtype == "float32" else 2e-2
     _close(out.float().numpy(), np.asarray(ref, np.float32), rtol)
     _close(hl.numpy(), np.asarray(hr), rtol)
-    with pytest.raises(NotImplementedError):
-        TS.mamba_apply(tp, torch.from_numpy(x), tcfg,
-                       ssm_state=torch.zeros(tuple(hl.shape)))
+    # zero states are the cache-free path on both routes (the cached block
+    # is held to JAX in tests/test_torch_cache.py)
+    with torch.no_grad():
+        out0, (h0, _) = TS.mamba_apply(
+            tp, torch.from_numpy(x).to(tdt), tcfg,
+            ssm_state=torch.zeros(tuple(hl.shape)),
+            conv_state=torch.zeros((2, tcfg.ssm.d_conv - 1,
+                                    tcfg.ssm.d_inner(tcfg.d_model)
+                                    + 2 * tcfg.ssm.d_state), dtype=tdt),
+            use_pallas=use_pallas)
+    _close(out0.float().numpy(), out.float().numpy(), rtol)
+    _close(h0.numpy(), hl.numpy(), rtol)
 
 
 def test_init_mamba_has_the_reference_layout():
