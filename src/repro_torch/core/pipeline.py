@@ -24,17 +24,24 @@ schedules tick for tick:
   gradient; with tied embeddings the head gradient adds to it.
 
 Each stage runs only its own layers, so uneven splits need no padding
-blocks. Every period-1 config runs (attention blocks with a dense MLP or
-an MoE, or Mamba blocks); as in the reference, the stage loss drops the
-MoE router's ``aux``. ``PipelineConfig.transport`` keeps the reference's
+blocks. Mixed block periods (Jamba's attention/Mamba hybrid, MoE every k
+layers) run through 1F1B: layer ``r`` is applied with its own slot's
+block, slot ``r % period``, row ``r // period``, as ``model.forward``
+applies it. The reference's union layout (every layer row carrying every
+slot's fields, zero-filled, under a ``lax.switch``) exists only so that
+one SPMD scan can run every stage, and is not needed in one process; the
+gradients come back in the reference's ``params["slots"]`` layout all
+the same. ``fill_drain`` stays period-1, as in the reference. As in the
+reference, the stage loss drops the MoE router's ``aux``, and the
+executor runs tokens only: a modality frontend's projector gets zero
+gradients. ``PipelineConfig.transport`` keeps the reference's
 two values: the reference's ``"overlap"`` issues a tick's hops before its
 compute and ``"sync"`` after it, but both hand each buffer over exactly
 one tick after it was made, so in one process they are the same schedule.
 Pipelined serving (:func:`pipeline_serve_fns`) runs the reference's
 serial token ring over per-stage KV rings (:func:`stage_kv_caches`).
 Not ported (they raise ``NotImplementedError``): ``env_axis`` data
-parallelism, the union layout for mixed block periods (Jamba, MoE every
-k layers) and stage hops across cards.
+parallelism and stage hops across cards.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_stack, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -135,19 +142,6 @@ def stage_lengths(boundaries: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def _period_one(cfg: ModelConfig) -> None:
-    """Every layer has one block signature (attention with a dense MLP or
-    MoE, or Mamba); mixed periods need the union layout, not ported."""
-    period = M.find_period(M.signature(cfg))
-    if period > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: period-{period} block patterns need the union layout "
-            "(a per-slot switch), which is not ported; the executor runs "
-            "period-1 configs")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
-
-
 def _stage_ranges(cfg: ModelConfig, boundaries: Sequence[int],
                   env_axis) -> List[Tuple[int, int]]:
     """Checked ``[lo, hi)`` layer ranges of the stages."""
@@ -155,7 +149,6 @@ def _stage_ranges(cfg: ModelConfig, boundaries: Sequence[int],
         raise NotImplementedError(
             "env_axis (data parallelism across stage replicas) is not ported; "
             "the executor runs every stage in one process")
-    _period_one(cfg)
     _check_boundaries(boundaries, num_layers=cfg.num_layers)
     bl = [int(b) for b in boundaries]
     return list(zip([0] + bl[:-1], bl))
@@ -171,10 +164,16 @@ def _microbatches(tokens: Tensor, labels: Tensor, n_microbatches: int):
             labels.reshape(n_microbatches, mb, t_len))
 
 
-def _stage_forward(cfg, blocks, x, positions, impl):
-    slot_sig = M.signature(cfg)[0]
-    for blk in blocks:
-        x, _, _ = M.block_apply(blk, x, cfg, slot_sig, positions=positions,
+def _layer_params(params, r: int, period: int):
+    """Layer ``r``'s block params: row ``r // period`` of slot ``r % period``
+    (views into the stacked slot)."""
+    return M.layer_params(params["slots"][r % period], r // period)
+
+
+def _stage_forward(cfg, sigs, blocks, x, positions, impl):
+    """The stage's layers in turn, each with its own signature."""
+    for sig, blk in zip(sigs, blocks):
+        x, _, _ = M.block_apply(blk, x, cfg, sig, positions=positions,
                                 impl=impl)
     return x
 
@@ -195,6 +194,13 @@ def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
     ``(params, tokens, labels) -> loss``, differentiable by autograd.
     tokens: ``(M * mb, T)``. No wire cast on the hops (as the reference's
     fill-drain hops in the compute dtype)."""
+    sig = M.signature(cfg)
+    period = M.find_period(sig)
+    if period > 1:
+        raise ValueError(
+            f"{cfg.name}: the fill-drain reference runs period-1 configs, got "
+            f"period {period}; mixed block periods run through the '1f1b' "
+            "schedule")
     ranges = _stage_ranges(cfg, boundaries, env_axis)
     s_stages = len(ranges)
     pipe = pipe or PipelineConfig()
@@ -202,8 +208,7 @@ def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
 
     def fn(params, tokens, labels):
         tok_mb, lab_mb = _microbatches(tokens, labels, n_microbatches)
-        slot = params["slots"][0]
-        stages = [[M.layer_params(slot, r) for r in range(lo, hi)]
+        stages = [[_layer_params(params, r, 1) for r in range(lo, hi)]
                   for lo, hi in ranges]
         head = _head(params, cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -217,7 +222,8 @@ def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
                     continue
                 x = (params["embed"][tok_mb[m]].to(act_dtype) if i == 0
                      else buf[i])
-                x = _stage_forward(cfg, stages[i], x, positions, blk_impl)
+                x = _stage_forward(cfg, sig[ranges[i][0]:ranges[i][1]],
+                                   stages[i], x, positions, blk_impl)
                 if i == s_stages - 1:
                     loss_acc = loss_acc + _logits_loss(
                         cfg, x, params["final_norm"], head, lab_mb[m])
@@ -237,7 +243,21 @@ def _grad_leaves(tree):
 
 
 def _accumulate(acc, grads):
-    return grads if acc is None else [a + g for a, g in zip(acc, grads)]
+    """``acc += grads`` leafwise, in place: the first microbatch's gradient
+    tensors become the accumulators (copied only where autograd handed
+    one tensor to two leaves), so a stage's gradients are held once, not
+    twice, while the next are added."""
+    if acc is None:
+        seen, acc = set(), []
+        for g in grads:
+            if g.data_ptr() in seen:
+                g = g.clone()
+            seen.add(g.data_ptr())
+            acc.append(g)
+        return acc
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc
 
 
 def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
@@ -245,7 +265,9 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
                      pipe: PipelineConfig = PipelineConfig(),
                      env_axis: Optional[str] = None):
     """Build the pipelined train step: ``(params, tokens, labels) -> (loss,
-    grads)``, grads in the ``params`` tree layout.
+    grads)``, grads in the ``params`` tree layout (slot ``j`` of a
+    period-``p`` config holds the gradients of layers ``j, j + p, ...``;
+    a frontend's projector gets zeros).
 
     ``pipe.schedule == "1f1b"`` runs the interleaved schedule of the
     module docstring; ``"fill_drain"`` is autograd of
@@ -267,7 +289,10 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
 
         return fd_step
 
+    sig = M.signature(cfg)
+    period = M.find_period(sig)
     ranges = _stage_ranges(cfg, boundaries, env_axis)
+    stage_sigs = [sig[lo:hi] for lo, hi in ranges]
     s_stages = len(ranges)
     m_micro = n_microbatches
     n_ticks = m_micro + 2 * (s_stages - 1)
@@ -278,14 +303,13 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
     def fn(params, tokens, labels):
         tok_mb, lab_mb = _microbatches(tokens, labels, m_micro)
         dev = tokens.device
-        slot = params["slots"][0]
         positions = torch.arange(tokens.shape[1], device=dev)
         embed = params["embed"]
         head_src = embed if cfg.tie_embeddings else params["lm_head"]
-        # per stage: grad leaves of its layers (views into the stacked slot)
+        # per stage: grad leaves of its layers (views into the stacked slots)
         stage_leaves, stage_blocks = [], []
         for lo, hi in ranges:
-            layers = [M.layer_params(slot, r) for r in range(lo, hi)]
+            layers = [_layer_params(params, r, period) for r in range(lo, hi)]
             leaves, blocks = _grad_leaves(layers)
             stage_leaves.append(leaves)
             stage_blocks.append(blocks)
@@ -317,8 +341,9 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
                     stash[i][mf % depth] = x0
                     if not last:
                         with torch.no_grad():
-                            y = _stage_forward(cfg, stage_blocks[i], x0,
-                                               positions, blk_impl)
+                            y = _stage_forward(cfg, stage_sigs[i],
+                                               stage_blocks[i], x0, positions,
+                                               blk_impl)
                         buf_x[i + 1] = y.to(wdtype)
                 # ---- backward slot: microbatch t - 2(S-1) + i ------------
                 mbk = t - 2 * (s_stages - 1) + i
@@ -327,8 +352,8 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
                 x_sv = stash[i][mbk % depth].detach().requires_grad_(True)
                 stash[i][mbk % depth] = None
                 with torch.enable_grad():
-                    y = _stage_forward(cfg, stage_blocks[i], x_sv, positions,
-                                       blk_impl)
+                    y = _stage_forward(cfg, stage_sigs[i], stage_blocks[i],
+                                       x_sv, positions, blk_impl)
                     if last:
                         head = head_leaf.T if cfg.tie_embeddings else head_leaf
                         li = _logits_loss(cfg, y, norm_leaf, head, lab_mb[mbk])
@@ -354,9 +379,13 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
         layer_grads = []
         for layers, g in zip(stage_blocks, gblocks):
             layer_grads.extend(tree_unflatten(layers, g))
+        # slot j: the rows of layers j, j + period, ... (the reference's
+        # split_union_grads layout)
         grads = {"final_norm": gnorm,
-                 "slots": (tree_map(lambda *xs: torch.stack(xs),
-                                    layer_grads[0], *layer_grads[1:]),)}
+                 "slots": tuple(tree_stack(layer_grads[j::period])
+                                for j in range(period))}
+        if "frontend" in params:  # the executor runs tokens only
+            grads["frontend"] = tree_map(torch.zeros_like, params["frontend"])
         if cfg.tie_embeddings:
             grads["embed"] = gembed + ghead
         else:
@@ -420,10 +449,9 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
     (the Eq. 1 transmission); the last stage's final norm and LM head give
     the logits, in f32 as the reference's masked ``psum`` returns them.
     ``pipe.stage_impl="pallas"`` routes each dense MLP half-block through
-    the stage kernel. Attention-only configs of period 1 run; SSM and
-    hybrid configs and capacity MoE are refused as the reference refuses
-    them, and periods above 1 (MoE every k layers) need the union layout,
-    which is not ported."""
+    the stage kernel. Attention-only configs run, mixed periods (MoE every
+    k layers) with each layer's own slot; SSM and hybrid configs and
+    capacity MoE are refused as the reference refuses them."""
     _attention_only(cfg, "pipeline serving")
     sig = M.signature(cfg)
     if any(is_moe for _, is_moe, _ in sig) and cfg.moe.dispatch != "dropless":
@@ -431,12 +459,11 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
             "pipeline serving: capacity-dropping MoE is unservable (padded "
             "prefill rows steal expert capacity from real rows); set "
             "moe.dispatch='dropless'")
+    period = M.find_period(sig)
     ranges = _stage_ranges(cfg, boundaries, None)
-    slot_sig = sig[0]
     blk_impl, cdtype, wdtype = pipe.block_impl, pipe.dtype, pipe.wire
 
     def ring_pass(params, caches, x, positions, cache_index):
-        slot = params["slots"][0]
         plan = L.cache_plan(cfg, positions, cache_index, x.shape[0], x.shape[1],
                             caches["k"].shape[3])
         new_k, new_v = [], []
@@ -446,7 +473,7 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
             ks, vs = [], []
             for i, layer in enumerate(range(lo, hi)):
                 x, nc, _ = M.block_apply(
-                    M.layer_params(slot, layer), x, cfg, slot_sig,
+                    _layer_params(params, layer, period), x, cfg, sig[layer],
                     positions=positions,
                     cache={"k": caches["k"][t, i], "v": caches["v"][t, i]},
                     cache_index=cache_index, impl=blk_impl, plan=plan)

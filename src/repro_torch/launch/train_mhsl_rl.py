@@ -17,8 +17,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl \
         --arch qwen3-moe-30b-a3b --depth 2 --stages 2
 
-Every period-1 arch of the zoo runs (attention with a dense MLP or an
-MoE, or Mamba); hybrids (Jamba) and modality frontends raise.
+Every arch of the zoo runs: attention with a dense MLP or an MoE, Mamba,
+the Jamba hybrid (its block pattern cut to the executed depth), and the
+modality-frontend configs (the pipeline runs their tokens; the frontend
+projector gets zero gradients, as in the reference).
 
 Counterpart of the JAX package's ``examples/train_mhsl_rl.py``, with its
 arguments plus ``--reduced`` (the arch's tiny ``reduced()`` widths, for
@@ -110,12 +112,20 @@ def rescale_boundaries(boundaries_full: Sequence[int], depth: int,
     return tuple(int(b) for b in np.cumsum(lens))
 
 
-def executed_config(arch: str, depth: int, reduced: bool) -> ModelConfig:
-    """The arch at ``depth`` layers: published widths, or ``reduced()``."""
+def executed_config(arch: str, depth: Optional[int],
+                    reduced: bool) -> ModelConfig:
+    """The arch at ``depth`` layers (None: its own depth), at published
+    widths or ``reduced()``. A block pattern is tiled and cut to ``depth``
+    letters: Jamba at depth 2 runs its first two layers, ``"MM"``."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    return replace(cfg, num_layers=depth)
+    if depth is None:
+        return cfg
+    pattern = cfg.block_pattern
+    if pattern is not None:
+        pattern = (pattern * -(-depth // len(pattern)))[:depth]
+    return replace(cfg, num_layers=depth, block_pattern=pattern)
 
 
 def make_pipeline_train_step(cfg: ModelConfig, boundaries, n_microbatches: int,

@@ -10,7 +10,9 @@ reference's layout, so weights carry over leaf for leaf: ``{"embed":
 ``i, i + p, i + 2p, ...`` stacked on a leading axis. The forward is a
 Python loop over the layers; for serving it threads the KV and SSM
 caches (:func:`init_caches`, the same stacked per-slot layout) through
-the same loop. Modality frontends are not ported and raise.
+the same loop. A modality frontend's projected features (vision patches,
+audio frames: :mod:`repro_torch.models.frontends`) are prepended to the
+token embeddings, and the loss counts only the text region.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.frontends import frontend_apply, init_frontend
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -54,11 +57,6 @@ def find_period(sig) -> int:
         if n % p == 0 and all(sig[i] == sig[i % p] for i in range(n)):
             return p
     return n
-
-
-def _no_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +148,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 device: DeviceLike = None):
     """Random weights from ``gen`` (a generator on ``device``), in the
     reference's layout: one slot per position in the period, each with
-    its layers stacked on a leading axis."""
-    _no_frontend(cfg)
+    its layers stacked on a leading axis, and ``"frontend"`` (the
+    projector) for a config with a modality frontend."""
     sig = signature(cfg)
     period = find_period(sig)
     repeats = cfg.num_layers // period
@@ -172,6 +170,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
         params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                          generator=gen, device=dev)
                              / math.sqrt(cfg.d_model)).to(dtype)
+    if cfg.frontend != "none":
+        params["frontend"] = init_frontend(gen, cfg, dtype, device=dev)
     return params
 
 
@@ -232,6 +232,10 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
     """tokens: (B, S) int. Returns ``(logits, new_caches, aux)``, ``aux``
     the sum of the MoE blocks' router losses.
 
+    ``frontend_feats`` (B, F, d_in): stub modality features, projected by
+    ``params["frontend"]`` and prepended, so the logits cover ``F + S``
+    positions and the text's positions start at ``F``.
+
     With ``caches`` (from :func:`init_caches`) the blocks read and write
     them at ``cache_index``: a scalar count of entries already seen (the
     inputs sit at ``cache_index + arange(S)``) or a (B,) vector of
@@ -240,12 +244,12 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
     without caches. ``remat`` recomputes each period of blocks in the
     backward pass (``torch.utils.checkpoint``); the value is the same
     either way."""
-    if frontend_feats is not None:
-        raise NotImplementedError("modality frontends are not ported")
-    _no_frontend(cfg)
     sig = signature(cfg)
     period = find_period(sig)
     x = params["embed"].to(compute_dtype)[tokens.long()]
+    if frontend_feats is not None:
+        fe = frontend_apply(params["frontend"], frontend_feats.to(compute_dtype))
+        x = torch.cat([fe, x], dim=1)
     s = x.shape[1]
     steps = torch.arange(s, device=x.device)
     if cache_index is None:
@@ -317,11 +321,15 @@ def softmax_xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None):
 def loss_fn(params, batch, cfg: ModelConfig, *, impl="auto", remat=True,
             compute_dtype=torch.bfloat16):
     """``(loss + aux, (loss, aux))`` of ``batch = {"tokens", "labels"[,
-    "mask"]}``. ``compute_dtype`` is the reference's ``forward`` default
-    (bf16); pass f32 for an f32 forward."""
-    logits, _, aux = forward(params, batch["tokens"], cfg, impl=impl,
-                             remat=remat,
+    "mask"][, "frontend"]}``; with frontend features the loss counts only
+    the text region (the features are a prefix). ``compute_dtype`` is the
+    reference's ``forward`` default (bf16); pass f32 for an f32 forward."""
+    frontend = batch.get("frontend")
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             frontend_feats=frontend, impl=impl, remat=remat,
                              compute_dtype=compute_dtype)
+    if frontend is not None:
+        logits = logits[:, logits.shape[1] - batch["labels"].shape[1]:]
     loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
     return loss + aux, (loss, aux)
 
@@ -341,19 +349,46 @@ def loss_and_grads(params, batch, cfg: ModelConfig, *, impl="auto", remat=True,
             tree_unflatten(params, grads))
 
 
+def compute_copy(params, dtype):
+    """The step's low-precision weight copy: every f32 leaf of two or more
+    dims cast to ``dtype``, the reference's rule. A slot stacks its layers
+    on a leading axis, so every slot leaf is cast (the MoE router, the
+    norms and Mamba's ``a_log``, ``dt_bias`` and ``d_skip`` too), as are
+    the embedding and the head; the final norm and the frontend's bias
+    stay f32."""
+    return tree_map(lambda a: a.to(dtype)
+                    if a.dtype == torch.float32 and a.dim() >= 2 else a, params)
+
+
 def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, compute_copy_dtype=None,
+                    param_shardings_tree=None):
     """The unpipelined train step ``(params, opt_state, batch) -> (params,
     opt_state, metrics)``: autograd of :func:`loss_fn`, then one optimizer
-    update. The parity reference of the pipelined step on the card. The
-    reference's mixed-precision weight copies under FSDP
-    (``compute_copy_dtype``, ``param_shardings_tree``) are not ported."""
+    update. The parity reference of the pipelined step on the card.
+
+    ``compute_copy_dtype`` (e.g. ``torch.bfloat16``): the matrix params
+    are cast to it once per step (:func:`compute_copy`), the gradient is
+    taken with respect to that copy and cast back to each master's dtype,
+    and the optimizer updates the f32 masters (classic mixed precision).
+    ``param_shardings_tree`` pins the copy to the masters' shardings in
+    the reference; meshes are not ported, so it raises."""
+    if param_shardings_tree is not None:
+        raise NotImplementedError(
+            "param_shardings_tree needs a device mesh, which is not ported; "
+            "the step runs in one process")
 
     def train_step(params, opt_state, batch):
+        src = (params if compute_copy_dtype is None
+               else compute_copy(params, compute_copy_dtype))
         (total, (loss, aux)), grads = loss_and_grads(
-            params, batch, cfg, impl=impl, remat=remat,
+            src, batch, cfg, impl=impl, remat=remat,
             compute_dtype=compute_dtype)
+        del src  # the copy is spent: free it before the optimizer's trees
+        if compute_copy_dtype is not None:
+            grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
         updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads
         params = apply_updates(params, updates)
         return params, opt_state, {"loss": loss, "aux": aux, "total": total}
 
@@ -362,8 +397,10 @@ def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
 
 def make_prefill_step(cfg: ModelConfig, *, impl="auto",
                       compute_dtype=torch.bfloat16):
-    """``prefill(params, tokens, caches) -> (last logits (B, V), caches)``:
-    a fresh-sequence pass (scalar cache index 0) through ``caches``."""
+    """``prefill(params, tokens, caches, frontend_feats=None) -> (last
+    logits (B, V), caches)``: a fresh-sequence pass (scalar cache index 0)
+    through ``caches``; frontend features, when given, are the prompt's
+    prefix and take the cache's first ``F`` entries."""
 
     def prefill(params, tokens, caches, frontend_feats=None):
         logits, new_caches, _ = forward(

@@ -19,7 +19,7 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class OptState(NamedTuple):
@@ -44,11 +44,17 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_scale(tree, max_norm: float):
+    """``(scale, norm)``: the factor that brings ``tree``'s global norm to
+    at most ``max_norm``, and that norm."""
+    norm = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """Scale ``tree`` so its global norm is at most ``max_norm``; returns
     ``(clipped, norm)``."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale, norm = _clip_scale(tree, max_norm)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
 
 
@@ -95,25 +101,32 @@ def adamw(
         )
 
     def update(grads, state: OptState, params=None):
-        if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        scale = None
+        if max_grad_norm is not None:  # clip_by_global_norm, leaf by leaf below
+            scale, _ = _clip_scale(grads, max_grad_norm)
         step = state.step + 1
         stepf = step.float()
         bc1 = 1 - b1 ** stepf
         bc2 = 1 - b2 ** stepf
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(m.dtype),
-                      state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(v.dtype)),
-                      state.nu, grads)
         lr_t = lr_fn(step)
 
-        def upd(m, v, p):
-            u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        def one(g, m, v, p):
+            # leaf by leaf, so that only one leaf's clipped gradient and
+            # temporaries exist at a time beside the new trees; the
+            # in-place steps round as b1*m + (1-b1)*g, b2*v + (1-b2)*g^2 and
+            # -(lr * (m/bc1) / (sqrt(v/bc2) + eps)) do
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            m = (b1 * m).add_((1 - b1) * g.to(m.dtype))
+            v = (b2 * v).add_(torch.square(g.to(v.dtype)).mul_(1 - b2))
+            u = (m / bc1).mul_(lr_t).div_(torch.sqrt(v / bc2).add_(eps)).neg_()
             if weight_decay:
                 u = u - lr_t * weight_decay * p.to(u.dtype)
-            return u.to(p.dtype)
+            return m, v, u.to(p.dtype)
 
-        updates = tree_map(upd, mu, nu, params)
+        out = [one(*xs) for xs in zip(tree_leaves(grads), tree_leaves(state.mu),
+                                      tree_leaves(state.nu), tree_leaves(params))]
+        mu, nu, updates = (tree_unflatten(grads, list(col)) for col in zip(*out))
         return updates, OptState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init=init, update=update)

@@ -92,8 +92,8 @@ def ppo_params_to_numpy(params: Any):
 def model_params_from_jax(np_tree: Any, device: DeviceLike = None):
     """JAX model params (``repro.models.init_params`` layout, numpy leaves)
     -> the port's params on ``device``: the same tree, leaf for leaf, for
-    every block kind (attention, Mamba, dense MLP, MoE) and each slot of
-    the period."""
+    every block kind (attention, Mamba, dense MLP, MoE), each slot of
+    the period and a modality frontend's projector."""
     dev = resolve_device(device)
     return tree_map(lambda x: _to_torch(x, dev), np_tree)
 

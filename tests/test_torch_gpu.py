@@ -891,3 +891,65 @@ def test_cached_forward_on_card_matches_cpu(arch):
     for a, b in zip(run("cuda"), run("cpu")):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-4 * max(float(b.abs().max()), 1e-6))
+
+
+@pytest.mark.gpu
+def test_mixed_pipeline_matches_unpipelined_on_card():
+    """Reduced Jamba as ``AMAM`` (attention + MoE, Mamba + MLP: period 2)
+    at the uneven split (1, 4), f32, on the card: the pipelined ``(loss,
+    grads)`` against the unpipelined ``loss_and_grads`` with the MoE
+    router's aux weighted 0 (the stage loss drops it): loss ``rtol 1e-5``,
+    each leaf's max|err| within ``1e-4`` of its max|ref| (the gates of
+    ``chip_smoke.py``'s pipelined f32 step); the gradients in the slots
+    layout."""
+    _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import PipelineConfig, pipeline_step_fn
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                              num_layers=4, block_pattern="AMAM")
+    no_aux = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_aux_weight=0.0))
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).cuda()
+             for k in ("tokens", "labels")}
+    loss, grads = pipeline_step_fn(cfg, (1, 4), 2, pipe=PipelineConfig(
+        compute_dtype="float32"))(params, batch["tokens"], batch["labels"])
+    (_, (ref_loss, _)), ref = M.loss_and_grads(params, batch, no_aux,
+                                               compute_dtype=torch.float32)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    assert [tuple(g.shape) for g in tree_leaves(grads)] == [
+        tuple(p.shape) for p in tree_leaves(params)]
+    for a, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert float((a - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.gpu
+def test_frontend_flash_matches_dense_on_card():
+    """Reduced Pixtral with image features prepended, bf16: the held-out
+    loss through the flash kernel (one launch per layer, at the joined
+    length) against ``impl="dense"``, within 2e-3 nats (dense rounds the
+    softmax weights to bf16, the kernel carries them as two bf16 terms)."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+
+    cfg = get_config("pixtral-12b").reduced()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    batch = synthetic_batch(cfg, 2, 64, seed=3, device="cuda")
+    before = FA.launches
+    with torch.no_grad():
+        _, (flash, _) = M.loss_fn(params, batch, cfg, impl="pallas")
+        _, (dense, _) = M.loss_fn(params, batch, cfg, impl="dense")
+    assert FA.launches == before + cfg.num_layers
+    assert np.isfinite(float(flash))
+    assert abs(float(flash) - float(dense)) <= 2e-3

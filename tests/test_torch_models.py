@@ -370,17 +370,20 @@ def test_bf16_loss_fn_matches_jax_default():
 def test_model_refuses_unported_blocks():
     """Every block kind is ported (attention, Mamba, dense MLP, MoE, and
     hybrid periods), and so are the caches of serving
-    (``tests/test_torch_cache.py``); what is not (modality frontends)
-    raises."""
+    (``tests/test_torch_cache.py``) and the modality frontends (held to
+    the reference in ``tests/test_torch_frontends.py``): the frontend
+    configs build, and their features are prepended."""
+    tok = torch.zeros((1, 4), dtype=torch.long)
     for arch in ("pixtral-12b", "musicgen-large"):
-        with pytest.raises(NotImplementedError):
-            TM.init_params(torch.Generator().manual_seed(0),
-                           TC.get_config(arch).reduced(), device="cpu")
+        fcfg = TC.get_config(arch).reduced()
+        fp = TM.init_params(torch.Generator().manual_seed(0), fcfg, device="cpu")
+        d_in = fp["frontend"]["proj"].shape[0]
+        with torch.no_grad():
+            logits, _, _ = TM.forward(fp, tok, fcfg,
+                                      frontend_feats=torch.zeros((1, 2, d_in)))
+        assert logits.shape == (1, 6, fcfg.vocab_size)
     cfg = TC.get_config("qwen2.5-3b").reduced()
     tp = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        TM.forward(tp, tok, cfg, frontend_feats=torch.zeros((1, 2, 8)))
     caches = TM.init_caches(cfg, 1, 8, dtype=torch.float32, device="cpu")
     logits, new, _ = TM.forward(tp, tok, cfg, caches=caches, cache_index=0,
                                 compute_dtype=torch.float32)

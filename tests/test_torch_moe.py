@@ -342,7 +342,9 @@ def test_pipelined_moe_step_matches_jax(schedule):
 def test_jamba_period_two_forward_matches_jax():
     """Jamba reduced: ``"AM"``, MoE on the attention block (every 2nd), a
     dense MLP after the Mamba block: two slots, logits and ``aux``, f32.
-    The pipeline refuses the period-2 config (the union layout)."""
+    The pipeline's 1F1B runs the period-2 config (held to the reference
+    in ``tests/test_torch_mixed_pipeline.py``); its fill-drain reference
+    refuses it, naming ``1f1b``."""
     cfg, tcfg, jp, tp = _model("jamba-v0.1-52b")
     assert len(tp["slots"]) == 2
     assert set(tp["slots"][0]) == {"norm1", "attn", "norm2", "moe"}
@@ -355,8 +357,10 @@ def test_jamba_period_two_forward_matches_jax():
                                     compute_dtype=torch.float32)
     _close(logits.numpy(), logits_ref)
     _close(float(aux), float(aux_ref))
-    with pytest.raises(NotImplementedError):
-        TPIPE.pipeline_step_fn(tcfg, (1, 2), 2)
+    assert callable(TPIPE.pipeline_step_fn(tcfg, (1, 2), 2))
+    with pytest.raises(ValueError, match="1f1b"):
+        TPIPE.pipeline_step_fn(tcfg, (1, 2), 2, pipe=TPIPE.PipelineConfig(
+            schedule="fill_drain"))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b",

@@ -187,7 +187,9 @@ print('WIRE_OK')
 
 def test_boundary_validation():
     """Malformed split plans are refused before they reach the executor;
-    what this slice does not run raises NotImplementedError."""
+    ``env_axis`` (not ported) raises NotImplementedError; mixed block
+    periods run through 1F1B and are refused by the fill-drain
+    reference."""
     for bad in [(), (2, 2, 4), (3, 2), (0, 2), (-1, 4)]:
         with pytest.raises(ValueError):
             TPIPE.stage_lengths(bad)
@@ -199,8 +201,10 @@ def test_boundary_validation():
         TPIPE.pipeline_loss_fn(tcfg, (2, 2, 4), 2)
     with pytest.raises(NotImplementedError):
         TPIPE.pipeline_step_fn(tcfg, (2, 4), 2, env_axis="env")
-    with pytest.raises(NotImplementedError):
-        TPIPE.pipeline_step_fn(TC.get_config("jamba-v0.1-52b").reduced(), (1, 2), 2)
+    jamba = TC.get_config("jamba-v0.1-52b").reduced()  # mixed periods run
+    assert callable(TPIPE.pipeline_step_fn(jamba, (1, 2), 2))  # (1F1B)
+    with pytest.raises(ValueError, match="1f1b"):  # the reference is period-1
+        TPIPE.pipeline_loss_fn(jamba, (1, 2), 2)
     with pytest.raises(ValueError):  # serving checks its plan too
         TPIPE.pipeline_serve_fns(tcfg, (1, 3))
     for bad in (dict(transport="async"), dict(schedule="gpipe"),

@@ -204,8 +204,8 @@ def test_moe_dropless_prefill_matches_jax_pipeline_serving(jax_serve):
 
 def test_pipeline_serving_refuses_what_it_does_not_run():
     """SSM and hybrid configs and capacity MoE are refused as the
-    reference refuses them; MoE every other layer (period 2) needs the
-    union layout, which is not ported."""
+    reference refuses them; MoE every other layer (period 2) is served
+    (held to the reference in ``tests/test_torch_mixed_pipeline.py``)."""
     base = TC.get_config("qwen3-moe-30b-a3b").reduced()
     with pytest.raises(ValueError, match="SSM/hybrid"):
         TPIPE.pipeline_serve_fns(TC.get_config("mamba2-370m").reduced(), (1, 2))
@@ -217,7 +217,7 @@ def test_pipeline_serving_refuses_what_it_does_not_run():
             base, moe=dataclasses.replace(base.moe, dispatch="capacity")), (1, 2))
     mixed = dataclasses.replace(base, num_layers=4, d_ff=96,
                                 moe=dataclasses.replace(base.moe, moe_every=2))
-    with pytest.raises(NotImplementedError, match="union layout"):
-        TPIPE.pipeline_serve_fns(mixed, (2, 4))
+    prefill, decode = TPIPE.pipeline_serve_fns(mixed, (2, 4))
+    assert callable(prefill) and callable(decode)
     with pytest.raises(ValueError):
         TPIPE.pipeline_serve_fns(base, (1, 3))  # last boundary != layers
