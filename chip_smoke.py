@@ -43,6 +43,9 @@ Phases (each raises on failure; any failure exits non-zero):
    SAC slice's agent over fig 5's q grid (``ca_attention`` launches 5 x 7,
    leak non-decreasing in q under shared draws, a batch-of-1 sweep equal
    to ``evaluate_sac``) and the fig 9 placement (7 launches at B = 1);
+   (T3) the same sweep under an ``EmpiricalLeakage`` trained on the card
+   (``train_empirical_model(steps=120)``; the env's reward table equal to
+   its ``layer_values``; 35 launches);
    the batched plan scorer over the full S = 4 enumerations of
    Qwen2.5-3B, Qwen3-MoE-30B-A3B, Mamba2-370m, Jamba-v0.1-52B and
    Nemotron-4-340B at seq 2048 (4 495 to 138 415 plans), state pricing
@@ -127,7 +130,22 @@ Phases (each raises on failure; any failure exits non-zero):
    teacher-forced forward. (S4) Qwen3-MoE-30B-A3B at published widths,
    depth 4, dropless, 8 slots: the engine against its reference in
    tokens and logits. The stage kernel at the decode (16 rows) and
-   prefill (2 048 rows) shapes and the scan at S3's shape are timed;
+   prefill (2 048 rows) shapes and the scan at S3's shape are timed.
+   (K1, after S2) S2's f32 pipelined engine on S1's trace under
+   ``reference_schedule`` (device 0 down for ticks [4, 9) of a 0.02 s
+   fault clock): every completion bitwise S1's, the outage seen;
+4i. the attacker population and chaos (before 4h): (T1) fig 10 at the
+   reference's probe (depth 8, cuts 1-7, q 0.3 / 0.8: 14 attackers, 600
+   steps) through ``figures.fig10_leakage_attack``: the MSE gate, the
+   torch ops a training step dispatches equal at populations 1 and 14
+   (CUDA kernels per step equal at 2 and 14), and the band: every (cut, q) mean score of 16 seeds held to the 32 JAX seeds of
+   ``tests/data/torch_attack_reference.json``, the 60-step population
+   outside; (T2) 46 attackers on StableLM-2-1.6B at published widths and
+   full depth (cuts 1-23 x 2 scenarios, d 2048, 600 steps): the MSE gate,
+   ops per step equal to T1's, peak memory, the live-activation
+   scorer against a loop of ``attack_scores``; (K2) ``python -m
+   repro_torch.launch.chaos --device cuda`` as a subprocess: SIGKILL after
+   the first checkpoint, resume, bit-identical to an uninterrupted run;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1581,6 +1599,303 @@ def phase_population_band(torch, card):
     if B.inside(ctrl):
         raise AssertionError("the negative control is inside the population band")
     return res
+
+
+# ---------------------------------------------------------------------------
+# 4i. the attacker population, EmpiricalLeakage and the chaos harness
+# ---------------------------------------------------------------------------
+
+# (T2) the attacker population at published widths: StableLM-2-1.6B at full
+# depth, one attacker per (cut 1..23, q), fig 10's two capture scenarios
+ATTACK_LM = "stablelm-1.6b"
+ATTACK_LM_STEPS = 600
+# scorer on live activations vs a per-attacker loop of attack_scores
+ATTACK_SCORER_ATOL = 1e-5
+# (K2) the chaos harness as a subprocess: tests/test_chaos.py's arguments
+CHAOS_ARGV = ["--device", "cuda", "--seeds", "0", "--episodes", "8", "--warmup",
+              "4", "--num-envs", "2", "--checkpoint-every", "2", "--kill-after", "2"]
+CHAOS_TIMEOUT_S = 300
+
+
+def attack_band_config():
+    """The configuration the attack band phase trains
+    (``fig10_leakage_attack.BAND``); ``tests/data/torch_attack_reference.json``
+    must hold it."""
+    from repro_torch.figures import fig10_leakage_attack as FIG10
+
+    return FIG10.BAND
+
+
+def _mse_falls(q):
+    """The reference's fig-10 gate on the training MSE's step quarters:
+    at least two quarter-on-quarter drops and the last below the first."""
+    return sum(b < a for a, b in zip(q, q[1:])) >= 2 and q[-1] < q[0]
+
+
+def _score_rows(tables, cuts, qs):
+    return [{f"cut{c}_q{q}": float(t[k][s]) for k, c in enumerate(cuts)
+             for s, q in enumerate(qs)} for t in tables]
+
+
+def phase_attack_band(torch, card):
+    """(T1) fig 10 at the reference's probe (depth 8, cuts 1-7, q 0.3 and
+    0.8: 14 attackers, 600 steps) through its driver: the MSE gate; the
+    torch ops a training step dispatches equal at populations 1 and 14;
+    CUDA kernels per step from ``torch.profiler`` at populations 1, 2 and
+    14, equal at 2 and 14 (at 1 cuBLAS takes its unbatched GEMMs); no
+    hand-written kernel launched. Then the band: every (cut, q) mean
+    held-out score of ``TORCH_SEEDS`` seeds (one stacked population of
+    16 x 14 attackers, each seed's draws its own) held to the JAX runs of
+    ``tests/data/torch_attack_reference.json`` by ``band.compare``, and the
+    same population at ``control_steps`` outside in at least one cell.
+    Returns (ops per step, CUDA kernels per step at 14)."""
+    import numpy as np
+
+    from repro_torch.attack import AttackConfig, tiny_attack_model_cfg
+    from repro_torch.attack.population import (count_ops_per_step,
+                                               profile_kernels_per_step)
+    from repro_torch.figures import band as B
+    from repro_torch.figures import fig10_leakage_attack as FIG10
+
+    cfg = attack_band_config()
+    ref = B.load_reference(ROOT / "tests" / "data" / "torch_attack_reference.json")
+    if ref["config"] != json.loads(json.dumps(cfg)):
+        raise AssertionError("torch_attack_reference.json was made at another "
+                             "configuration than fig10_leakage_attack.BAND")
+    mcfg = tiny_attack_model_cfg(depth=FIG10.DEPTH)
+    n = len(cfg["cuts"]) * len(cfg["qs"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    fig = FIG10.main(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the attacker population launched {counts}")
+    scores = np.asarray(fig["scores"])
+    if not (np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()):
+        raise AssertionError(f"fig 10 scores {scores.tolist()}")
+    q = fig["mse_quarters"]
+    if not _mse_falls(q):
+        raise AssertionError(f"fig 10: the high-capture MSE does not fall: {q}")
+    acfg = AttackConfig(d_data=mcfg.d_model, d_smash=mcfg.d_model)
+    ops1, ops_n = count_ops_per_step(acfg, 1), fig["ops_per_step"]
+    k1, k2, kn = (profile_kernels_per_step(acfg, 1), profile_kernels_per_step(acfg, 2),
+                  fig["kernels_per_step"])
+    if ops1 != ops_n or k2 != kn:
+        raise AssertionError(f"per step: ops {ops1} at population 1, {ops_n} at {n}; "
+                             f"CUDA kernels {k2} at 2, {kn} at {n}")
+    log(f"[attack T1] fig 10 (depth {FIG10.DEPTH}, d {mcfg.d_model}, {n} attackers x "
+        f"{fig['steps']} steps): pools {fig['pool_seconds']:.3f} s, training "
+        f"{fig['train_seconds']:.3f} s, {fig['attacker_steps_per_s']:.1f} "
+        f"attacker-steps/s; driver {secs:.1f} s; MSE quarters "
+        f"{[round(x, 4) for x in q]}; per training step: torch ops {ops1:.1f} at "
+        f"population 1 and {ops_n:.1f} at {n}; CUDA kernels {k1:.1f} at 1 (cuBLAS's "
+        f"unbatched GEMMs), {k2:.1f} at 2 and {kn:.1f} at {n}; hand-written kernels "
+        f"launched {counts} [{card}]")
+    log(f"[attack T1] scores (cut x q {cfg['qs']}): "
+        f"{[[round(x, 4) for x in row] for row in scores.tolist()]} [{card}]")
+
+    names = tuple(_score_rows([scores], cfg["cuts"], cfg["qs"])[0])
+    ref_rows = _score_rows([r["scores"] for r in ref["runs"]], cfg["cuts"], cfg["qs"])
+    seeds = cfg["seeds"][:FIG10.TORCH_SEEDS]
+    t0 = time.perf_counter()
+    rows = _score_rows(FIG10.band_scores(seeds, cfg["steps"], "cuda"),
+                       cfg["cuts"], cfg["qs"])
+    band_s = time.perf_counter() - t0
+    res = B.compare(ref_rows, rows, names)
+    t0 = time.perf_counter()
+    ctrl_rows = _score_rows(FIG10.band_scores(seeds, cfg["control_steps"], "cuda"),
+                            cfg["cuts"], cfg["qs"])
+    ctrl_s = time.perf_counter() - t0
+    ctrl = B.compare(ref_rows, ctrl_rows, names)
+    log(f"[attack band] {len(seeds)} torch seeds vs {len(ref_rows)} JAX seeds at "
+        f"{cfg['steps']} steps: {'inside' if B.inside(res) else 'OUTSIDE'}; " + "; ".join(
+            f"{m} torch {r['torch_mean']:.4f}+-{r['torch_std']:.4f} jax "
+            f"{r['jax_mean']:.4f}+-{r['jax_std']:.4f} |d| {r['distance']:.4f} margin "
+            f"{r['margin']:.4f}" for m, r in res.items())
+        + f"; {band_s:.1f} s [{card}]")
+    out = [m for m, r in ctrl.items() if not r["inside"]]
+    log(f"[attack band] control ({cfg['control_steps']} steps): outside in {len(out)} "
+        f"of {len(ctrl)} cells {out}; " + "; ".join(
+            f"{m} |d| {r['distance']:.4f} margin {r['margin']:.4f}"
+            for m, r in ctrl.items()) + f"; {ctrl_s:.1f} s [{card}]")
+    if not B.inside(res):
+        raise AssertionError("the attacker population is outside its band: "
+                             f"{[m for m, r in res.items() if not r['inside']]}")
+    if B.inside(ctrl):
+        raise AssertionError("the 60-step control is inside the attack band")
+    return ops1, kn
+
+
+def phase_attack_lm(torch, card, small):
+    """(T2) the attacker population at published widths: StableLM-2-1.6B
+    at full depth (24 layers, d 2048), one attacker per (cut 1..23, q 0.3
+    and 0.8), 46 attackers x 600 steps on 32 x 64 train and 8 x 64
+    held-out tokens. Gates: finite scores in [0, 1], the high-capture MSE
+    falls; the torch ops per step equal T1's (``small``: T1's ops and
+    CUDA kernels per step; the kernels are logged beside them, cuBLAS
+    choosing other GEMMs at d 2048); the trained high-capture column
+    scored through ``make_activation_scorer`` on the held-out activations
+    against a per-attacker loop of ``attack_scores``."""
+    import numpy as np
+
+    from repro_torch.attack import (AttackConfig, attack_scores, capture_weight,
+                                    make_activation_scorer,
+                                    train_attacker_population)
+    from repro_torch.attack.population import (count_ops_per_step,
+                                               profile_kernels_per_step)
+    from repro_torch.configs import get_config
+    from repro_torch.figures import fig10_leakage_attack as FIG10
+    from repro_torch.tree import tree_index, tree_map
+
+    mcfg = get_config(ATTACK_LM)
+    cuts = list(range(1, mcfg.num_layers))
+    qs = FIG10.QS
+    cw = [capture_weight(q) for q in qs]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = train_attacker_population(mcfg, cuts=cuts, capture_weights=cw,
+                                    steps=ATTACK_LM_STEPS, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the attacker population launched {counts}")
+    scores = res.scores
+    if not (np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()):
+        raise AssertionError(f"T2 scores {scores.tolist()}")
+    hi = int(np.argmax(cw))
+    q = res.recon_mse[:, hi, :].mean(axis=0).reshape(4, -1).mean(axis=1).tolist()
+    if not _mse_falls(q):
+        raise AssertionError(f"T2: the high-capture MSE does not fall: {q}")
+    acfg = AttackConfig(d_data=mcfg.d_model, d_smash=mcfg.d_model)
+    ops = count_ops_per_step(acfg, res.population)
+    kps = profile_kernels_per_step(acfg, res.population)
+    if ops != small[0]:
+        raise AssertionError(f"T2 ops per step {ops}, T1's {small[0]}")
+    col = tree_map(lambda a: a[hi::len(qs)], res.params)
+    z, x = res.held_out["z"], res.held_out["x"]
+    live = make_activation_scorer(col)({"z": z, "x": x.expand(len(cuts), *x.shape)})
+    with torch.no_grad():
+        loop = torch.stack([attack_scores(tree_index(col, k), z[k], x)[0]
+                            for k in range(len(cuts))])
+    err = float((live - loop).abs().max())
+    err_table = float(np.abs(live.cpu().numpy() - scores[:, hi]).max())
+    if err > ATTACK_SCORER_ATOL or err_table > ATTACK_SCORER_ATOL:
+        raise AssertionError(f"T2 scorer vs loop {err}, vs the table {err_table}")
+    log(f"[attack T2] {mcfg.name} at published widths, full depth ({mcfg.num_layers} "
+        f"layers, d {mcfg.d_model}): {res.population} attackers (cuts 1-{cuts[-1]} x q "
+        f"{list(qs)}) x {res.steps} steps; pools {res.pool_seconds:.3f} s, training "
+        f"{res.seconds:.3f} s, {res.population * res.steps / res.seconds:.1f} "
+        f"attacker-steps/s, whole call {total:.1f} s; per step torch ops {ops:.1f} "
+        f"(T1: {small[0]:.1f}), CUDA kernels {kps:.1f} (T1: {small[1]:.1f}); peak "
+        f"memory {peak / 2**30:.2f} GiB; MSE "
+        f"quarters {[round(x, 4) for x in q]} [{card}]")
+    log(f"[attack T2] scores (cut x q {list(qs)}): "
+        f"{[[round(x, 4) for x in row] for row in scores.tolist()]} [{card}]")
+    log(f"[attack T2] make_activation_scorer on the held-out activations (q "
+        f"{qs[hi]} column) vs a loop of attack_scores: max|diff| {err:.3e}, vs the "
+        f"trained table {err_table:.3e} (limit {ATTACK_SCORER_ATOL:g}) [{card}]")
+    del res, col, live, z, x
+    torch.cuda.empty_cache()
+    return kps
+
+
+def phase_empirical_env(torch, card, params, cfg):
+    """(T3) ``EmpiricalLeakage`` in the env: ``train_empirical_model(steps=
+    120)`` on the card, ``MHSLEnv(resnet101_profile(batch=1),
+    leakage_model=...)`` whose reward table must equal the model's
+    ``layer_values``, and fig 5's q sweep (``evaluate_population``) of the
+    SAC slice's agent under it, ``ca_attention`` launches counted.
+    Returns the launches."""
+    import numpy as np
+
+    from repro_torch.attack import train_empirical_model
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.agents import rollout as R
+    from repro_torch.core.env import MHSLEnv
+    from repro_torch.core.profiles import profile_table, resnet101_profile
+
+    t0 = time.perf_counter()
+    emp = train_empirical_model(steps=120, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    prof = resnet101_profile(batch=1)
+    env = MHSLEnv(profile=prof, leakage_model=emp)
+    want = emp.layer_values(profile_table(prof).leak_norm)
+    table = env._consts[2].cpu().numpy()
+    if not np.array_equal(table, want):
+        raise AssertionError("the env's reward table is not the model's layer_values")
+    scenarios = SC.stack_scenarios(SC.scenario_grid(env.scenario(),
+                                                    monitor_prob=list(POP_QS)))
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = SC.evaluate_population(env, R.sac_policy(env.action_dims, cfg), params,
+                                 scenarios, episodes=EVAL_EPISODES,
+                                 hist_len=cfg.hist_len)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    launches = counts.pop("ca_attention")
+    expect = len(POP_QS) * env.episode_len
+    if launches != expect or any(counts.values()):
+        raise AssertionError(f"the empirical q sweep launched ca_attention {launches} "
+                             f"(expected {expect}), others {counts}")
+    for k, v in out.items():
+        if v.shape != (len(POP_QS),) or not np.isfinite(v).all():
+            raise AssertionError(f"empirical q sweep {k}: {v}")
+    if not np.all(np.diff(out["leak"]) >= 0.0):
+        raise AssertionError(f"leak falls as q rises: {out['leak'].tolist()}")
+    log(f"[attack T3] train_empirical_model(steps=120): {fit_s:.1f} s; measured scores "
+        f"{[round(float(x), 4) for x in emp.scores]} at depths "
+        f"{[round(float(x), 3) for x in emp.depths]}; the env's table = layer_values "
+        f"({len(table)} layers); q sweep {list(POP_QS)}: leak "
+        f"{[round(float(x), 6) for x in out['leak']]}; ca_attention launches "
+        f"{launches} (expected {expect}); {secs:.3f} s [{card}]")
+    return launches
+
+
+def phase_chaos(torch, card):
+    """(K2) the kill-and-resume harness on the card as a subprocess:
+    ``python -m repro_torch.launch.chaos`` with ``CHAOS_ARGV``; exit 0 =
+    the resumed run bit-identical to the uninterrupted one. Returns the
+    ``ca_attention`` launches of the resumed child and of the reference
+    run."""
+    import os
+    import re
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC)] + [
+        p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.chaos"]
+                          + CHAOS_ARGV, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CHAOS_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[chaos]", "  ")):
+            log(f"[chaos K2] {line.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the chaos harness exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    killed = re.search(r"kill landed before the child finished: (\w+)", proc.stdout)
+    child = re.search(r"resumed child's kernel launches (\{.*\})", proc.stdout)
+    ref = re.search(r"reference kernel launches (\{.*\})", proc.stdout)
+    if not (killed and child and ref):
+        raise AssertionError(f"the chaos harness printed no launch counts:\n{proc.stdout}")
+    child, ref = json.loads(child.group(1)), json.loads(ref.group(1))
+    if not ref["ca_attention"] or any(v for k, v in ref.items() if k != "ca_attention"):
+        raise AssertionError(f"the chaos reference run launched {ref}")
+    log(f"[chaos K2] {' '.join(CHAOS_ARGV)}: exit 0 (resumed run bit-identical); "
+        f"{secs:.1f} s wall; kill landed before the child finished: "
+        f"{killed.group(1)}; ca_attention launches: resumed child "
+        f"{child['ca_attention']}, uninterrupted reference {ref['ca_attention']} "
+        f"[{card}]")
+    return child["ca_attention"] + ref["ca_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -3508,6 +3823,7 @@ def _serve_s2(torch, card, out, cfg, mcfg, params, trace, res, plan_full):
         f"{res_p['tokens_per_sec']:.1f} tokens/s, p50 {res_p['p50_latency_s']:.3f} s, "
         f"p99 {res_p['p99_latency_s']:.3f} s [{card}]")
     del svc
+    _serve_faulted(torch, card, out, cfg, params, trace, res, res_p, bounds)
 
     pr16 = PipelineRunner(mcfg, bounds, pipe=PipelineConfig(
         stage_impl="pallas", compute_dtype="bfloat16", wire_dtype="bfloat16"),
@@ -3800,6 +4116,52 @@ def _serve_s4(torch, card, out):
         f"[{card}]")
 
 
+SERVE_FAULT_TICK_S = 0.02
+
+
+def _serve_faulted(torch, card, out, cfg, params, trace, res, res_p, bounds):
+    """(K1) S2's f32 pipelined engine on S1's trace under the reference
+    fault schedule (device 0 down for ticks [4, 9) of a 0.02 s fault
+    clock, every hop at 80% bandwidth): every request completes, each
+    completion bitwise S1's, at least one fault event."""
+    import numpy as np
+
+    from repro_torch.core.faults import reference_schedule
+    from repro_torch.serving import ServingService
+
+    fcfg = dataclasses.replace(cfg, boundaries=bounds,
+                               fault_tick_s=SERVE_FAULT_TICK_S)
+    svc = ServingService(fcfg, params, device=SERVE_DEVICE)
+    sched = reference_schedule(max(len(bounds), 4), len(bounds) - 1,
+                               tick_seconds=SERVE_FAULT_TICK_S)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = svc.run(list(trace), faults=sched)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the faulted f32 pipelined engine launched {counts}")
+    if got["num_requests"] != len(trace) or got["fault_events"] < 1:
+        raise AssertionError(f"K1: {got['num_requests']} of {len(trace)} requests, "
+                             f"{got['fault_events']} fault events")
+    for r in trace:
+        if not np.array_equal(got["completions"][r.rid], res["completions"][r.rid]):
+            raise AssertionError(f"K1: faulted request {r.rid} differs from S1")
+    log(f"[serve K1] f32 pipelined engine ({len(bounds)} stages) under "
+        f"reference_schedule({sched.num_devices}, {sched.num_hops}) at "
+        f"{SERVE_FAULT_TICK_S} s a tick (device 0 down for ticks [4, 9)): "
+        f"{got['num_requests']} of {len(trace)} completions, every one bitwise S1's; "
+        f"fault events {got['fault_events']}, retries {got['retries']}, evictions "
+        f"{got['evictions']}, recovery ticks {got['recovery_ticks']}, expired "
+        f"{got['expired']}; {got['ticks']} ticks, {got['wall_seconds']:.3f} s, "
+        f"{got['tokens_per_sec']:.1f} tokens/s (fault-free S2 in this call: "
+        f"{res_p['ticks']} ticks, {res_p['wall_seconds']:.3f} s, "
+        f"{res_p['tokens_per_sec']:.1f} tokens/s); {secs:.1f} s [{card}]")
+    out["k1"] = got
+    del svc
+
+
 def phase_serving(torch, card, plan_full):
     """4h. serving: (S1) Qwen2.5-3B at full depth on the engine, (S2) on
     the pipelined runner, (S3) Mamba2-370m's cached decode, (S4)
@@ -3847,6 +4209,7 @@ def main() -> int:
     phase_trace(torch, card, env, cfg, params)
     select_launches, select_err = phase_select_action(torch, card, env, cfg, params)
     pop_launches, fig9_launches, _ = phase_population(torch, card, env, cfg, params)
+    emp_launches = phase_empirical_env(torch, card, params, cfg)
     del env, cfg, params
     plan = phase_plan(torch, card)
     u22_launches = phase_sac_u22(torch, card)
@@ -3870,6 +4233,10 @@ def main() -> int:
     resume = phase_resume(torch, card)
     phase_population_band(torch, card)
     torch.cuda.empty_cache()
+    attack_small = phase_attack_band(torch, card)
+    phase_attack_lm(torch, card, attack_small)
+    chaos_launches = phase_chaos(torch, card)
+    torch.cuda.empty_cache()
     serve = phase_serving(torch, card, plan_full)
     torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
@@ -3880,7 +4247,9 @@ def main() -> int:
         f"select_action rollout ca_attention {select_launches} (B = 1, max|err| "
         f"{select_err:.3e}); q sweep ca_attention {pop_launches}; fig 9 placement "
         f"ca_attention {fig9_launches} (B = 1); U 22 SAC ca_attention "
-        f"{u22_launches}; sequential SAC "
+        f"{u22_launches}; q sweep under EmpiricalLeakage ca_attention "
+        f"{emp_launches}; chaos (resumed child + reference) ca_attention "
+        f"{chaos_launches}; sequential SAC "
         f"ca_attention {seq_launches}; fig 8 population (2 chunks) ca_attention "
         f"{pop_train_launches}; split "
         f"(Qwen2.5-3B) {split_launches}; (A) Mamba2-370m {mamba_launches}; "
@@ -3909,7 +4278,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ca_attention.cu",
         "replaces": "src/repro/kernels/ca_attention.py:41",
-        "launches": launches,
+        "launches": launches + emp_launches + chaos_launches,
         "max_abs_err": worst,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

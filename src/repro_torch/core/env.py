@@ -93,8 +93,8 @@ class MHSLEnv:
     know_eave_locations: bool = True
     leak_scale: float = 1.0
     # LeakageModel pricing the per-hop information values and the
-    # Monte-Carlo draw of step(); None = the paper's AnalyticLeakage. The
-    # attacker-measured EmpiricalLeakage comes with the attack slice.
+    # Monte-Carlo draw of step(); None = the paper's AnalyticLeakage, an
+    # EmpiricalLeakage prices hops with attacker-measured values.
     leakage_model: Optional[LeakageModel] = None
     device: DeviceLike = field(default=None, compare=False)
 

@@ -14,13 +14,18 @@ Every function broadcasts over leading batch axes (hops, or the env
 population). ``jax.random`` streams cannot be reproduced in torch, so
 the Monte-Carlo draw takes its uniforms as an argument
 (:class:`LeakDraws`, where the reference takes a key);
-:func:`draw_leakage` makes them from a ``torch.Generator``. The
-learned-attacker ``EmpiricalLeakage`` waits for the attack slice.
+:func:`draw_leakage` makes them from a ``torch.Generator``.
+
+Two models share the protocol: :class:`AnalyticLeakage`, the paper's,
+whose per-layer information value comes from the profile's assumed
+``leak_norm`` table, and :class:`EmpiricalLeakage`, the same wireless
+physics with the per-layer value measured by a trained reconstruction
+adversary (``repro_torch.attack``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Protocol, Tuple, runtime_checkable
+from typing import Callable, NamedTuple, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -144,6 +149,18 @@ class AnalyticLeakage:
         hits = (captured & monitored).sum(-1)
         return hits * delta
 
+    def _hop_values(self, plan: HopGeometry, activations) -> Tensor:
+        """Per-hop information values (H,) before the ``leak_scale``
+        factor: the value table at each hop's boundary layer."""
+        if self.value_table is None:
+            raise ValueError("evaluate() needs a per-layer value table - "
+                             "construct the model via "
+                             "AnalyticLeakage.for_profile(profile) (or "
+                             "EmpiricalLeakage.from_scores)")
+        table = torch.as_tensor(self.value_table, dtype=torch.float32,
+                                device=plan.p_tx.device)
+        return table[plan.boundary_layer]
+
     def evaluate(self, scenario, plan: HopGeometry,
                  draws: Optional[LeakDraws] = None,
                  activations=None) -> Tensor:
@@ -151,14 +168,8 @@ class AnalyticLeakage:
         expectation, or one Monte-Carlo draw per hop when ``draws``
         (leading axis H) is given. ``activations`` is ignored by the
         analytic model."""
-        if self.value_table is None:
-            raise ValueError("evaluate() needs a per-layer value table - "
-                             "construct the model via "
-                             "AnalyticLeakage.for_profile(profile)")
-        table = torch.as_tensor(self.value_table, dtype=torch.float32,
-                                device=plan.p_tx.device)
         q_e = scenario.monitor_prob * scenario.eave_mask
-        delta = table[plan.boundary_layer] * scenario.leak_scale
+        delta = self._hop_values(plan, activations) * scenario.leak_scale
         o = scenario.rayleigh_o
         if draws is None:
             return self.expected_leakage(plan.p_tx, plan.dist_tx_e,
@@ -167,6 +178,57 @@ class AnalyticLeakage:
         return self.sample_leakage(draws, plan.p_tx, plan.dist_tx_e,
                                    plan.decoy_p, plan.decoy_dist_e, q_e,
                                    delta, o)
+
+
+@dataclass(frozen=True, eq=False)
+class EmpiricalLeakage(AnalyticLeakage):
+    """Attacker-measured leakage: the paper's physics, learned values.
+
+    ``depths``/``scores`` hold the trained reconstruction adversary's
+    attack accuracy (variance explained, in [0, 1]) at normalised cut
+    depths; :meth:`layer_values` interpolates them onto any profile's
+    layer axis, so a model measured on a depth-8 transformer prices a
+    35-layer ResNet profile's cuts by relative depth. When ``score_fn``
+    is set (``repro_torch.attack.make_activation_scorer``) and
+    :meth:`evaluate` receives live smashed activations, the hop values
+    come from scoring those activations with the trained decoders instead
+    of the interpolated table.
+    """
+
+    depths: Optional[np.ndarray] = None  # (K,) normalised cut depths in (0, 1)
+    scores: Optional[np.ndarray] = None  # (K,) measured attack accuracy
+    score_fn: Optional[Callable] = None  # activations dict -> (H,) scores
+
+    @classmethod
+    def from_scores(cls, cuts, scores, num_layers_measured: int,
+                    num_layers: Optional[int] = None,
+                    score_fn: Optional[Callable] = None) -> "EmpiricalLeakage":
+        """From per-cut attack accuracies measured on a
+        ``num_layers_measured``-layer model; ``num_layers`` sizes the
+        ``value_table`` :meth:`evaluate` prices with (the measured depth
+        by default)."""
+        depths = np.asarray(cuts, np.float64) / float(num_layers_measured)
+        scores = np.asarray(scores, np.float64)
+        order = np.argsort(depths)
+        depths, scores = depths[order], scores[order]
+        ell = num_layers_measured if num_layers is None else num_layers
+        table = np.interp((np.arange(ell) + 1.0) / ell, depths, scores)
+        return cls(value_table=table.astype(np.float32), depths=depths,
+                   scores=scores, score_fn=score_fn)
+
+    def layer_values(self, leak_norm: np.ndarray) -> np.ndarray:
+        if self.depths is None or self.scores is None:
+            raise ValueError("EmpiricalLeakage needs measured depths/scores "
+                             "- build it via from_scores()")
+        ell = len(leak_norm)
+        vals = np.interp((np.arange(ell) + 1.0) / ell, self.depths, self.scores)
+        return vals.astype(np.float32)
+
+    def _hop_values(self, plan: HopGeometry, activations) -> Tensor:
+        if activations is not None and self.score_fn is not None:
+            return torch.as_tensor(self.score_fn(activations),
+                                   dtype=torch.float32, device=plan.p_tx.device)
+        return super()._hop_values(plan, activations)
 
 
 _ANALYTIC = AnalyticLeakage()

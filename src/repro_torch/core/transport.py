@@ -16,8 +16,10 @@ Two transports of the 1F1B schedule are modelled:
 
 At M = 1 the synchronous wall-time model equals ``plan_cost``'s Eq. 10
 delay: the same per-stage and per-hop terms, with nothing to overlap.
-The fault-aware halves (``faulted_transport_model``,
-``simulate_1f1b_faulted``) come with the faults slice.
+Under a :class:`repro_torch.core.faults.FaultSchedule`,
+:func:`faulted_transport_model` prices degraded links and stragglers and
+:func:`simulate_1f1b_faulted` stalls ticks through outages; a fault-free
+schedule reproduces the plain model and simulator exactly.
 """
 from __future__ import annotations
 
@@ -71,6 +73,33 @@ def plan_transport_model(profile: LayerProfile, plan: SplitPlan,
         t_tx_fwd=parts["t_hop_fwd"] - lat,
         t_tx_bwd=parts["t_hop_bwd"] - lat,
         hop_latency=lat,
+    )
+
+
+def faulted_transport_model(profile: LayerProfile, plan: SplitPlan,
+                            positions: np.ndarray, p_tx: np.ndarray,
+                            decoy_power: np.ndarray, sp,
+                            schedule) -> TransportModel:
+    """Transport model under a fault schedule.
+
+    Link degradation folds through ``faults.degrade_scenario`` before the
+    plan-cost breakdown: the same degraded ``ScenarioParams`` that
+    ``plan_cost`` and the scorer price, so at M = 1 sync the executor's
+    delay under partial outage equals Eq. 10's. Per-device straggler
+    factors then scale each stage's compute terms through the plan's
+    device assignment. A ``fault_free`` schedule is a bit-exact no-op."""
+    from repro_torch.core.faults import degrade_scenario
+
+    model = plan_transport_model(profile, plan, positions, p_tx, decoy_power,
+                                 degrade_scenario(sp, schedule))
+    slow = schedule.compute_slowdown.cpu().numpy().astype(np.float64)
+    devs = np.asarray(plan.devices, np.int64)
+    return TransportModel(
+        t_comp_fwd=model.t_comp_fwd * slow[devs],
+        t_comp_bwd=model.t_comp_bwd * slow[devs],
+        t_tx_fwd=model.t_tx_fwd,
+        t_tx_bwd=model.t_tx_bwd,
+        hop_latency=model.hop_latency,
     )
 
 
@@ -144,3 +173,34 @@ def simulate_1f1b(model: TransportModel, m: int, *,
         "per_tick_s": per_tick,
         "bubble_fraction": 1.0 - active_slots / (2.0 * s * n_ticks),
     }
+
+
+def simulate_1f1b_faulted(model: TransportModel, m: int, schedule, devices, *,
+                          transport: str = "overlap",
+                          t_start: float = 0.0) -> dict:
+    """:func:`simulate_1f1b` under outage windows.
+
+    ``devices`` is the plan's stage -> device assignment; a tick whose
+    start time falls inside an assigned device's outage window stalls
+    until the last such device recovers (the executor retries the hop
+    until its peer is back), then pays its normal cost. Per-tick costs
+    should come from :func:`faulted_transport_model`, so link degradation
+    and stragglers are already priced in. Returns the
+    :func:`simulate_1f1b` dict plus ``stall_s`` / ``per_tick_stall_s``; a
+    ``fault_free`` schedule reproduces :func:`simulate_1f1b` exactly."""
+    from repro_torch.core import faults as F
+
+    base = simulate_1f1b(model, m, transport=transport)
+    per_tick = np.asarray(base["per_tick_s"], np.float64)
+    host = schedule.to("cpu")
+    devs = np.asarray(devices, np.int64)
+    stalls = np.zeros_like(per_tick)
+    t = float(t_start)
+    for i, cost in enumerate(per_tick):
+        stalls[i] = float(F.outage_stall(host, t, devs))
+        t += stalls[i] + float(cost)
+    out = dict(base)
+    out["per_tick_stall_s"] = stalls
+    out["stall_s"] = float(stalls.sum())
+    out["total_s"] = float(per_tick.sum() + stalls.sum())
+    return out

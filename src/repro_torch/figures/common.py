@@ -60,9 +60,28 @@ def episodes_to_reach(rewards, threshold: float) -> int:
     return int(idx)
 
 
-def resnet_env(device: DeviceLike = None) -> MHSLEnv:
-    """The figures' env: MHSL on the ResNet-101 profile at batch 1."""
-    return MHSLEnv(profile=resnet101_profile(batch=1), device=device)
+def resnet_env(device: DeviceLike = None, leakage=None) -> MHSLEnv:
+    """The figures' env: MHSL on the ResNet-101 profile at batch 1, priced
+    by ``leakage`` (a LeakageModel; None: the analytic one)."""
+    return MHSLEnv(profile=resnet101_profile(batch=1), leakage_model=leakage,
+                   device=device)
+
+
+def leakage_model(kind: str, seed: int = 0, smoke: bool = False,
+                  device: DeviceLike = None):
+    """The LeakageModel a figure prices hops with (``benchmarks/common.py``
+    ``BenchConfig.leakage_model``): None for ``"analytic"`` (the env's
+    built-in ``AnalyticLeakage``), or for ``"empirical"`` an
+    ``EmpiricalLeakage`` measured by an attacker population trained on
+    ``device`` (120 steps with ``smoke``, else 400)."""
+    if kind == "analytic":
+        return None
+    if kind != "empirical":
+        raise ValueError(f"unknown leakage model {kind!r}")
+    from repro_torch.attack import train_empirical_model
+
+    return train_empirical_model(seed=seed, steps=120 if smoke else 400,
+                                 device=device)
 
 
 def ckpt(checkpoint_dir, name: str):

@@ -6,7 +6,10 @@ ICM-CA, plain SAC and PPO are trained at q = 0.8 (Table I) and evaluated
 across q in {0.3 .. 0.9}: the five points are one stacked
 ``ScenarioParams`` batch through ``evaluate_population``, every point
 replaying the same episode draws. The paper claims ICM-CA leaks ~13% less
-than SAC and ~22% less than PPO. Run on the card::
+than SAC and ~22% less than PPO. ``--leakage empirical`` prices hops with
+per-layer values measured by a trained attacker population
+(``figures.common.leakage_model``; ``smoke``: its 120-step version) in
+place of the analytic table. Run on the card::
 
     PYTHONPATH=src python -m repro_torch.figures.fig5_monitoring --num-envs 16
 """
@@ -23,7 +26,7 @@ from repro_torch.core.scenario import (
 )
 from repro_torch.figures.common import (
     EPISODES, WARMUP, add_checkpoint_args, ckpt_kwargs, device_name,
-    emit_csv_row, resnet_env, save_json, train_standard_agents,
+    emit_csv_row, leakage_model, resnet_env, save_json, train_standard_agents,
 )
 
 QS = [0.3, 0.45, 0.6, 0.75, 0.9]
@@ -33,12 +36,9 @@ EVAL_EPISODES = 15  # the reference's quick evaluation
 def main(num_envs: int = 1, seed: int = 0, device=None,
          episodes: int = EPISODES, warmup: int = WARMUP,
          eval_episodes: int = EVAL_EPISODES, leakage: str = "analytic",
-         checkpoint_dir=None, checkpoint_every: int = 0, resume: bool = True):
-    if leakage != "analytic":
-        raise NotImplementedError(
-            f"--leakage {leakage}: the attacker-measured EmpiricalLeakage "
-            "comes with the attack slice; only 'analytic' runs on the port")
-    env = resnet_env(device)
+         smoke: bool = False, checkpoint_dir=None, checkpoint_every: int = 0,
+         resume: bool = True):
+    env = resnet_env(device, leakage_model(leakage, seed, smoke, device))
     adims = env.action_dims
     agents = train_standard_agents(env, seed, episodes=episodes, warmup=warmup,
                                    algos=("icm_ca", "sac", "ppo"),
@@ -84,6 +84,8 @@ if __name__ == "__main__":
     ap.add_argument("--num-envs", type=int, default=1)
     ap.add_argument("--leakage", default="analytic",
                     choices=("analytic", "empirical"))
+    ap.add_argument("--smoke", action="store_true",
+                    help="the empirical model's 120-step training")
     add_checkpoint_args(ap)
     a = ap.parse_args()
-    main(a.num_envs, leakage=a.leakage, **ckpt_kwargs(a))
+    main(a.num_envs, leakage=a.leakage, smoke=a.smoke, **ckpt_kwargs(a))

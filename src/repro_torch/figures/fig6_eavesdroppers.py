@@ -8,7 +8,8 @@ E_max = 4, whose ``eave_mask`` activates 1..4 eavesdroppers
 for every point (obs 30, pair 54). ICM-CA and SAC without ICM or CA each
 train as a four-scenario population in lockstep (``train_population``);
 PPO has no population trainer and trains per point on the point's
-scenario. Run on the card::
+scenario. ``--leakage empirical`` prices hops with attacker-measured
+per-layer values (``figures.common.leakage_model``). Run on the card::
 
     PYTHONPATH=src python -m repro_torch.figures.fig6_eavesdroppers --num-envs 16
 """
@@ -26,7 +27,7 @@ from repro_torch.core.profiles import resnet101_profile
 from repro_torch.core.scenario import scenario_grid, stack_scenarios, train_population
 from repro_torch.figures.common import (
     EPISODES, WARMUP, add_checkpoint_args, ckpt, ckpt_kwargs, device_name,
-    emit_csv_row, save_json, train_standard_agents,
+    emit_csv_row, leakage_model, save_json, train_standard_agents,
 )
 
 ES = [1, 2, 3, 4]
@@ -35,14 +36,12 @@ E_MAX = 4
 
 def main(num_envs: int = 1, seed: int = 0, device=None,
          episodes: int = max(EPISODES // 2, 40), warmup: int = WARMUP,
-         leakage: str = "analytic", checkpoint_dir=None,
+         leakage: str = "analytic", smoke: bool = False, checkpoint_dir=None,
          checkpoint_every: int = 0, resume: bool = True):
-    if leakage != "analytic":
-        raise NotImplementedError(
-            f"--leakage {leakage}: the attacker-measured EmpiricalLeakage "
-            "comes with the attack slice; only 'analytic' runs on the port")
     env = MHSLEnv(profile=resnet101_profile(batch=1),
-                  net=replace(NetworkConfig(), num_eaves=E_MAX), device=device)
+                  net=replace(NetworkConfig(), num_eaves=E_MAX),
+                  leakage_model=leakage_model(leakage, seed, smoke, device),
+                  device=device)
     scens = scenario_grid(env.scenario(), active_eaves=ES)
     stacked = stack_scenarios(scens)
 
@@ -91,6 +90,8 @@ if __name__ == "__main__":
     ap.add_argument("--num-envs", type=int, default=1)
     ap.add_argument("--leakage", default="analytic",
                     choices=("analytic", "empirical"))
+    ap.add_argument("--smoke", action="store_true",
+                    help="the empirical model's 120-step training")
     add_checkpoint_args(ap)
     a = ap.parse_args()
-    main(a.num_envs, leakage=a.leakage, **ckpt_kwargs(a))
+    main(a.num_envs, leakage=a.leakage, smoke=a.smoke, **ckpt_kwargs(a))

@@ -32,7 +32,8 @@ class Request:
     arrival_time: float = 0.0     # seconds from trace start
     # absolute trace-time completion deadline; inf = none. A request
     # still QUEUED past its deadline is dropped (reported under
-    # ``expired``) instead of admitted.
+    # ``expired``) instead of admitted; under faults an evicted request
+    # re-enters the queue and can expire there too.
     deadline: float = float("inf")
 
     @property
@@ -73,6 +74,12 @@ class RequestQueue:
         validates before it pops, so a rejection never loses requests)."""
         k = max(min(int(k), len(self._ready)), 0)
         return [self._ready[i] for i in range(k)]
+
+    def requeue_front(self, reqs: List[Request]) -> None:
+        """Put evicted in-flight requests back at the HEAD of the queue (in
+        the given order), so recovery re-admits them before newer
+        arrivals."""
+        self._ready.extendleft(reversed(reqs))
 
     def drop_expired(self, now: float) -> List[Request]:
         """Remove (and return) ready requests past their deadline."""
@@ -177,6 +184,10 @@ class ServingService:
         self.state = init_engine_state(
             self.runner, cfg.num_slots, cfg.prompt_pad, cfg.max_new)
         self.replanner = None  # attach via attach_replanner()
+        # the devices the serving pipeline occupies, as FaultSchedule rows:
+        # one per stage for split serving, device 0 alone
+        self.stage_devices = (tuple(range(len(cfg.boundaries)))
+                              if cfg.boundaries else (0,))
 
     def attach_replanner(self, replanner) -> None:
         self.replanner = replanner
@@ -189,12 +200,23 @@ class ServingService:
         virtual clock that only moves forward when the engine would
         otherwise idle: arrivals still gate admission ORDER, but the
         engine never sleeps. ``realtime=True`` sleeps until the next
-        arrival. ``faults`` (a fault schedule) is not ported yet and
-        raises."""
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection in the serving loop comes with the faults "
-                "slice (FaultSchedule, degrade_scenario)")
+        arrival.
+
+        ``faults`` is an optional :class:`repro_torch.core.faults.
+        FaultSchedule` covering the service's ``stage_devices``. A tick
+        whose fault-clock time (``cfg.fault_tick_s > 0``: ``tick *
+        fault_tick_s``; else the virtual arrival clock) lands inside an
+        assigned device's outage window is a failed tick: the engine is
+        not called, the service retries with bounded exponential backoff
+        (``cfg.max_retries`` / ``cfg.retry_backoff_s``), and if the device
+        is still down it evicts every in-flight slot (``evict_slots``),
+        requeues those requests at the head of the queue, re-plans around
+        the dead devices (``replan(exclude_devices=...)``) and jumps the
+        clock to the outage's end. Sampling is keyed by request id, so
+        every request completes with the tokens of a fault-free run."""
+        from repro_torch.core.faults import FaultClock
+        from repro_torch.serving.engine import evict_slots
+
         trace = list(trace)
         if self.cfg.deadline_s > 0:
             trace = [dataclasses.replace(
@@ -203,15 +225,35 @@ class ServingService:
                 for r in trace]
         queue = RequestQueue(trace)
         sched = SlotScheduler(self.cfg.arrival_slots, self.cfg.prompt_pad)
+        clock = FaultClock(self.cfg.fault_tick_s)
+        if faults is not None:
+            # host-side numpy mirrors of faults.device_up / next_recovery
+            # (the same half-open window arithmetic in f32), read once
+            f_start = faults.outage_start.cpu().numpy()
+            f_end = faults.outage_end.cpu().numpy()
+            f_stage = np.asarray(self.stage_devices, np.int64)
+
+            def _f_up(t):
+                t = np.float32(t)
+                return ~(((t >= f_start) & (t < f_end)).any(axis=-1))
+
+            def _f_recovery(t):
+                t = np.float32(t)
+                cov = (t >= f_start[f_stage]) & (t < f_end[f_stage])
+                if not cov.any():
+                    return float(t)
+                return float(max(t, np.where(cov, f_end[f_stage], -np.inf).max()))
         admit_t: Dict[int, float] = {}
         arrive_t = {r.rid: r.arrival_time for r in trace}
         completions: List[Completion] = []
         seen_done = set()
+        inflight: Dict[int, Request] = {}
         expired: List[Request] = []
         t0 = time.perf_counter()
         free = self.cfg.num_slots
         active_rids: set = set()
         replans = []
+        fault_events = retries = evictions = recovery_ticks = 0
         tick = 0
         while tick < max_ticks:
             now = time.perf_counter() - t0
@@ -231,10 +273,57 @@ class ServingService:
                 if queue.pending == 0 and not active_rids:
                     tick += 1
                     continue
+            if faults is not None:
+                t_f = clock.time_of(tick, time.perf_counter() - t0)
+                up = _f_up(t_f)
+                down = [d for d in self.stage_devices if not up[d]]
+                if down:
+                    fault_events += 1
+                    # bounded exponential backoff before giving up
+                    t_probe, backoff = t_f, self.cfg.retry_backoff_s
+                    recovered = False
+                    for _ in range(max(self.cfg.max_retries, 0)):
+                        retries += 1
+                        t_probe += backoff
+                        backoff *= 2.0
+                        probe_up = _f_up(t_probe)
+                        if all(probe_up[d] for d in self.stage_devices):
+                            recovered = True
+                            break
+                    if not recovered:
+                        # give up on this outage: free every in-flight slot
+                        # (the pipeline spans all stage devices), requeue
+                        # its requests at the head, re-plan around the dead
+                        # devices
+                        victims = sorted(
+                            (inflight[r] for r in active_rids if r in inflight),
+                            key=lambda r: (r.arrival_time, r.rid))
+                        if victims:
+                            evictions += len(victims)
+                            queue.requeue_front(victims)
+                            self.state = evict_slots(self.state, self.state.active)
+                            active_rids = set()
+                            free = self.cfg.num_slots
+                        if self.replanner is not None:
+                            replans.append(self.replanner.replan(
+                                load=0.0, exclude_devices=down))
+                        t_probe = _f_recovery(t_probe)
+                    # stall to the recovery point: charge it to the clock
+                    # and move the fault clock past it
+                    stall = max(t_probe - t_f, 0.0)
+                    if realtime:
+                        time.sleep(stall)
+                    else:
+                        t0 -= stall
+                    skipped = clock.ticks_until(t_f, t_probe)
+                    recovery_ticks += skipped
+                    tick += skipped
+                    continue
             reqs, ap, al, ag, ar, n_arr = sched.pack(queue, free)
             now = time.perf_counter() - t0
             for r in reqs:
                 admit_t[r.rid] = now
+                inflight[r.rid] = r
             self.state, report = self.step(self.params, self.state, ap, al,
                                            ag, ar, n_arr, free_slots=free)
             rep = torch.stack([report["active"].to(torch.long),
@@ -250,6 +339,7 @@ class ServingService:
                 for s in done_slots:
                     rid = int(rids[s])
                     seen_done.add(rid)
+                    inflight.pop(rid, None)
                     completions.append(Completion(
                         rid=rid, tokens=buf[s, :ngen[s]].astype(np.int32),
                         arrival_time=arrive_t[rid],
@@ -261,10 +351,15 @@ class ServingService:
                 replans.append(self.replanner.replan(load=occupancy))
             tick += 1
         wall = time.perf_counter() - t0
-        return self._metrics(completions, wall, tick, replans, expired=expired)
+        return self._metrics(completions, wall, tick, replans,
+                             expired=expired, fault_events=fault_events,
+                             retries=retries, evictions=evictions,
+                             recovery_ticks=recovery_ticks)
 
     def _metrics(self, completions: List[Completion], wall: float,
-                 ticks: int, replans, *, expired=()) -> Dict:
+                 ticks: int, replans, *, expired=(), fault_events: int = 0,
+                 retries: int = 0, evictions: int = 0,
+                 recovery_ticks: int = 0) -> Dict:
         lats = sorted(c.latency for c in completions)
         total_tokens = int(sum(len(c.tokens) for c in completions))
         busy = float(self.state.busy_steps)
@@ -287,11 +382,11 @@ class ServingService:
             if steps else 0.0,
             "replans": replans,
             "expired": sorted(r.rid for r in expired),
-            # fault accounting: zero until the faults slice is ported
-            "fault_events": 0,
-            "retries": 0,
-            "evictions": 0,
-            "recovery_ticks": 0,
+            # failure accounting (all zero on fault-free runs)
+            "fault_events": fault_events,
+            "retries": retries,
+            "evictions": evictions,
+            "recovery_ticks": recovery_ticks,
         }
 
 

@@ -151,3 +151,45 @@ def population_opt_state_to_numpy(opt_state: Any):
     return tree_map(lambda *xs: np.stack(xs),
                     *[sac_opt_state_to_numpy(tree_index(opt_state, s))
                       for s in range(n)])
+
+
+def attacker_params_from_jax(np_tree: Any, device: DeviceLike = None):
+    """JAX attacker params (``repro.attack.init_attacker`` layout, numpy
+    leaves; one attacker, or a population stacked on a leading axis) ->
+    the port's on ``device``."""
+    return sac_params_from_jax(np_tree, device)
+
+
+def attacker_params_to_numpy(params: Any):
+    """The port's attacker params (one or stacked) -> numpy arrays."""
+    return sac_params_to_numpy(params)
+
+
+def attacker_opt_state_from_jax(np_state: Any, device: DeviceLike = None):
+    """JAX ``(attacker, discriminator)`` AdamW states (numpy leaves) -> the
+    port's. A stacked population's step counts, (N,) and equal because
+    its attackers train in lockstep, become the port's one scalar step."""
+    dev = resolve_device(device)
+    out = []
+    for st in np_state:
+        step = np.asarray(st.step)
+        if step.ndim:
+            if not (step == step.flat[0]).all():
+                raise ValueError(f"attackers at different steps {step.tolist()}")
+            step = step.flat[0]
+        out.append(OptState(step=torch.as_tensor(step, dtype=torch.int32, device=dev),
+                            mu=sac_params_from_jax(st.mu, dev),
+                            nu=sac_params_from_jax(st.nu, dev)))
+    return tuple(out)
+
+
+def attacker_opt_state_to_numpy(opt_state: Any, population: int = 0):
+    """The port's ``(attacker, discriminator)`` AdamW states -> numpy
+    ``(step, mu, nu)``; with ``population`` N the step is repeated to
+    (N,), as a stacked JAX population holds it."""
+    def step(st):
+        s = st.step.cpu().numpy()
+        return np.full((population,), s, s.dtype) if population else s
+
+    return tuple(OptState(step=step(st), mu=sac_params_to_numpy(st.mu),
+                          nu=sac_params_to_numpy(st.nu)) for st in opt_state)

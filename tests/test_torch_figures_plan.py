@@ -88,8 +88,15 @@ def test_fig5_driver_runs(out_dir):
     for name in ("icm_ca", "sac", "ppo"):
         leaks = [data["rows"][q][name] for q in data["rows"]]
         assert np.all(np.diff(leaks) >= 0.0), name
-    with pytest.raises(NotImplementedError, match="attack slice"):
-        fig5_monitoring.main(device="cpu", episodes=2, leakage="empirical")
+    # the attacker-measured EmpiricalLeakage prices the same sweep
+    emp = fig5_monitoring.main(num_envs=2, device="cpu", episodes=2, warmup=2,
+                               eval_episodes=2, leakage="empirical", smoke=True)
+    data = _json(out_dir, "fig5_monitoring")
+    assert data["leakage"] == "empirical"
+    assert all(np.isfinite(v) for v in emp["mean_leak"].values())
+    for name in ("icm_ca", "sac", "ppo"):
+        leaks = [data["rows"][q][name] for q in data["rows"]]
+        assert np.all(np.diff(leaks) >= 0.0), name
 
 
 def test_fig9_driver_runs(out_dir):

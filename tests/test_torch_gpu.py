@@ -953,3 +953,63 @@ def test_frontend_flash_matches_dense_on_card():
     assert FA.launches == before + cfg.num_layers
     assert np.isfinite(float(flash))
     assert abs(float(flash) - float(dense)) <= 2e-3
+
+
+@pytest.mark.gpu
+def test_attacker_population_kernels_do_not_grow_on_card():
+    """The stacked attacker population's torch ops per training step are
+    the same on the card at populations 1 and 14 (one ``baddbmm`` per
+    dense layer over the stacked axis), and so are its CUDA kernels at 2
+    and 14 (at 1 cuBLAS takes other GEMMs); a population of 3 on the card
+    matches the same population on the CPU."""
+    _card()
+    from repro_torch.attack import AttackConfig, init_attacker_population
+    from repro_torch.attack.fsha import draw_attack, make_population_attack_chunk
+    from repro_torch.attack.population import (count_ops_per_step,
+                                               profile_kernels_per_step)
+
+    acfg = AttackConfig(d_data=32, d_smash=32)
+    assert count_ops_per_step(acfg, 1) == count_ops_per_step(acfg, 14)
+    assert count_ops_per_step(acfg, 14) == count_ops_per_step(acfg, 14, device="cpu")
+    assert profile_kernels_per_step(acfg, 2) == profile_kernels_per_step(acfg, 14)
+    n, pool, steps = 3, 64, 8
+    rng = np.random.default_rng(0)
+    pools = {k: torch.from_numpy(rng.standard_normal((n, pool, 32), dtype=np.float32))
+             for k in ("z_cli", "x_cli", "z_aux", "x_aux")}
+    draws = draw_attack(torch.Generator().manual_seed(1), steps, acfg.batch, pool,
+                        n=n, device="cpu")
+    p_eff = torch.tensor([0.0, 0.5, 1.0])
+    outs = []
+    for dev in ("cpu", "cuda"):
+        params, state = init_attacker_population(torch.Generator().manual_seed(2),
+                                                 acfg, n, dev)
+        out = make_population_attack_chunk(acfg, steps)(
+            params, state, tree_map(lambda a: a.to(dev), pools), p_eff.to(dev),
+            tree_map(lambda a: a.to(dev), draws))
+        outs.append(out[0])
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        np.testing.assert_allclose(a.numpy(), b.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_faulted_serving_matches_fault_free_on_card():
+    """Serving on the card under the reference fault schedule (a reduced
+    model, two pipelined stages): every request completes with the
+    fault-free run's tokens, bit for bit, and the outage was seen."""
+    _card()
+    from repro_torch.core.faults import reference_schedule
+    from repro_torch.serving import ServeConfig, ServingService, poisson_trace
+
+    cfg = ServeConfig(num_slots=3, arrival_slots=2, prompt_pad=8, max_new=8,
+                      decode_chunk=2, fault_tick_s=0.02, max_retries=2,
+                      retry_backoff_s=0.005, boundaries=(1, 2))
+    svc = ServingService(cfg)
+    trace = poisson_trace(n_requests=7, rate_per_sec=50.0,
+                          vocab_size=svc.model_cfg.vocab_size, plen_range=(2, 8),
+                          gen_range=(2, 8), seed=3)
+    free = svc.run(list(trace))
+    faulted = ServingService(cfg, svc.params).run(
+        list(trace), faults=reference_schedule(2, 1, tick_seconds=cfg.fault_tick_s))
+    assert faulted["num_requests"] == len(trace) and faulted["fault_events"] >= 1
+    for r in trace:
+        assert np.array_equal(free["completions"][r.rid], faulted["completions"][r.rid])

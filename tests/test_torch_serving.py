@@ -285,8 +285,15 @@ def test_deadline_drops_queued_requests():
     svc = ServingService(dataclasses.replace(cfg, deadline_s=1e-9), device="cpu")
     res = svc.run(trace)
     assert res["expired"] == [0, 1, 2] and res["num_requests"] == 0
-    with pytest.raises(NotImplementedError, match="faults slice"):
-        svc.run(trace, faults=object())
+    # under a fault schedule (device 0 down for the first 0.05 s of the
+    # virtual clock) the deadlines hold the same way
+    from repro_torch.core.faults import make_schedule
+
+    svc = ServingService(cfg, device="cpu")
+    res = svc.run(trace, faults=make_schedule(1, 1, outages=[(0, 0.0, 0.05)],
+                                              device="cpu"))
+    assert res["fault_events"] >= 1
+    assert res["expired"] == [2] and sorted(res["completions"]) == [0, 1]
 
 
 def test_check_servable_moe_and_ssm_gates():

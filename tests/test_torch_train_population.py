@@ -296,8 +296,11 @@ def test_fig6_and_fig8_drivers_on_the_cpu(tmp_path, monkeypatch):
     assert np.isfinite(d6["reduction_vs_sac_at_E4_pct"])
     assert sorted(os.listdir(tmp_path / "out")) == ["fig6_eavesdroppers.json",
                                                     "fig8_no_location.json"]
-    with pytest.raises(NotImplementedError):
-        fig6_eavesdroppers.main(device="cpu", leakage="empirical")
+    # the attacker-measured EmpiricalLeakage prices the same sweep
+    d6e = fig6_eavesdroppers.main(num_envs=2, device="cpu", episodes=2, warmup=2,
+                                  leakage="empirical", smoke=True)
+    assert d6e["leakage"] == "empirical" and sorted(d6e["rows"]) == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for r in d6e["rows"].values() for v in r.values())
 
 
 def test_launcher_passes_the_checkpoint_flags(monkeypatch):
