@@ -146,6 +146,20 @@ Phases (each raises on failure; any failure exits non-zero):
    scorer against a loop of ``attack_scores``; (K2) ``python -m
    repro_torch.launch.chaos --device cuda`` as a subprocess: SIGKILL after
    the first checkpoint, resume, bit-identical to an uninterrupted run;
+4j. meshes over ``torch.distributed`` ranks (after 4i), child processes
+   of ``tests/_torch_ranks.py``'s card workers, each under a timeout:
+   (M1) one NCCL rank: ``train_sac`` and a two-scenario
+   ``train_population`` on a 1-rank population mesh bit for bit
+   ``mesh=None``, and a 1-rank stage mesh's step against the in-process
+   step; (M2) two gloo ranks sharing the card, beside M1: four scenarios
+   split over them bit for bit the 1-rank population, ``train_sac`` with
+   its envs split against one rank (its difference recorded); (M3) four
+   gloo ranks: Qwen2.5-3B at published widths, depth 8 on 4 stages, M =
+   4, 8 x 256 tokens, bf16 through ``stage_mlp_block`` with host-staged
+   hops, the gradients assembled on rank 0 and held to the in-process
+   step (seconds per step beside it, peak memory per rank), then a (2 x
+   2) stage x env step at depth 4 in f32 against the in-process step at
+   the JAX package's gate; the children's launches join the kernels line;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1896,6 +1910,141 @@ def phase_chaos(torch, card):
         f"{child['ca_attention']}, uninterrupted reference {ref['ca_attention']} "
         f"[{card}]")
     return child["ca_attention"] + ref["ca_attention"]
+
+
+# ---------------------------------------------------------------------------
+# 4j. meshes: population and stage meshes over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# (M1) one rank over NCCL: SACConfig() on the ResNet-101 env, 3 chunks of
+# 8 envs, the last updating (its 128-row batch needs 3 chunks' 168
+# transitions); fig 5's q ends as a 2-scenario population; a 1-stage step
+# of Qwen2.5-3B at published widths, depth 2
+MESH_M1 = dict(sac_kw=dict(episodes=24, warmup_episodes=8, seed=5, num_envs=8),
+               qs=[0.3, 0.8], depth=2)
+# (M2) two gloo ranks sharing the card: full widths, a batch of 16 so that
+# 4 envs update from the second chunk; four scenarios over the two ranks
+MESH_M2 = dict(sac_kw=dict(episodes=16, warmup_episodes=4, seed=5, num_envs=4),
+               pop_kw=dict(episodes=8, warmup_episodes=2, seed=5, num_envs=2),
+               qs=[0.3, 0.5, 0.7, 0.9], small=dict(batch=16, buffer_size=2000))
+# (M3) four gloo ranks sharing the card: the Split cell (Qwen2.5-3B at
+# published widths, depth 8 on 4 stages, M = 4, 8 x 256 tokens, bf16 over
+# f32 masters through the stage kernel), then the (2 x 2) stage x env
+# step at depth 4 in f32
+MESH_M3 = dict(arch="qwen2.5-3b", depth=8, bounds=[2, 4, 6, 8], micro=4, rows=8,
+               seq=256, steps=2, env_depth=4, env_bounds=[2, 4])
+MESH_TIMEOUT_S = 420
+# a stage-mesh step against the in-process step on the same weights and
+# tokens (the same kernels on the same shapes; the embedding gradient's
+# index_add_ sums in atomic order): loss rtol 1e-6, every gradient leaf
+# max|diff| <= 1e-4 max|ref|; the (stage x env) step against the 1-D one
+# at the JAX package's gate (loss 1e-6 relative, gradients 1e-5 of
+# max|ref| per leaf)
+MESH_LOSS_RTOL = 1e-6
+MESH_GRAD_REL = 1e-4
+ENV_LOSS_RTOL = 1e-6
+ENV_GRAD_REL = 1e-5
+
+
+def _mesh_stage_launches(micro, bounds, steps):
+    """``stage_mlp_block`` launches per stage of ``steps`` 1F1B steps: the
+    forward slot and the rematerialized backward of a non-last stage, the
+    loss VJP of the last."""
+    lens = [b - a for a, b in zip([0] + list(bounds[:-1]), bounds)]
+    return [steps * micro * (n if k == len(lens) - 1 else 2 * n)
+            for k, n in enumerate(lens)]
+
+
+def _mesh_step_check(what, res, loss_rtol, grad_rel, card):
+    loss, ref = res["loss"], res["ref_loss"]
+    log(f"[mesh {what}] loss {loss:.6f} vs in-process {ref:.6f}; gradients "
+        f"max|diff| {res['grad_rel']:.3e} of max|ref| per leaf at most; "
+        f"{'bit for bit' if res['bitwise'] else 'not bit for bit'} [{card}]")
+    if not (abs(loss - ref) <= loss_rtol * abs(ref) and res["grad_rel"] <= grad_rel):
+        raise AssertionError(f"{what}: the mesh step is off the in-process step: {res}")
+
+
+def phase_mesh(torch, card):
+    """4j. (M1) one NCCL rank, (M2) two gloo ranks, side by side, then (M3)
+    four gloo ranks, all on this card, as child processes
+    (``tests/_torch_ranks.py``'s card workers) under a timeout. Each child
+    reports the kernel launches of its mesh runs. Returns the launches to
+    add to the kernels line."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ranks as TR
+
+    base = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    m1 = TR.start("card_one_rank", 1, base / "m1", backend="nccl", **MESH_M1)
+    m2 = TR.start("card_two_ranks", 2, base / "m2", backend="gloo", **MESH_M2)
+    (r1,), r2 = TR.finish(m1, MESH_TIMEOUT_S), TR.finish(m2, MESH_TIMEOUT_S)
+    t12 = time.perf_counter() - t0
+    ca = 0
+    for name in ("train_sac", "train_population"):
+        res, n = r1[name], r1["launches"][name]["ca_attention"]
+        ca += n
+        log(f"[mesh M1] {name} on a 1-rank population mesh ({r1['backend']} group, "
+            f"transport {r1['transport']}, {r1['device']}) vs mesh=None: max|diff| "
+            f"{res['diff']:.3e}; {res['seconds']:.2f} s (mesh=None {res['ref_seconds']:.2f} s); "
+            f"ca_attention {n} [{card}]")
+        if res["diff"] != 0.0 or not n:
+            raise AssertionError(f"M1 {name}: not bit for bit, or no kernel: {res}, {n}")
+    _mesh_step_check("M1 1-rank stage mesh", r1["stage"], MESH_LOSS_RTOL,
+                     MESH_GRAD_REL, card)
+    m1_stage = r1["launches"]["stage"]["stage_mlp_block"]
+    if m1_stage != _mesh_stage_launches(4, [MESH_M1["depth"]], 1)[0]:
+        raise AssertionError(f"M1 stage step launched stage_mlp_block {m1_stage} times")
+    lead, other = r2
+    n2 = [r["launches"]["ca_attention"] for r in r2]
+    log(f"[mesh M2] 2 ranks ({lead['transport']}, {lead['device']}): train_sac "
+        f"({MESH_M2['sac_kw']['num_envs']} envs split) vs 1 rank: first chunk "
+        f"max|diff| {lead['sac_first_chunk_diff']:.3e}, whole run max|diff| "
+        f"{lead['sac_diff']:.3e} ({'bit for bit' if lead['sac_diff'] == 0 else 'not bit for bit'}, "
+        f"updated {lead['sac_updated']}); {lead['sac_seconds']:.2f} s on 2 ranks, "
+        f"{lead['ref_seconds']:.2f} s on 1; train_population ({len(MESH_M2['qs'])} "
+        f"scenarios split) vs 1 rank: max|diff| {other['pop_diff']:.3e} "
+        f"(updated {other['pop_updated']}); {other['pop_seconds']:.2f} s on 2 ranks, "
+        f"{other['ref_seconds']:.2f} s on 1; ca_attention {n2}; peak "
+        f"{[round(r['peak_gib'], 3) for r in r2]} GiB a rank [{card}]")
+    if other["pop_diff"] != 0.0 or not other["pop_updated"] or not all(n2):
+        raise AssertionError(f"M2: the sharded population is not the 1-rank run "
+                             f"({other['pop_diff']}) or a rank launched no kernel {n2}")
+    if not math.isfinite(lead["sac_diff"]) or not lead["sac_updated"]:
+        raise AssertionError(f"M2: train_sac on 2 ranks: {lead}")
+    ca += sum(n2)
+    log(f"[mesh] M1 and M2 side by side: {t12:.1f} s wall [{card}]")
+
+    t0 = time.perf_counter()
+    r3 = TR.finish(TR.start("card_stage", 4, base / "m3", backend="gloo", **MESH_M3),
+                   MESH_TIMEOUT_S)
+    stage = [r["launches"]["stage"]["stage_mlp_block"] for r in r3]
+    env = [r["launches"]["stage_env"]["stage_mlp_block"] for r in r3]
+    want = _mesh_stage_launches(MESH_M3["micro"], MESH_M3["bounds"], MESH_M3["steps"])
+    want_env = [n for n in _mesh_stage_launches(MESH_M3["micro"], MESH_M3["env_bounds"], 1)
+                for _ in range(2)]
+    first = r3[0]["stage"]
+    log(f"[mesh M3] {MESH_M3['arch']} at published widths, depth {MESH_M3['depth']} "
+        f"on {len(MESH_M3['bounds'])} ranks {tuple(MESH_M3['bounds'])}, M = "
+        f"{MESH_M3['micro']}, {MESH_M3['rows']} x {MESH_M3['seq']} tokens, bf16 over f32 "
+        f"masters, stage_impl 'pallas', hops host-staged ({first['transport']}): "
+        f"seconds per step {[round(x, 3) for x in first['seconds']]} (the first warms) "
+        f"against {first['ref_seconds']:.3f} s in one process; peak memory per rank "
+        f"{[round(r['stage']['peak_gib'], 2) for r in r3]} GiB; stage_mlp_block per "
+        f"rank {stage} [{card}]")
+    _mesh_step_check("M3 4-stage mesh", first, MESH_LOSS_RTOL, MESH_GRAD_REL, card)
+    if stage != want or env != want_env:
+        raise AssertionError(f"M3 stage_mlp_block launches {stage} / {env}, want "
+                             f"{want} / {want_env}")
+    _mesh_step_check("M3 (2 x 2) stage x env, f32, depth "
+                     f"{MESH_M3['env_depth']}", r3[0]["stage_env"], ENV_LOSS_RTOL,
+                     ENV_GRAD_REL, card)
+    log(f"[mesh] M3 {time.perf_counter() - t0:.1f} s wall [{card}]")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"ca_attention": ca,
+            "stage_mlp_block": m1_stage + sum(stage) + sum(env)}
 
 
 # ---------------------------------------------------------------------------
@@ -4237,6 +4386,7 @@ def main() -> int:
     phase_attack_lm(torch, card, attack_small)
     chaos_launches = phase_chaos(torch, card)
     torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch, card)
     serve = phase_serving(torch, card, plan_full)
     torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
@@ -4257,7 +4407,7 @@ def main() -> int:
         f"{moe_model_launches}; (H) Jamba-v0.1-52B {jamba_launches}; (F) "
         f"Pixtral-12B {pixtral_launches}; serving: S2 bf16 pipelined stage_mlp_block "
         f"{serve['stage_launches']}, S3 Mamba2-370m prefill ssd_scan "
-        f"{serve['ssd_launches']}")
+        f"{serve['ssd_launches']}; mesh children (M1-M3) {mesh_launches}")
     log(f"[runs] plan scorer: {plan['kernels_per_call']} kernels per call at "
         f"every enumeration; card vs CPU {plan['cpu_err']:.3e}, vs plan_cost "
         f"{plan['host_err']:.3e}")
@@ -4278,7 +4428,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ca_attention.cu",
         "replaces": "src/repro/kernels/ca_attention.py:41",
-        "launches": launches + emp_launches + chaos_launches,
+        "launches": launches + emp_launches + chaos_launches
+        + mesh_launches["ca_attention"],
         "max_abs_err": worst,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -4289,7 +4440,7 @@ def main() -> int:
     for kname, replaces, err, n in (
             ("stage_mlp_block", "src/repro/kernels/stage_block.py:58",
              stage_err, split_launches["stage_mlp_block"] + serve["stage_launches"]
-             + jamba_launches["stage_mlp_block"]),
+             + jamba_launches["stage_mlp_block"] + mesh_launches["stage_mlp_block"]),
             ("flash_attention", "src/repro/kernels/flash_attention.py:30",
              flash_err, split_launches["flash_attention"]
              + pixtral_launches["flash_attention"]),

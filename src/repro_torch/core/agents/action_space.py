@@ -17,6 +17,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.population import population_rand
+
 Tensor = torch.Tensor
 
 NEG = -1e9
@@ -46,11 +48,12 @@ def head_shapes(dims: Dict[str, int]) -> Dict[str, tuple]:
 
 def gumbel(shapes: Dict[str, tuple], gen: torch.Generator, device):
     """Standard Gumbel noise of the given shape per head, drawn head by
-    head in :data:`HEADS` order."""
+    head in :data:`HEADS` order (``gen`` may be a
+    ``distribution.population.PopulationGenerator``)."""
     tiny = torch.finfo(torch.float32).tiny
     out = {}
     for name in HEADS:
-        u = torch.rand(shapes[name], generator=gen, device=device)
+        u = population_rand(shapes[name], gen, device)
         out[name] = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     return out
 

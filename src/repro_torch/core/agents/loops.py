@@ -2,7 +2,8 @@
 
 Port of ``repro.core.agents.loops`` (``train_sac`` / ``evaluate_sac``)
 with the reference's stop/resume checkpoints (``checkpoint_dir``,
-``checkpoint_every``, ``resume``), without the population mesh.
+``checkpoint_every``, ``resume``) and its population mesh (``mesh``: the
+``num_envs`` axis sharded over ranks, ``distribution.population``).
 ``TrainResult`` and the chunk bookkeeping are shared with the DQN and PPO
 baselines (``dqn.train_dqn``, ``ppo.train_ppo``) and with
 ``scenario.train_population``.
@@ -29,7 +30,9 @@ from repro_torch.core.agents import action_space as A
 from repro_torch.core.agents import rollout as R
 from repro_torch.core.agents import sac as SAC
 from repro_torch.core.env import MHSLEnv
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.distribution import collectives as C
+from repro_torch.distribution import population as PD
 
 
 @dataclass
@@ -130,6 +133,26 @@ def check_run(env: MHSLEnv, num_envs: int, device: DeviceLike, who: str):
                          f"the env is on {env.device}")
 
 
+def check_mesh(env: MHSLEnv, mesh, who: str) -> None:
+    """A trainer's ``mesh``: this rank inside it, on the env's device."""
+    if mesh is None:
+        return
+    mesh.axis_index(mesh.axis_names[0])  # raises outside the mesh
+    if not same_device(mesh.device, env.device):
+        raise ValueError(f"{who}: the mesh places this rank on {mesh.device}, "
+                         f"the env is on {env.device}")
+
+
+def save_on_mesh(mesh, save, *args) -> None:
+    """``save(*args)`` on the mesh's rank 0 (the state is whole on every
+    rank), then a barrier so that no rank goes on before the files are
+    complete. ``mesh=None``: just ``save``."""
+    if mesh is None or mesh.rank == 0:
+        save(*args)
+    if mesh is not None:
+        C.barrier(mesh)
+
+
 CURVES = ("episode_reward", "episode_leak", "episode_violation",
           "states_explored")
 
@@ -159,7 +182,7 @@ def resumable(checkpoint_dir, resume: bool) -> bool:
 def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
               seed: int = 0, warmup_episodes: int = 10,
               resample_positions: bool = False, num_envs: int = 1,
-              scenario=None, device: DeviceLike = None,
+              scenario=None, device: DeviceLike = None, mesh=None,
               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
               resume: bool = True) -> TrainResult:
     """ICM-CA SAC training on the batched engine.
@@ -179,6 +202,19 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
     positions, actions, leakage draws and replay indices from a generator
     on the device seeded with ``seed + 1``.
 
+    ``mesh`` (``launch.mesh.make_population_mesh``) shards the
+    ``num_envs`` axis of positions, env states and rollouts over its
+    population axes (``distribution.sharding.population_axes``; a
+    population that does not divide is replicated). Every rank holds the
+    same generators: each whole-population draw is made in full and each
+    rank keeps its rows, so the streams are the unsharded run's. After
+    the rollout the transitions are all-gathered in env order into a
+    replay buffer every rank holds whole, and every rank runs the same
+    updates on the same replay indices: agent parameters and optimizer
+    state stay replicated, and every rank returns the whole result. (The
+    reference shards its buffer along the capacity instead.) A 1-rank
+    mesh is bit for bit ``mesh=None``.
+
     ``checkpoint_dir`` and ``checkpoint_every`` save the whole loop state
     at chunk boundaries every ``checkpoint_every`` episodes, and once at
     the end: params, optimizer state, replay storage, both generators'
@@ -188,9 +224,13 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
     (the default) the newest checkpoint in the directory is restored and
     training goes on from its episode; the resumed run is bit-identical
     to an uninterrupted one. A checkpoint of another run (seed, envs,
-    warmup, resampling, ``cfg`` or ``scenario`` differ) is refused.
+    warmup, resampling, ``cfg`` or ``scenario`` differ) is refused. On a
+    mesh, rank 0 writes the checkpoint (the state is whole on every rank)
+    and every rank reads it on resume; the mesh is not part of the run's
+    fingerprint, so a run may resume on another mesh.
     """
     check_run(env, num_envs, device, "train_sac")
+    check_mesh(env, mesh, "train_sac")
     adims = env.action_dims
     init_gen = torch.Generator().manual_seed(seed)
     params = SAC.init_agent(init_gen, env.obs_dim, adims, cfg, device=env.device)
@@ -204,7 +244,13 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
         env, R.uniform_policy(adims), R.sac_policy(adims, cfg), update,
         hist_len=cfg.hist_len, fields=SAC_FIELDS, batch_size=cfg.batch,
         n_updates=n_updates,
+        gather=None if mesh is None else (
+            lambda traj: PD.gather_population(traj, mesh, num_envs)),
     )
+    # this rank's rows of every rollout draw (the generator itself when
+    # there is no mesh)
+    roll_gen = gen if mesh is None else PD.PopulationGenerator(
+        gen, num_envs, PD.population_rows(mesh, num_envs))
 
     positions = R.make_positions(env, gen, num_envs, resample_positions,
                                  scenario)
@@ -223,10 +269,10 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
         return state
 
     def save(ep_now: int) -> None:
-        TS.save_train_checkpoint(
-            checkpoint_dir, ep_now, device_state(),
-            dict(ep=ep_now, meta=meta, **curves_state(result),
-                 seen=sorted(seen), buf_ptr=buf.ptr, buf_size=buf.size))
+        save_on_mesh(mesh, TS.save_train_checkpoint,
+                     checkpoint_dir, ep_now, device_state(),
+                     dict(ep=ep_now, meta=meta, **curves_state(result),
+                          seen=sorted(seen), buf_ptr=buf.ptr, buf_size=buf.size))
 
     ep = 0
     last_saved = None
@@ -243,14 +289,18 @@ def train_sac(env: MHSLEnv, cfg: SAC.SACConfig, episodes: int = 200,
             positions = lambda: fixed  # noqa: E731
         restore_curves(result, host)
         seen = set(host["seen"])
+        if mesh is not None:  # every rank has read before any writes again
+            C.barrier(mesh)
 
     while ep < episodes:
         if save_due(checkpoint_dir, checkpoint_every, ep, last_saved):
             save(ep)
             last_saved = ep
         t0 = time.perf_counter()
-        params, opt_state, metrics = chunk(params, opt_state, buf, positions(),
-                                           gen, ep >= warmup_episodes, scenario)
+        params, opt_state, metrics = chunk(
+            params, opt_state, buf,
+            PD.shard_population(positions(), mesh, num_envs), roll_gen,
+            ep >= warmup_episodes, scenario, update_gen=gen)
         _chunk_metrics(result, seen, metrics, ep, episodes, num_envs)
         result.chunk_seconds.append(time.perf_counter() - t0)
         result.chunk_updated.append(metrics["did_update"])

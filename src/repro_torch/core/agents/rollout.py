@@ -306,7 +306,7 @@ def gae(rewards: Tensor, values: Tensor, gamma: float, lam: float):
 
 def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
                      update_fn, *, hist_len: int, fields: Tuple[str, ...],
-                     batch_size: int, n_updates: int):
+                     batch_size: int, n_updates: int, gather=None):
     """One training chunk: reset -> batched episode rollout (explore or
     train policy) -> ring-buffer write -> ``n_updates`` gradient steps
     (only when ``train`` and the buffer holds ``batch_size`` rows) ->
@@ -325,7 +325,10 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
          "update": per-metric means over the update steps (or None),
          "did_update": bool}
 
-    The updates are :func:`make_fused_update`'s.
+    The updates are :func:`make_fused_update`'s. ``gather``, when given,
+    maps the rollout's trajectory, this rank's rows of the population,
+    to the whole population's before the replay write and the metrics
+    (``train_sac`` on a population mesh).
     """
     fused = make_fused_update(update_fn, batch_size, n_updates)
 
@@ -335,6 +338,8 @@ def make_train_chunk(env: MHSLEnv, explore_policy: Policy, train_policy: Policy,
         policy = train_policy if train else explore_policy
         _, traj = rollout_episode(env, policy, params, st0, gen, hist_len,
                                   scenario)
+        if gather is not None:
+            traj = gather(traj)
         buffer_add(buf, flatten_transitions(traj, fields))
 
         upd = None

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core.channel import NetworkConfig, channel_gain
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution.population import population_rand
 
 Tensor = torch.Tensor
 
@@ -64,12 +65,13 @@ class LeakDraws(NamedTuple):
 def draw_leakage(gen: torch.Generator, batch_shape, num_eaves: int,
                  num_decoys: int, device: DeviceLike = None) -> LeakDraws:
     """Uniform draws for :func:`sample_leakage` (``gen`` on ``device``,
-    ``cuda`` by default)."""
+    ``cuda`` by default; a ``distribution.population.PopulationGenerator``
+    draws the whole population and keeps its rows)."""
     device = resolve_device(device)
     shape = tuple(batch_shape) + (num_eaves,)
-    u = torch.rand(shape + (num_decoys + 1,), generator=gen, device=device)
+    u = population_rand(shape + (num_decoys + 1,), gen, device)
     return LeakDraws(snr=1e-12 + u * (1.0 - 1e-12),
-                     monitor=torch.rand(shape, generator=gen, device=device))
+                     monitor=population_rand(shape, gen, device))
 
 
 @runtime_checkable

@@ -1,12 +1,15 @@
-"""MHSL split executor: a split plan runs as a pipeline, in one process.
+"""MHSL split executor: a split plan runs as a pipeline, in one process
+or one stage per rank.
 
 Port of ``repro.core.pipeline``. The paper's multi-hop split learning is
 pipeline parallelism: sub-model k runs on device s_k, activations hop
 s_k -> s_{k+1} (Eq. 1) and gradients hop back (Eq. 4). The JAX package
-runs the stages on a mesh axis with ``ppermute`` hops; here every stage
-runs in this process on one card, and a hop is a hand-over of the stage
-output (cast to the wire dtype and back, as the reference casts it). The
-schedules tick for tick:
+runs the stages on a mesh axis with ``ppermute`` hops. Here, without a
+mesh, every stage runs in this process and a hop is a hand-over of the
+stage output (cast to the wire dtype and back, as the reference casts
+it); with a stage mesh (``pipeline_step_fn(mesh=)``), stage k runs on
+rank k and a hop is a point-to-point transfer of the wire-dtype tensor,
+tick for tick the same schedule. The schedules:
 
 * ``fill_drain`` (the reference, :func:`pipeline_loss_fn`): a forward of
   ``M + S - 1`` ticks, stage ``i`` taking microbatch ``t - i`` at tick
@@ -37,11 +40,13 @@ executor runs tokens only: a modality frontend's projector gets zero
 gradients. ``PipelineConfig.transport`` keeps the reference's
 two values: the reference's ``"overlap"`` issues a tick's hops before its
 compute and ``"sync"`` after it, but both hand each buffer over exactly
-one tick after it was made, so in one process they are the same schedule.
+one tick after it was made, so they are the same schedule here (on a
+mesh, each tick's transfers are posted together and waited on before its
+compute).
 Pipelined serving (:func:`pipeline_serve_fns`) runs the reference's
-serial token ring over per-stage KV rings (:func:`stage_kv_caches`).
-Not ported (they raise ``NotImplementedError``): ``env_axis`` data
-parallelism and stage hops across cards.
+serial token ring over per-stage KV rings (:func:`stage_kv_caches`), in
+one process. ``fill_drain`` runs in one process only: its backward is
+autograd of the whole forward, which does not cross processes.
 """
 from __future__ import annotations
 
@@ -76,7 +81,7 @@ class PipelineConfig:
     production, f32 for the parity gates). ``wire_dtype``: the dtype
     activations and cotangents are cast to for each hop (``None`` = the
     compute dtype). ``transport``: ``"overlap"`` or ``"sync"``, the same
-    schedule in one process (see the module docstring).
+    schedule here (see the module docstring).
     """
 
     schedule: str = "1f1b"
@@ -142,16 +147,114 @@ def stage_lengths(boundaries: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def _stage_ranges(cfg: ModelConfig, boundaries: Sequence[int],
-                  env_axis) -> List[Tuple[int, int]]:
+def _stage_ranges(cfg: ModelConfig,
+                  boundaries: Sequence[int]) -> List[Tuple[int, int]]:
     """Checked ``[lo, hi)`` layer ranges of the stages."""
-    if env_axis is not None:
-        raise NotImplementedError(
-            "env_axis (data parallelism across stage replicas) is not ported; "
-            "the executor runs every stage in one process")
     _check_boundaries(boundaries, num_layers=cfg.num_layers)
     bl = [int(b) for b in boundaries]
     return list(zip([0] + bl[:-1], bl))
+
+
+def _check_mesh(mesh, n_stages: int, stage_axis: str,
+                env_axis: Optional[str]) -> None:
+    """``env_axis`` needs a mesh with that axis (as a JAX mesh lacking it
+    refuses it); a mesh needs a stage axis of one rank per stage."""
+    if env_axis is not None and (mesh is None or env_axis not in mesh.axis_names):
+        raise ValueError(f"env_axis={env_axis!r} needs a mesh with that axis, "
+                         f"got {None if mesh is None else mesh.shape}")
+    if mesh is None:
+        return
+    if mesh.shape.get(stage_axis) != n_stages:
+        raise ValueError(f"a {n_stages}-stage plan needs a mesh whose "
+                         f"{stage_axis!r} axis has {n_stages} ranks, got "
+                         f"{mesh.shape}")
+    extra = set(mesh.axis_names) - {stage_axis, env_axis}
+    if any(mesh.shape[a] > 1 for a in extra):
+        raise ValueError(f"the executor runs on a {stage_axis!r} (x "
+                         f"{env_axis!r}) mesh, got {mesh.shape}")
+
+
+def _slot_rows(lo: int, hi: int, period: int) -> List[Tuple[int, int]]:
+    """Per slot ``j``, the ``[start, stop)`` rows of layers ``lo .. hi -
+    1`` that use it (layer ``r`` is row ``r // period`` of slot ``r %
+    period``)."""
+    out = []
+    for j in range(period):
+        first = lo + (j - lo) % period
+        n = len(range(first, hi, period))
+        out.append((first // period, first // period + n))
+    return out
+
+
+def stage_params(params, cfg: ModelConfig, boundaries: Sequence[int],
+                 stage: int):
+    """Stage ``stage``'s share of ``params`` on a stage mesh (the rows
+    ``distribution.sharding.stage_sharding`` gives it): its layers' rows
+    of every slot, the embedding (and a frontend) on the first stage, the
+    final norm and the LM head on the last; with tied embeddings the last
+    stage holds the embedding as its head. Leaves are copies, so the
+    whole tree can be dropped."""
+    ranges = _stage_ranges(cfg, boundaries)
+    lo, hi = ranges[stage]
+    period = M.find_period(M.signature(cfg))
+    first, last = stage == 0, stage == len(ranges) - 1
+    out = {"slots": tuple(tree_map(lambda a: a[a0:a1].clone(), slot)
+                          for slot, (a0, a1) in zip(params["slots"],
+                                                    _slot_rows(lo, hi, period)))}
+    if first or (last and cfg.tie_embeddings):
+        out["embed"] = params["embed"].clone()
+    if first and "frontend" in params:
+        out["frontend"] = tree_map(torch.clone, params["frontend"])
+    if last:
+        out["final_norm"] = params["final_norm"].clone()
+        if not cfg.tie_embeddings:
+            out["lm_head"] = params["lm_head"].clone()
+    return {k: out[k] for k in params if k in out}
+
+
+def gather_stage_tree(local, like, cfg: ModelConfig,
+                      boundaries: Sequence[int], mesh,
+                      stage_axis: str = "stage"):
+    """The whole tree from every stage's :func:`stage_params`-shaped
+    ``local`` tree (a step's gradients, or parameters), on the first
+    stage of this rank's stage line; ``None`` on the other stages.
+    ``like`` is a whole tree of the same layout (shapes and dtypes; its
+    values are not read; the other stages may pass ``None``). The
+    embedding comes from the first stage, the final norm and the head
+    from the last. A collective over the stage axis."""
+    from repro_torch.distribution import collectives as C
+
+    def sent(tree):
+        """What a later stage sends: its slot rows, the last stage its
+        norm and head (the first stage's embedding is the one kept)."""
+        return {k: tree[k] for k in ("slots", "final_norm", "lm_head")
+                if k in tree}
+
+    n = len(_stage_ranges(cfg, boundaries))
+    me = mesh.axis_index(stage_axis)
+    if me != 0:
+        C.exchange(mesh, stage_axis,
+                   [(x, -me) for x in tree_leaves(sent(local))], [])
+        return None
+    meta = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), like)
+    shells = [sent(stage_params(meta, cfg, boundaries, k)) for k in range(n)]
+    recvs = [(tuple(x.shape), x.dtype, k) for k in range(1, n)
+             for x in tree_leaves(shells[k])]
+    got = iter(C.exchange(mesh, stage_axis, [], recvs, device=mesh.device))
+    parts = [local] + [tree_unflatten(shells[k], [next(got) for _ in
+                                                  tree_leaves(shells[k])])
+                       for k in range(1, n)]
+    period = M.find_period(M.signature(cfg))
+    slots = []
+    for j in range(period):
+        rows = [p["slots"][j] for p in parts]
+        slots.append(tree_map(lambda *xs: torch.cat(xs), *rows))
+    out = dict(parts[0], slots=tuple(slots))
+    for k in ("final_norm", "lm_head"):
+        if k in parts[-1]:
+            out[k] = parts[-1][k]
+    return {k: out[k] for k in like}
 
 
 def _microbatches(tokens: Tensor, labels: Tensor, n_microbatches: int):
@@ -189,11 +292,13 @@ def _logits_loss(cfg, y, final_norm, head, labels):
 
 def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
                      n_microbatches: int, pipe: Optional[PipelineConfig] = None,
-                     env_axis: Optional[str] = None):
+                     env_axis: Optional[str] = None, *, mesh=None):
     """The fill-drain (GPipe) pipelined LM loss, the REFERENCE path:
     ``(params, tokens, labels) -> loss``, differentiable by autograd.
     tokens: ``(M * mb, T)``. No wire cast on the hops (as the reference's
-    fill-drain hops in the compute dtype)."""
+    fill-drain hops in the compute dtype). It runs in one process: its
+    backward is autograd of the whole forward, which torch does not carry
+    across processes, so ``mesh`` (and with it ``env_axis``) raises."""
     sig = M.signature(cfg)
     period = M.find_period(sig)
     if period > 1:
@@ -201,7 +306,13 @@ def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
             f"{cfg.name}: the fill-drain reference runs period-1 configs, got "
             f"period {period}; mixed block periods run through the '1f1b' "
             "schedule")
-    ranges = _stage_ranges(cfg, boundaries, env_axis)
+    if mesh is not None:
+        raise NotImplementedError(
+            "fill_drain runs in one process (its backward is autograd of the "
+            "whole forward, which does not cross processes); the '1f1b' "
+            "schedule runs on a mesh")
+    ranges = _stage_ranges(cfg, boundaries)
+    _check_mesh(None, len(ranges), "stage", env_axis)
     s_stages = len(ranges)
     pipe = pipe or PipelineConfig()
     blk_impl, act_dtype = pipe.block_impl, pipe.dtype
@@ -260,10 +371,115 @@ def _accumulate(acc, grads):
     return acc
 
 
+class _Stage:
+    """Stage ``i`` of one 1F1B step: its two slots per tick and its
+    gradients. The forward slot stashes its input and, except on the last
+    stage, runs the stage without autograd; the backward slot recomputes
+    the stage under autograd and pulls the cotangent through it (on the
+    last stage, through the loss). Stage 0 scatters its input cotangent
+    into the embedding gradient. In one process every stage is a
+    ``_Stage``; on a stage mesh each rank runs one."""
+
+    def __init__(self, i, n_stages, layers, sigs, step):
+        self.i, self.last = i, i == n_stages - 1
+        self.leaves, self.blocks = _grad_leaves(layers)
+        self.sigs, self.step = sigs, step
+        self.stash = [None] * step.depth
+        self.grads = None  # accumulated gradients of self.leaves
+
+    def _forward(self, x):
+        s = self.step
+        return _stage_forward(s.cfg, self.sigs, self.blocks, x, s.positions,
+                              s.blk_impl)
+
+    def forward(self, mf: int, x_in: Optional[Tensor]) -> Optional[Tensor]:
+        """Microbatch ``mf``'s forward slot; returns the hop to the next
+        stage in the wire dtype (``None`` if there is none)."""
+        s = self.step
+        if not 0 <= mf < s.m_micro:
+            return None
+        x0 = s.embed[s.tok_mb[mf]].to(s.cdtype) if self.i == 0 else x_in
+        self.stash[mf % s.depth] = x0
+        if self.last:
+            return None
+        with torch.no_grad():
+            y = self._forward(x0)
+        return y.to(s.wdtype)
+
+    def backward(self, mbk: int, g_in: Optional[Tensor]) -> Optional[Tensor]:
+        """Microbatch ``mbk``'s backward slot; returns the hop to the
+        previous stage in the wire dtype (``None`` if there is none)."""
+        s = self.step
+        if not 0 <= mbk < s.m_micro:
+            return None
+        x_sv = self.stash[mbk % s.depth].detach().requires_grad_(True)
+        self.stash[mbk % s.depth] = None
+        with torch.enable_grad():
+            y = self._forward(x_sv)
+            if self.last:
+                head = s.head_leaf.T if s.cfg.tie_embeddings else s.head_leaf
+                li = _logits_loss(s.cfg, y, s.norm_leaf, head, s.lab_mb[mbk])
+                out = torch.autograd.grad(
+                    li, self.leaves + [s.norm_leaf, s.head_leaf, x_sv], s.seed)
+                dbl, (dfn, dhd, dx) = out[:-3], out[-3:]
+                s.gnorm = s.gnorm + dfn
+                s.ghead = s.ghead + dhd
+                s.loss_acc = s.loss_acc + li.detach()
+            else:
+                out = torch.autograd.grad(y, self.leaves + [x_sv], g_in)
+                dbl, dx = out[:-1], out[-1]
+        self.grads = _accumulate(self.grads, list(dbl))
+        if self.i > 0:
+            return dx.to(s.wdtype)
+        # the cotangent of the embedding lookup
+        s.gembed.index_add_(0, s.tok_mb[mbk].reshape(-1),
+                            dx.reshape(-1, dx.shape[-1]).to(s.gembed.dtype))
+        return None
+
+
+class _Step:
+    """What the stages of one step share: the data, the loss seed, and the
+    accumulators of the loss and of the embedding, norm and head
+    gradients (each written by one stage only)."""
+
+    def __init__(self, cfg, params, tok_mb, lab_mb, m_micro, depth, pipe,
+                 first: bool, last: bool):
+        dev = tok_mb.device
+        self.cfg, self.tok_mb, self.lab_mb = cfg, tok_mb, lab_mb
+        self.m_micro, self.depth = m_micro, depth
+        self.blk_impl, self.cdtype, self.wdtype = pipe.block_impl, pipe.dtype, pipe.wire
+        self.positions = torch.arange(tok_mb.shape[-1], device=dev)
+        self.seed = torch.full((), 1.0 / m_micro, dtype=torch.float32, device=dev)
+        self.loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        if first:
+            self.embed = params["embed"]
+            self.gembed = torch.zeros_like(params["embed"])
+        if last:
+            head_src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+            self.norm_leaf = params["final_norm"].detach().requires_grad_(True)
+            self.head_leaf = head_src.detach().requires_grad_(True)
+            self.gnorm = torch.zeros_like(params["final_norm"])
+            self.ghead = torch.zeros_like(head_src)
+
+
+def _stage_grads(stages, ranges, period):
+    """The stages' layer gradients in the slots layout: slot ``j`` holds
+    the rows of its layers in layer order (the reference's
+    ``split_union_grads`` layout)."""
+    by_layer = {}
+    for st, (lo, hi) in zip(stages, ranges):
+        for r, g in zip(range(lo, hi), tree_unflatten(st.blocks, st.grads)):
+            by_layer[r] = g
+    layers = sorted(by_layer)
+    return tuple(tree_stack([by_layer[r] for r in layers if r % period == j])
+                 for j in range(period))
+
+
 def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
                      n_microbatches: int,
                      pipe: PipelineConfig = PipelineConfig(),
-                     env_axis: Optional[str] = None):
+                     env_axis: Optional[str] = None, *, mesh=None,
+                     stage_axis: str = "stage"):
     """Build the pipelined train step: ``(params, tokens, labels) -> (loss,
     grads)``, grads in the ``params`` tree layout (slot ``j`` of a
     period-``p`` config holds the gradients of layers ``j, j + p, ...``;
@@ -273,10 +489,29 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
     module docstring; ``"fill_drain"`` is autograd of
     :func:`pipeline_loss_fn`. Stage compute runs in ``pipe.dtype``; hops
     cast to ``pipe.wire`` and back.
+
+    ``mesh`` (``launch.mesh.make_stage_mesh`` or ``make_stage_env_mesh``)
+    runs stage ``k`` on the rank at coordinate ``k`` of ``stage_axis``,
+    tick for tick as in one process: each tick's hops are wire-dtype
+    point-to-point transfers to and from the neighbouring stages. Each
+    rank then passes its own share of the parameters,
+    :func:`stage_params`, and gets the gradients in that share's layout
+    (:func:`gather_stage_tree` assembles the whole tree); the loss, on
+    every rank, is the last stage's. With tied embeddings the first
+    stage's embedding gradient and the last stage's head gradient are
+    summed across the two ranks. ``env_axis`` (a ``(stage x env)`` mesh)
+    splits each microbatch's rows over the env axis and averages the loss
+    and every gradient over it after the stage reductions. Every rank
+    takes the whole ``tokens`` and ``labels``. The fill-drain schedule
+    runs in one process only (:func:`pipeline_loss_fn`).
     """
+    sig = M.signature(cfg)
+    period = M.find_period(sig)
+    ranges = _stage_ranges(cfg, boundaries)
+    _check_mesh(mesh, len(ranges), stage_axis, env_axis)
     if pipe.schedule == "fill_drain":
         loss_fn = pipeline_loss_fn(cfg, boundaries, n_microbatches, pipe=pipe,
-                                   env_axis=env_axis)
+                                   mesh=mesh)
 
         def fd_step(params, tokens, labels):
             leaves, p = _grad_leaves(params)
@@ -289,109 +524,134 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
 
         return fd_step
 
-    sig = M.signature(cfg)
-    period = M.find_period(sig)
-    ranges = _stage_ranges(cfg, boundaries, env_axis)
     stage_sigs = [sig[lo:hi] for lo, hi in ranges]
     s_stages = len(ranges)
     m_micro = n_microbatches
     n_ticks = m_micro + 2 * (s_stages - 1)
     depth = 2 * (s_stages - 1) + 1  # activation-stash ring depth
-    blk_impl = pipe.block_impl
-    cdtype, wdtype = pipe.dtype, pipe.wire
 
     def fn(params, tokens, labels):
         tok_mb, lab_mb = _microbatches(tokens, labels, m_micro)
-        dev = tokens.device
-        positions = torch.arange(tokens.shape[1], device=dev)
-        embed = params["embed"]
-        head_src = embed if cfg.tie_embeddings else params["lm_head"]
-        # per stage: grad leaves of its layers (views into the stacked slots)
-        stage_leaves, stage_blocks = [], []
-        for lo, hi in ranges:
-            layers = [_layer_params(params, r, period) for r in range(lo, hi)]
-            leaves, blocks = _grad_leaves(layers)
-            stage_leaves.append(leaves)
-            stage_blocks.append(blocks)
-        norm_leaf = params["final_norm"].detach().requires_grad_(True)
-        head_leaf = head_src.detach().requires_grad_(True)
-        seed = torch.full((), 1.0 / m_micro, dtype=torch.float32, device=dev)
-
-        gblocks = [None] * s_stages
-        gembed = torch.zeros_like(embed)
-        gnorm = torch.zeros_like(params["final_norm"])
-        ghead = torch.zeros_like(head_src)
-        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        stash = [[None] * depth for _ in range(s_stages)]
+        step = _Step(cfg, params, tok_mb, lab_mb, m_micro, depth, pipe,
+                     True, True)
+        stages = [_Stage(i, s_stages,
+                         [_layer_params(params, r, period) for r in range(lo, hi)],
+                         stage_sigs[i], step)
+                  for i, (lo, hi) in enumerate(ranges)]
         buf_x: List[Optional[Tensor]] = [None] * s_stages
         buf_g: List[Optional[Tensor]] = [None] * s_stages
-
         for t in range(n_ticks):
             # the hops (Eq. 1 forward, Eq. 4 gradient): last tick's
             # wire-dtype outputs arrive in the compute dtype
-            x_in = [None if b is None else b.to(cdtype) for b in buf_x]
-            g_in = [None if b is None else b.to(cdtype) for b in buf_g]
+            x_in = [None if b is None else b.to(step.cdtype) for b in buf_x]
+            g_in = [None if b is None else b.to(step.cdtype) for b in buf_g]
             buf_x, buf_g = [None] * s_stages, [None] * s_stages
-            for i in range(s_stages):
-                last = i == s_stages - 1
-                # ---- forward slot: microbatch t - i ----------------------
-                mf = t - i
-                if 0 <= mf < m_micro:
-                    x0 = embed[tok_mb[mf]].to(cdtype) if i == 0 else x_in[i]
-                    stash[i][mf % depth] = x0
-                    if not last:
-                        with torch.no_grad():
-                            y = _stage_forward(cfg, stage_sigs[i],
-                                               stage_blocks[i], x0, positions,
-                                               blk_impl)
-                        buf_x[i + 1] = y.to(wdtype)
-                # ---- backward slot: microbatch t - 2(S-1) + i ------------
-                mbk = t - 2 * (s_stages - 1) + i
-                if not 0 <= mbk < m_micro:
-                    continue
-                x_sv = stash[i][mbk % depth].detach().requires_grad_(True)
-                stash[i][mbk % depth] = None
-                with torch.enable_grad():
-                    y = _stage_forward(cfg, stage_sigs[i], stage_blocks[i],
-                                       x_sv, positions, blk_impl)
-                    if last:
-                        head = head_leaf.T if cfg.tie_embeddings else head_leaf
-                        li = _logits_loss(cfg, y, norm_leaf, head, lab_mb[mbk])
-                        out = torch.autograd.grad(
-                            li, stage_leaves[i] + [norm_leaf, head_leaf, x_sv],
-                            seed)
-                        dbl, (dfn, dhd, dx) = out[:-3], out[-3:]
-                        gnorm = gnorm + dfn
-                        ghead = ghead + dhd
-                        loss_acc = loss_acc + li.detach()
-                    else:
-                        out = torch.autograd.grad(
-                            y, stage_leaves[i] + [x_sv], g_in[i])
-                        dbl, dx = out[:-1], out[-1]
-                gblocks[i] = _accumulate(gblocks[i], list(dbl))
-                if i == 0:
-                    # the cotangent of the embedding lookup
-                    gembed.index_add_(0, tok_mb[mbk].reshape(-1),
-                                      dx.reshape(-1, dx.shape[-1]).to(gembed.dtype))
-                else:
-                    buf_g[i - 1] = dx.to(wdtype)
+            for i, st in enumerate(stages):
+                y = st.forward(t - i, x_in[i])
+                if y is not None:
+                    buf_x[i + 1] = y
+                dx = st.backward(t - 2 * (s_stages - 1) + i, g_in[i])
+                if dx is not None:
+                    buf_g[i - 1] = dx
 
-        layer_grads = []
-        for layers, g in zip(stage_blocks, gblocks):
-            layer_grads.extend(tree_unflatten(layers, g))
-        # slot j: the rows of layers j, j + period, ... (the reference's
-        # split_union_grads layout)
-        grads = {"final_norm": gnorm,
-                 "slots": tuple(tree_stack(layer_grads[j::period])
-                                for j in range(period))}
+        grads = {"final_norm": step.gnorm,
+                 "slots": _stage_grads(stages, ranges, period)}
         if "frontend" in params:  # the executor runs tokens only
             grads["frontend"] = tree_map(torch.zeros_like, params["frontend"])
         if cfg.tie_embeddings:
-            grads["embed"] = gembed + ghead
+            grads["embed"] = step.gembed + step.ghead
         else:
-            grads["embed"] = gembed
-            grads["lm_head"] = ghead
-        return loss_acc / m_micro, {k: grads[k] for k in params}
+            grads["embed"] = step.gembed
+            grads["lm_head"] = step.ghead
+        return step.loss_acc / m_micro, {k: grads[k] for k in params}
+
+    if mesh is None:
+        return fn
+    return _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth,
+                      pipe, mesh, stage_axis, env_axis)
+
+
+def _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth, pipe,
+               mesh, stage_axis, env_axis):
+    """:func:`pipeline_step_fn` on a stage mesh: this rank's stage."""
+    from repro_torch.distribution import collectives as C
+    from repro_torch.distribution.sharding import microbatch_sharding
+
+    s_stages = len(ranges)
+    i = mesh.axis_index(stage_axis)
+    lo, hi = ranges[i]
+    first, last = i == 0, i == s_stages - 1
+    rows = _slot_rows(lo, hi, period)
+
+    def fn(params, tokens, labels):
+        tok_mb, lab_mb = _microbatches(tokens, labels, m_micro)
+        if env_axis is not None:  # this env shard's rows of each microbatch
+            mine = microbatch_sharding(mesh, 3, env_axis, rows=tok_mb.shape[1])
+            tok_mb, lab_mb = tok_mb[:, mine], lab_mb[:, mine]
+        step = _Step(cfg, params, tok_mb, lab_mb, m_micro, depth, pipe,
+                     first, last)
+        layers = [M.layer_params(params["slots"][r % period],
+                                 r // period - rows[r % period][0])
+                  for r in range(lo, hi)]
+        st = _Stage(i, s_stages, layers, stage_sigs[i], step)
+        hop = (tok_mb.shape[1], tok_mb.shape[2], cfg.d_model)
+        y = dx = None  # this rank's hops of the last tick
+        for t in range(n_ticks):
+            mf, mbk = t - i, t - 2 * (s_stages - 1) + i
+            recvs = []
+            if not first and 0 <= mf < m_micro:
+                recvs.append((hop, step.wdtype, -1))
+            if not last and 0 <= mbk < m_micro:
+                recvs.append((hop, step.wdtype, +1))
+            sends = [(b, off) for b, off in ((y, +1), (dx, -1)) if b is not None]
+            got = C.exchange(mesh, stage_axis, sends, recvs,
+                             device=tok_mb.device)
+            got = [g.to(step.cdtype) for g in got]
+            x_in = got.pop(0) if recvs and recvs[0][2] == -1 else None
+            g_in = got.pop(0) if got else None
+            y = st.forward(mf, x_in)
+            dx = st.backward(mbk, g_in)
+
+        loss = C.all_reduce(step.loss_acc / m_micro if last
+                            else torch.zeros_like(step.loss_acc), mesh, stage_axis)
+        slots = []
+        for j, (a0, a1) in enumerate(rows):
+            mine = [g for r, g in zip(range(lo, hi),
+                                      tree_unflatten(st.blocks, st.grads))
+                    if r % period == j]
+            slots.append(tree_stack(mine) if mine else
+                         tree_map(torch.zeros_like, params["slots"][j]))
+        grads = {"slots": tuple(slots)}
+        if first and "frontend" in params:
+            grads["frontend"] = tree_map(torch.zeros_like, params["frontend"])
+        if last:
+            grads["final_norm"] = step.gnorm
+            if not cfg.tie_embeddings:
+                grads["lm_head"] = step.ghead
+        if cfg.tie_embeddings:
+            # the first stage's lookup and the last stage's head gradients
+            # meet: the sum, on both ranks
+            if first and last:
+                grads["embed"] = step.gembed + step.ghead
+            elif last:
+                grads["embed"] = C.exchange(
+                    mesh, stage_axis, [(step.ghead, -i)],
+                    [(tuple(step.ghead.shape), step.ghead.dtype, -i)],
+                    device=step.ghead.device)[0]
+            elif first:
+                ghead = C.exchange(
+                    mesh, stage_axis, [],
+                    [(tuple(step.gembed.shape), step.gembed.dtype, s_stages - 1)],
+                    device=step.gembed.device)[0]
+                grads["embed"] = step.gembed + ghead
+                C.exchange(mesh, stage_axis, [(grads["embed"], s_stages - 1)], [])
+        elif first:
+            grads["embed"] = step.gembed
+        if env_axis is not None:  # the mean of the env shards' means
+            loss = C.all_reduce(loss, mesh, env_axis, "mean")
+            grads = tree_map(lambda g: C.all_reduce(g, mesh, env_axis, "mean"),
+                             grads)
+        return loss, {k: grads[k] for k in params}
 
     return fn
 
@@ -460,7 +720,7 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
             "prefill rows steal expert capacity from real rows); set "
             "moe.dispatch='dropless'")
     period = M.find_period(sig)
-    ranges = _stage_ranges(cfg, boundaries, None)
+    ranges = _stage_ranges(cfg, boundaries)
     blk_impl, cdtype, wdtype = pipe.block_impl, pipe.dtype, pipe.wire
 
     def ring_pass(params, caches, x, positions, cache_index):

@@ -16,8 +16,9 @@ scenario. They take one agent for all scenarios, or with
 ICM-CA SAC agent per scenario in lockstep: each chunk runs every
 scenario's rollout, replay write and updates in turn, on the reference's
 sharing of draws (the geometry and the rollout noise shared, weights and
-replay indices per scenario). Nothing compiles, so the reference's
-``jit_cache_size`` has no counterpart, and there is no population mesh.
+replay indices per scenario); on a population mesh each rank runs its
+share of the scenarios. Nothing compiles, so the reference's
+``jit_cache_size`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -317,7 +318,7 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
                      resample_positions: bool = False,
                      checkpoint_dir: Optional[str] = None,
                      checkpoint_every: int = 0, resume: bool = True,
-                     device=None) -> PopulationResult:
+                     device=None, mesh=None) -> PopulationResult:
     """Train one ICM-CA SAC agent per scenario of ``scenarios`` (stacked,
     leading axis N), all in lockstep.
 
@@ -346,29 +347,45 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
     storage, the run generator's and every replay generator's states and
     the fixed geometry are saved at chunk boundaries with every scenario's
     curves, explored-state set and ring pointers, under a run fingerprint
-    that includes the scenario stack's. There is no ``mesh``: one card.
+    that includes the scenario stack's.
+
+    ``mesh`` (``launch.mesh.make_population_mesh``, or any mesh whose
+    population axes ``distribution.sharding.population_axes`` finds:
+    ``"env"`` by name on a (stage x env) mesh, where ranks that share an
+    env column compute the same scenarios) shards the scenario axis: each
+    rank trains its share of the scenarios, every rank draws the same
+    seeds, and the per-chunk metrics are all-gathered once per chunk
+    after the last scenario, the stacked params at the end. The
+    per-scenario math is unchanged, so a sharded run is bit for bit the
+    unsharded one. A checkpoint gathers the whole state to the mesh's rank
+    0, which writes it; on resume every rank reads it and keeps its
+    scenarios.
     """
     from repro_torch.checkpoint import train_state as TS
     from repro_torch.core.agents import loops as LP
     from repro_torch.core.agents import rollout as R
     from repro_torch.core.agents import sac as SAC
+    from repro_torch.distribution import collectives as C
+    from repro_torch.distribution import population as PD
     from repro_torch.tree import tree_index, tree_stack
 
     LP.check_run(env, num_envs, device, "train_population")
+    LP.check_mesh(env, mesh, "train_population")
     n = num_scenarios(scenarios)
+    mine = PD.population_rows(mesh, n)  # this rank's scenarios
     sps = unstack_scenarios(scenarios)
     adims = env.action_dims
     seeds = population_seeds(seed, n)
     run_gen = seeds["run"]
-    params = [SAC.init_agent(torch.Generator().manual_seed(s), env.obs_dim,
-                             adims, cfg, device=env.device)
-              for s in seeds["init"]]
+    params = [SAC.init_agent(torch.Generator().manual_seed(seeds["init"][s]),
+                             env.obs_dim, adims, cfg, device=env.device)
+              for s in mine]
     update, init_opt = SAC.make_update(adims, cfg)
     opt_state = [init_opt(p) for p in params]
-    ugens = [torch.Generator(device=env.device).manual_seed(s)
-             for s in seeds["replay"]]
+    ugens = [torch.Generator(device=env.device).manual_seed(seeds["replay"][s])
+             for s in mine]
     bufs = [R.buffer_init(cfg.buffer_size, LP.sac_example(env, cfg))
-            for _ in range(n)]
+            for _ in mine]
     chunk = R.make_train_chunk(
         env, R.uniform_policy(adims), R.sac_policy(adims, cfg), update,
         hist_len=cfg.hist_len, fields=LP.SAC_FIELDS, batch_size=cfg.batch,
@@ -378,12 +395,17 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
     if not resample_positions:
         fixed = [env.sample_positions(
             torch.Generator(device=env.device).manual_seed(seeds["geometry"]),
-            1, sp) for sp in sps]
+            1, sps[s]) for s in mine]
 
-    def positions(s: int, rgen):
+    def positions(i: int, rgen):
+        """The chunk's positions of this rank's ``i``-th scenario."""
         if resample_positions:
-            return env.sample_positions(rgen, num_envs, sps[s])
-        return tuple(x.expand(num_envs, -1, -1) for x in fixed[s])
+            return env.sample_positions(rgen, num_envs, sps[mine[i]])
+        return tuple(x.expand(num_envs, -1, -1) for x in fixed[i])
+
+    def gather(tree):
+        """Every scenario's rows from this rank's, stacked."""
+        return PD.gather_population(tree_stack(tree), mesh, n)
 
     pop = PopulationResult(results=[LP.TrainResult() for _ in range(n)])
     seen: List[set] = [set() for _ in range(n)]
@@ -393,39 +415,49 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
                 scenario=TS.pytree_fingerprint(scenarios))
 
     def device_state():
-        state = dict(params=tree_stack(params), opt_state=tree_stack(opt_state),
-                     buf=tree_stack([b.data for b in bufs]),
+        """The whole population's device state (a collective on a mesh)."""
+        # generator states travel on the env's device (NCCL carries
+        # nothing else) and come back to the host
+        gens = gather([TS.generator_leaf(g).to(env.device) for g in ugens])
+        state = dict(params=gather(params), opt_state=gather(opt_state),
+                     buf=gather([b.data for b in bufs]),
                      run_gen=TS.generator_leaf(run_gen),
-                     replay_gens=torch.stack([TS.generator_leaf(g) for g in ugens]))
+                     replay_gens=gens.cpu())
         if fixed is not None:
-            state["positions"] = tree_stack(fixed)
+            state["positions"] = gather(fixed)
         return state
 
     def save(ep_now: int) -> None:
-        TS.save_train_checkpoint(
-            checkpoint_dir, ep_now, device_state(),
+        # every ring of a population fills alike, so this rank's first
+        # pointers are every scenario's
+        LP.save_on_mesh(
+            mesh, TS.save_train_checkpoint, checkpoint_dir, ep_now,
+            device_state(),
             dict(ep=ep_now, meta=meta,
                  results=[LP.curves_state(r) for r in pop.results],
                  seen=[sorted(x) for x in seen],
-                 buf_ptr=[b.ptr for b in bufs], buf_size=[b.size for b in bufs]))
+                 buf_ptr=[bufs[0].ptr] * n, buf_size=[bufs[0].size] * n))
 
     ep = 0
     last_saved = None
     if LP.resumable(checkpoint_dir, resume):
         _, dev, host = TS.load_train_checkpoint(checkpoint_dir, device_state())
         ep = last_saved = TS.validate_resume(host, meta, episodes, checkpoint_dir)
-        params = [tree_index(dev["params"], s) for s in range(n)]
-        opt_state = [tree_index(dev["opt_state"], s) for s in range(n)]
-        bufs = [R.BufferState(data=tree_index(dev["buf"], s), ptr=p, size=z)
-                for s, (p, z) in enumerate(zip(host["buf_ptr"], host["buf_size"]))]
+        params = [tree_index(dev["params"], s) for s in mine]
+        opt_state = [tree_index(dev["opt_state"], s) for s in mine]
+        bufs = [R.BufferState(data=tree_index(dev["buf"], s),
+                              ptr=host["buf_ptr"][s], size=host["buf_size"][s])
+                for s in mine]
         TS.restore_generator(run_gen, dev["run_gen"])
-        for g, leaf in zip(ugens, dev["replay_gens"]):
-            TS.restore_generator(g, leaf)
+        for g, s in zip(ugens, mine):
+            TS.restore_generator(g, dev["replay_gens"][s])
         if fixed is not None:
-            fixed = [tree_index(dev["positions"], s) for s in range(n)]
+            fixed = [tree_index(dev["positions"], s) for s in mine]
         for res, saved in zip(pop.results, host["results"]):
             LP.restore_curves(res, saved)
         seen = [set(x) for x in host["seen"]]
+        if mesh is not None:  # every rank has read before any writes again
+            C.barrier(mesh)
 
     while ep < episodes:
         if LP.save_due(checkpoint_dir, checkpoint_every, ep, last_saved):
@@ -435,19 +467,19 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
         rseed = draw_seed(run_gen)
         train = ep >= warmup_episodes
         ms = []
-        for s in range(n):
+        for i, s in enumerate(mine):
             rgen = torch.Generator(device=env.device).manual_seed(rseed)
-            pos = positions(s, rgen)
-            params[s], opt_state[s], m = chunk(params[s], opt_state[s], bufs[s],
+            pos = positions(i, rgen)
+            params[i], opt_state[i], m = chunk(params[i], opt_state[i], bufs[i],
                                                pos, rgen, train, sps[s],
-                                               update_gen=ugens[s])
+                                               update_gen=ugens[i])
             ms.append(m)
         # one transfer per field for all scenarios, after the last chunk
-        host = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
+        host = {k: gather([m[k] for m in ms]).cpu().numpy()
                 for k in LP.CHUNK_FIELDS}
         upd = None
         if ms[0]["did_update"]:  # every scenario's buffer fills alike
-            upd = {k: torch.stack([m["update"][k] for m in ms]).cpu().tolist()
+            upd = {k: gather([m["update"][k] for m in ms]).cpu().tolist()
                    for k in ms[0]["update"]}
         secs = time.perf_counter() - t0
         for s in range(n):
@@ -456,10 +488,10 @@ def train_population(env, cfg, scenarios: ScenarioParams, *,
                 None if upd is None else {k: v[s] for k, v in upd.items()},
                 ep, episodes, num_envs)
             pop.results[s].chunk_seconds.append(secs)
-            pop.results[s].chunk_updated.append(ms[s]["did_update"])
+            pop.results[s].chunk_updated.append(ms[0]["did_update"])
         ep += num_envs
     if checkpoint_dir and last_saved != ep:
         save(ep)
 
-    pop.params = tree_stack(params)
+    pop.params = gather(params)
     return pop

@@ -21,3 +21,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "a CUDA device was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` without an index
+    is the current card)."""
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return norm(a) == norm(b)

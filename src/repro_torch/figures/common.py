@@ -3,7 +3,9 @@
 metric, the standard agents of figs 4-6 and JSON output.
 
 The episode counts are the reference's quick ones (``BenchConfig(
-quick=True)``: 160 episodes, 15 of warmup). There is no population mesh.
+quick=True)``: 160 episodes, 15 of warmup). The drivers run in one
+process: the reference's ``shard_devices`` has no counterpart here (the
+trainers themselves take ``mesh=``).
 Curves go to ``experiments/torch_bench/`` under the working directory
 (``TORCH_BENCH_OUT`` overrides it), each with the device it ran on.
 

@@ -18,8 +18,8 @@ feature positions then text. Weights are random, from seed 0.
 Differences from the reference, each for a reason:
 - it runs in one process on ``--device`` (``cuda`` by default, or
   ``cpu``); ``--data-par`` and ``--model-par`` (a 2 x 2 host mesh in the
-  reference) default to 1, and above 1 are an argparse error, as meshes
-  are not ported;
+  reference) default to 1, and above 1 are an argparse error, as the
+  parameter sharding rules they need are not ported yet;
 - the reference's ``--reduced`` cannot be turned off (``store_true`` with
   ``default=True``); here the reduced widths stay the default and
   ``--no-reduced`` runs the published widths, at ``--depth`` layers (the
@@ -61,8 +61,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.data_par != 1 or args.model_par != 1:
-        ap.error("--data-par and --model-par above 1 need a device mesh, "
-                 "which is not ported; the trainer runs in one process")
+        ap.error("--data-par and --model-par above 1 need the parameter "
+                 "sharding rules, which are not ported yet; the trainer runs "
+                 "in one process")
     return args
 
 

@@ -1,4 +1,4 @@
-"""End-to-end MHSL loop of the port (the paper's full loop), on one card:
+"""End-to-end MHSL loop of the port (the paper's full loop):
 
 1. train the ICM-CA SAC controller on the MHSL environment priced with the
    chosen architecture's full-depth layer profile;
@@ -16,6 +16,8 @@
         --arch mamba2-370m --depth 48
     PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl \
         --arch qwen3-moe-30b-a3b --depth 2 --stages 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 \
+        -m repro_torch.launch.train_mhsl_rl --shard-envs
 
 Every arch of the zoo runs: attention with a dense MLP or an MoE, Mamba,
 the Jamba hybrid (its block pattern cut to the executed depth), and the
@@ -31,18 +33,25 @@ learning rate are the example's (:data:`STAGE_IMPL`, :data:`EVAL_IMPL`,
 :data:`COMPUTE_DTYPE`, :data:`LR`). ``--checkpoint-dir DIR`` saves the
 controller's training (step 1) there every ``--checkpoint-every``
 episodes and resumes it when run again (``--fresh`` ignores a saved
-one), as the example does; ``--shard-envs`` (the population mesh) is not
-ported and raises.
+one), as the example does. ``--shard-envs`` trains the controller on a
+population mesh over the launched ranks (``torchrun``'s environment
+initializes the process group: NCCL when every rank has a card of its
+own, gloo otherwise; without it, one rank), its ``num_envs`` axis
+sharded; rank 0 prints, writes the checkpoints and runs steps 2-4 on
+its own card, and the other ranks return after step 1.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 from dataclasses import replace
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
@@ -56,6 +65,7 @@ from repro_torch.core.profiles import transformer_profile
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ca_attention, flash_attention, moe_dispatch
 from repro_torch.kernels import ssd_scan, stage_block
+from repro_torch.launch.mesh import make_population_mesh
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import adamw, apply_updates
 
@@ -155,7 +165,8 @@ def parse_args(argv=None):
     ap.add_argument("--num-envs", type=int, default=4,
                     help="batched env population per rollout chunk")
     ap.add_argument("--shard-envs", action="store_true",
-                    help="not ported: population meshes come later")
+                    help="shard the num-envs axis over a population mesh "
+                         "spanning the launched ranks")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save/resume the RL training state under this directory")
     ap.add_argument("--checkpoint-every", type=int, default=20,
@@ -173,10 +184,24 @@ def parse_args(argv=None):
     ap.add_argument("--eval-seq", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    if args.shard_envs:
-        ap.error("--shard-envs is not ported yet")
-    return args
+    return ap.parse_args(argv)
+
+
+def init_ranks(device) -> bool:
+    """Join the process group ``torchrun``'s environment describes, unless
+    one is already initialized or there is none (``WORLD_SIZE`` unset).
+    NCCL when every rank has a card of its own, else gloo. Returns
+    whether this call initialized it (and so should destroy it)."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    world = int(os.environ["WORLD_SIZE"])
+    own_cards = (resolve_device(device).type == "cuda"
+                 and torch.cuda.device_count() >= world)
+    if own_cards:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if own_cards else "gloo", init_method="env://",
+                            timeout=datetime.timedelta(minutes=10))
+    return True
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -186,7 +211,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     built (the executed config, the trained params, optimizer and its
     state, the eval batch)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    owns_group = init_ranks(args.device) if args.shard_envs else False
+    try:
+        return _run(args)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args) -> Dict[str, Any]:
+    mesh = None
+    if args.shard_envs:
+        mesh = make_population_mesh(device=args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     launches0 = kernel_launches()
 
     # 1) RL controller on the FULL architecture's layer profile
@@ -194,34 +239,41 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     env = MHSLEnv(profile=prof, net=NetworkConfig(max_split=args.stages),
                   device=dev)
     sac_cfg = SACConfig()
-    print(f"[1/4] training ICM-CA SAC on {args.arch} profile "
-          f"({prof.num_layers} layers, {args.episodes} episodes, "
-          f"{args.num_envs} batched envs) on {dev}", flush=True)
+    if mesh is not None:
+        from repro_torch.distribution.collectives import transport
+
+        say(f"      population mesh: {mesh.size} rank(s), num_envs axis "
+            f"sharded, transport {transport(mesh)}")
+    say(f"[1/4] training ICM-CA SAC on {args.arch} profile "
+        f"({prof.num_layers} layers, {args.episodes} episodes, "
+        f"{args.num_envs} batched envs) on {dev}")
     res = LP.train_sac(env, sac_cfg, episodes=args.episodes, seed=args.seed,
                        warmup_episodes=WARMUP_EPISODES,
-                       num_envs=args.num_envs,
+                       num_envs=args.num_envs, mesh=mesh,
                        checkpoint_dir=args.checkpoint_dir,
                        checkpoint_every=args.checkpoint_every,
                        resume=not args.fresh)
-    print(f"      reward: first10={np.mean(res.episode_reward[:10]):.2f} "
-          f"last10={np.mean(res.episode_reward[-10:]):.2f}", flush=True)
+    say(f"      reward: first10={np.mean(res.episode_reward[:10]):.2f} "
+        f"last10={np.mean(res.episode_reward[-10:]):.2f}")
+    if not lead:  # steps 2-4 run on rank 0
+        return {"train": res, "env": env, "mesh": mesh}
 
     # 2) the plan
     gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
     boundaries_full, devices, leaked, t_r, e_r = rollout_plan(
         env, res.params, sac_cfg, gen)
-    print(f"[2/4] learned plan on {prof.num_layers} layers: "
-          f"boundaries={boundaries_full} devices={devices} "
-          f"leaked={leaked:.3f} T_R={t_r:.2f}s E_R={e_r:.1f}J", flush=True)
+    say(f"[2/4] learned plan on {prof.num_layers} layers: "
+        f"boundaries={boundaries_full} devices={devices} "
+        f"leaked={leaked:.3f} T_R={t_r:.2f}s E_R={e_r:.1f}J")
 
     # 3) execute the plan, rescaled to the executed depth
     cfg = executed_config(args.arch, args.depth, args.reduced)
     boundaries = rescale_boundaries(boundaries_full, args.depth, args.stages)
     pipe = PipelineConfig(stage_impl=STAGE_IMPL, compute_dtype=COMPUTE_DTYPE)
-    print(f"[3/4] executing plan {boundaries} as a {len(boundaries)}-stage "
-          f"1F1B pipeline of {cfg.name} (d_model {cfg.d_model}, "
-          f"{cfg.num_layers} layers), M={args.microbatches}, "
-          f"{args.batch}x{args.seq} tokens/step, {pipe}", flush=True)
+    say(f"[3/4] executing plan {boundaries} as a {len(boundaries)}-stage "
+        f"1F1B pipeline of {cfg.name} (d_model {cfg.d_model}, "
+        f"{cfg.num_layers} layers), M={args.microbatches}, "
+        f"{args.batch}x{args.seq} tokens/step, {pipe}")
     params = M.init_params(torch.Generator(device=dev).manual_seed(args.seed),
                            cfg, device=dev)
     opt = adamw(LR, max_grad_norm=1.0)
@@ -239,8 +291,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         seconds.append(time.perf_counter() - t0)
         losses.append(loss)
         if step % 5 == 0 or step == args.pipeline_steps - 1:
-            print(f"      pipeline step {step:3d} loss {loss:.4f} "
-                  f"({seconds[-1]:.3f} s)", flush=True)
+            say(f"      pipeline step {step:3d} loss {loss:.4f} "
+                f"({seconds[-1]:.3f} s)")
 
     # 4) held-out loss
     eval_rng = np.random.default_rng(args.seed + 1)
@@ -254,18 +306,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                       compute_dtype=pipe.dtype)
     eval_loss = float(eval_loss)  # waits for the call
     eval_seconds = time.perf_counter() - t0
-    print(f"[4/4] held-out loss ({args.eval_batch}x{args.eval_seq} tokens, "
-          f"block impl {EVAL_IMPL!r}): {eval_loss:.4f} "
-          f"({eval_seconds:.3f} s)", flush=True)
+    say(f"[4/4] held-out loss ({args.eval_batch}x{args.eval_seq} tokens, "
+        f"block impl {EVAL_IMPL!r}): {eval_loss:.4f} "
+        f"({eval_seconds:.3f} s)")
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
-    print(f"      kernel launches in this run: {launches}", flush=True)
+    say(f"      kernel launches in this run: {launches}")
     return {"plan_full": boundaries_full, "devices": devices,
             "launches": launches,
             "boundaries": boundaries, "losses": losses,
             "step_seconds": seconds, "eval_loss": eval_loss,
             "eval_seconds": eval_seconds, "cfg": cfg, "params": params,
             "opt_state": opt_state, "pipe": pipe, "opt": opt,
-            "eval_batch": batch, "train": res, "env": env}
+            "eval_batch": batch, "train": res, "env": env, "mesh": mesh}
 
 
 if __name__ == "__main__":

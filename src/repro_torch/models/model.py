@@ -372,11 +372,12 @@ def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
     taken with respect to that copy and cast back to each master's dtype,
     and the optimizer updates the f32 masters (classic mixed precision).
     ``param_shardings_tree`` pins the copy to the masters' shardings in
-    the reference; meshes are not ported, so it raises."""
+    the reference; the parameter sharding rules are not ported yet, so it
+    raises."""
     if param_shardings_tree is not None:
         raise NotImplementedError(
-            "param_shardings_tree needs a device mesh, which is not ported; "
-            "the step runs in one process")
+            "param_shardings_tree needs the parameter sharding rules, which "
+            "are not ported yet; the step runs in one process")
 
     def train_step(params, opt_state, batch):
         src = (params if compute_copy_dtype is None

@@ -1013,3 +1013,49 @@ def test_faulted_serving_matches_fault_free_on_card():
     assert faulted["num_requests"] == len(trace) and faulted["fault_events"] >= 1
     for r in trace:
         assert np.array_equal(free["completions"][r.rid], faulted["completions"][r.rid])
+
+
+# the meshes: child processes on this card (tests/_torch_ranks.py's card
+# workers), the counterparts of chip_smoke.py's (M1) and (M2)
+MESH_SAC_KW = dict(episodes=24, warmup_episodes=8, seed=5, num_envs=8)
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_mesh_is_mesh_none_on_card(tmp_path):
+    """One rank over NCCL: ``train_sac`` and ``train_population`` on a
+    1-rank population mesh are bit for bit ``mesh=None`` (launching the
+    kernel); a 1-rank stage mesh's step is the in-process step's, the
+    gate of ``chip_smoke.MESH_GRAD_REL``."""
+    _card()
+    import _torch_ranks as TR
+
+    (r,) = TR.spawn("card_one_rank", 1, tmp_path, timeout=400, backend="nccl",
+                    sac_kw=MESH_SAC_KW, qs=[0.3, 0.8], depth=2)
+    assert r["backend"] == "nccl"
+    for name in ("train_sac", "train_population"):
+        assert r[name]["diff"] == 0.0, (name, r[name])
+        assert r["launches"][name]["ca_attention"] > 0
+    st = r["stage"]
+    assert abs(st["loss"] - st["ref_loss"]) <= 1e-6 * abs(st["ref_loss"])
+    assert st["grad_rel"] <= 1e-4, st
+    assert r["launches"]["stage"]["stage_mlp_block"] == 4 * 2
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_share_the_card(tmp_path):
+    """Two gloo ranks on one card: the population over them is bit for
+    bit the 1-rank run; ``train_sac`` with its envs split finishes with
+    finite curves (its difference from 1 rank is recorded by
+    ``chip_smoke.py``)."""
+    _card()
+    import _torch_ranks as TR
+
+    lead, other = TR.spawn(
+        "card_two_ranks", 2, tmp_path, timeout=400,
+        sac_kw=dict(episodes=16, warmup_episodes=4, seed=5, num_envs=4),
+        pop_kw=dict(episodes=8, warmup_episodes=2, seed=5, num_envs=2),
+        qs=[0.3, 0.5, 0.7, 0.9], small=dict(batch=16, buffer_size=2000))
+    assert "staged through the host" in lead["transport"]
+    assert other["pop_diff"] == 0.0 and other["pop_updated"]
+    assert np.isfinite(lead["sac_diff"]) and lead["sac_updated"]
+    assert lead["launches"]["ca_attention"] > 0 and other["launches"]["ca_attention"] > 0

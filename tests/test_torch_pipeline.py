@@ -187,9 +187,9 @@ print('WIRE_OK')
 
 def test_boundary_validation():
     """Malformed split plans are refused before they reach the executor;
-    ``env_axis`` (not ported) raises NotImplementedError; mixed block
-    periods run through 1F1B and are refused by the fill-drain
-    reference."""
+    ``env_axis`` without a mesh holding that axis raises ValueError;
+    mixed block periods run through 1F1B and are refused by the
+    fill-drain reference."""
     for bad in [(), (2, 2, 4), (3, 2), (0, 2), (-1, 4)]:
         with pytest.raises(ValueError):
             TPIPE.stage_lengths(bad)
@@ -199,7 +199,7 @@ def test_boundary_validation():
         TPIPE.pipeline_step_fn(tcfg, (1, 3), 2)  # last boundary != layers
     with pytest.raises(ValueError):
         TPIPE.pipeline_loss_fn(tcfg, (2, 2, 4), 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # no mesh holds the env axis
         TPIPE.pipeline_step_fn(tcfg, (2, 4), 2, env_axis="env")
     jamba = TC.get_config("jamba-v0.1-52b").reduced()  # mixed periods run
     assert callable(TPIPE.pipeline_step_fn(jamba, (1, 2), 2))  # (1F1B)
@@ -244,8 +244,7 @@ def test_launch_main_end_to_end_on_cpu():
     assert len(res["losses"]) == 2
     assert all(np.isfinite(res["losses"])) and np.isfinite(res["eval_loss"])
     assert res["params"]["embed"].device.type == "cpu"
-    with pytest.raises(SystemExit):  # the population mesh is not ported
-        LAUNCH.parse_args(["--shard-envs"])
+    assert LAUNCH.parse_args(["--shard-envs"]).shard_envs  # the population mesh
     args = LAUNCH.parse_args(["--checkpoint-dir", "ck", "--checkpoint-every",
                               "5", "--fresh"])
     assert (args.checkpoint_dir, args.checkpoint_every, args.fresh) == ("ck", 5, True)
