@@ -160,6 +160,17 @@ Phases (each raises on failure; any failure exits non-zero):
    step (seconds per step beside it, peak memory per rank), then a (2 x
    2) stage x env step at depth 4 in f32 against the in-process step at
    the JAX package's gate; the children's launches join the kernels line;
+4k. the (data x model) mesh, four gloo ranks sharing the card (children
+   that launch no kernel: (M4a) and (M4b) beside the kernels' build,
+   (M4c) beside 4j's M1 and M2): (M4a) the zoo trainer with ``--data-par 2 --model-par
+   2`` on StableLM-2-1.6B at published widths, depth 8, 3 bf16 steps,
+   against one process (losses, updated params, seconds per step, peak
+   memory per rank); (M4b) one (2 x 2) f32 step of Qwen3-MoE-30B-A3B at
+   published widths, depth 2, through ``moe_a2a``, against the
+   one-process dropless step (no copy dropped); (M4c) a (1 x 4) f32
+   decode of Qwen2.5-3B at full depth on a cache split by length, every
+   layer through ``flash_decode``, its greedy tokens equal to one
+   process's. No kernel route: the children launch none;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1965,8 +1976,9 @@ def _mesh_step_check(what, res, loss_rtol, grad_rel, card):
 
 
 def phase_mesh(torch, card):
-    """4j. (M1) one NCCL rank, (M2) two gloo ranks, side by side, then (M3)
-    four gloo ranks, all on this card, as child processes
+    """4j. (M1) one NCCL rank, (M2) two gloo ranks and 4k's (M4c) four gloo
+    ranks, side by side, then (M3) four gloo ranks, all on this card, as
+    child processes
     (``tests/_torch_ranks.py``'s card workers) under a timeout. Each child
     reports the kernel launches of its mesh runs. Returns the launches to
     add to the kernels line."""
@@ -1980,7 +1992,15 @@ def phase_mesh(torch, card):
     t0 = time.perf_counter()
     m1 = TR.start("card_one_rank", 1, base / "m1", backend="nccl", **MESH_M1)
     m2 = TR.start("card_two_ranks", 2, base / "m2", backend="gloo", **MESH_M2)
-    (r1,), r2 = TR.finish(m1, MESH_TIMEOUT_S), TR.finish(m2, MESH_TIMEOUT_S)
+    # 4k's (M4c) beside them: it launches no kernel
+    m4c = TR.start("card_tensor_parallel", 4, base / "m4c", backend="gloo",
+                   parts=["M4c"], m4c=MESH_M4C)
+    try:
+        (r1,), r2 = TR.finish(m1, MESH_TIMEOUT_S), TR.finish(m2, MESH_TIMEOUT_S)
+    except BaseException:
+        for h in (m2, m4c):
+            _kill(h)
+        raise
     t12 = time.perf_counter() - t0
     ca = 0
     for name in ("train_sac", "train_population"):
@@ -2016,6 +2036,7 @@ def phase_mesh(torch, card):
         raise AssertionError(f"M2: train_sac on 2 ranks: {lead}")
     ca += sum(n2)
     log(f"[mesh] M1 and M2 side by side: {t12:.1f} s wall [{card}]")
+    _log_m4c(torch, card, TR.finish(m4c, MESH_TIMEOUT_S), time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     r3 = TR.finish(TR.start("card_stage", 4, base / "m3", backend="gloo", **MESH_M3),
@@ -2045,6 +2066,153 @@ def phase_mesh(torch, card):
     shutil.rmtree(base, ignore_errors=True)
     return {"ca_attention": ca,
             "stage_mlp_block": m1_stage + sum(stage) + sum(env)}
+
+
+# ---------------------------------------------------------------------------
+# 4k. the (data x model) mesh: FSDP over data, tensor parallelism over model
+# ---------------------------------------------------------------------------
+
+# (M4) four gloo ranks sharing the card (NCCL refuses two ranks on one GPU,
+# so the seconds measure host staging, not a link), each part against the
+# one-process run on rank 0:
+# (M4a) the zoo trainer (launch.train) on a (2 x 2) mesh: StableLM-2-1.6B at
+# published widths, depth 8 of 24 (a cut for the phase's time), the
+# trainer's batch 8 x 128, 3 steps, bf16 compute over f32 masters
+MESH_M4A = dict(argv=["--arch", "stablelm-1.6b", "--no-reduced", "--depth", "8",
+                      "--batch", "8", "--seq", "128", "--steps", "3",
+                      "--bf16-compute"])
+# (M4b) one (2 x 2) step of Qwen3-MoE-30B-A3B at published widths, depth 2,
+# every MoE layer through moe_a2a (128 experts: 64 a model rank), f32, at
+# the capacity factor E / top_k = 16 (512 slots an expert for 512 tokens
+# a data rank: no copy can overflow; at 4, 4x the mean load, the second
+# layer dropped 38-41 copies a rank, its router's load being skewed) and
+# without the Switch loss (whose value differs by design between the
+# all-to-all path and the dropless one), against the one-process
+# dropless step; without rematerialization on both sides (the value is
+# the same; the recomputation would gather the f32 experts through the
+# host a third time; (M4a) runs the rematerialized path)
+MESH_M4B = dict(arch="qwen3-moe-30b-a3b", depth=2, rows=8, seq=128,
+                capacity_factor=16.0, remat=False)
+# (M4c) Qwen2.5-3B at published widths and full depth (36 layers), f32, on a
+# (1 x 4) mesh: 2 KV heads do not split over 4 ranks, so the 1 024-entry
+# cache is split by length and every layer decodes through flash_decode;
+# batch 4, each row at its own position (200, 250, 500, 900: row 1 crosses
+# a shard boundary), one prompt token, then 16 greedy steps
+MESH_M4C = dict(arch="qwen2.5-3b", cache=1024, starts=[200, 250, 500, 900],
+                prompt=1, steps=16)
+# gates: (M4a) bf16 partial sums round on each rank, so the losses are held
+# at rtol 2e-3 and the updated params at 1e-2 relative Frobenius norm per
+# leaf (the CPU test's bf16 gates measured at most 1.7e-4 and 5.2e-3);
+# (M4b) f32: loss rtol 1e-5 and the first moment (0.1 x the clipped
+# gradient) 1e-4 relative per leaf (the CPU test: 1e-5, measured 1.3e-6);
+# (M4c) the greedy tokens equal, logits max|diff| 1e-3 (the reference's gate)
+M4A_LOSS_RTOL, M4A_PARAM_REL = 2e-3, 1e-2
+M4B_LOSS_RTOL, M4B_MU_REL = 1e-5, 1e-4
+M4C_LOGIT_ATOL = 1e-3
+
+
+def start_tensor_parallel():
+    """4k. Start (M4a) and (M4b) on four gloo ranks sharing this card, a
+    child process each (``tests/_torch_ranks.py``'s
+    ``card_tensor_parallel``). They launch no kernel, so they run beside
+    the kernels' build (host compilers only: the card's memory is theirs),
+    which keeps the smoke test within its time limit;
+    :func:`phase_tensor_parallel` waits for them."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ranks as TR
+
+    base = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter(), TR.start(
+        "card_tensor_parallel", 4, base, backend="gloo", parts=["M4a", "M4b"],
+        m4a=MESH_M4A, m4b=MESH_M4B)
+
+
+def _kill(handle):
+    """Stop a group of children that is still running (a phase failed
+    before it waited for them)."""
+    for p in handle[2]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _tp_launches(ranks, what):
+    launched = {k: v for r in ranks for part in r["launches"].values()
+                for k, v in part.items() if v}
+    if launched:
+        raise AssertionError(f"{what}: the sharded paths launched kernels {launched}")
+
+
+def phase_tensor_parallel(torch, card, started):
+    """4k. (M4a) and (M4b) (:func:`start_tensor_parallel`): wait for the
+    children under ``MESH_TIMEOUT_S``, log and hold each part to the
+    one-process run. The sharded paths take no kernel route; each child
+    reports its launches, which must be none."""
+    import _torch_ranks as TR
+
+    t0, handle = started
+    ranks = TR.finish(handle, MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    _tp_launches(ranks, "M4a/M4b")
+    a, b = ranks[0]["M4a"], ranks[0]["M4b"]
+
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], a["ref_losses"])]
+    log(f"[mesh M4a] launch.train {' '.join(MESH_M4A['argv'])} on a (2 x 2) mesh "
+        f"({a['transport']}), {a['n_params']} parameters: losses "
+        f"{[round(x, 6) for x in a['losses']]} vs one process "
+        f"{[round(x, 6) for x in a['ref_losses']]} (relative {max(rel):.3e}); updated "
+        f"params {a['param_rel']:.3e} relative per leaf at most, the updates "
+        f"themselves {a['update_rel']:.3e}; seconds per step "
+        f"{[round(x, 3) for x in a['seconds']]} (the first warms) vs one process "
+        f"{[round(x, 3) for x in a['ref_seconds']]}; params + moments resident "
+        f"{[round(r['M4a']['resident_gib'], 3) for r in ranks]} GiB a rank; peak "
+        f"{[round(r['M4a']['peak_gib'], 2) for r in ranks]} GiB a rank (one "
+        f"process {a['ref_peak_gib']:.2f} GiB) [{card}]")
+    if max(rel) > M4A_LOSS_RTOL or a["param_rel"] > M4A_PARAM_REL:
+        raise AssertionError(f"M4a: the (2 x 2) trainer is off the one-process run: {a}")
+
+    dropped = [r["M4b"]["dropped"] for r in ranks]
+    log(f"[mesh M4b] {MESH_M4B['arch']} at published widths, depth "
+        f"{MESH_M4B['depth']}, {MESH_M4B['rows']} x {MESH_M4B['seq']} tokens, f32, "
+        f"moe_a2a on a (2 x 2) mesh ({b['experts_per_rank']} experts a model rank): "
+        f"loss {b['loss']:.6f} vs the one-process dropless step {b['ref_loss']:.6f}; "
+        f"first moment {b['mu_rel']:.3e} relative per leaf at most; copies dropped "
+        f"per moe_apply_a2a call per rank {dropped}; step {b['seconds']:.3f} s "
+        f"vs {b['ref_seconds']:.3f} s in one process; peak "
+        f"{[round(r['M4b']['peak_gib'], 2) for r in ranks]} GiB a rank (one process "
+        f"{b['ref_peak_gib']:.2f} GiB) [{card}]")
+    if (any(any(d) for d in dropped) or not all(len(d) for d in dropped)
+            or abs(b["loss"] - b["ref_loss"]) > M4B_LOSS_RTOL * abs(b["ref_loss"])
+            or b["mu_rel"] > M4B_MU_REL):
+        raise AssertionError(f"M4b: the moe_a2a step is off the dropless step: {b}")
+    laps = {k: round(v, 1) for k, v in ranks[0]["laps"].items()}
+    log(f"[mesh] M4a and M4b {wall:.1f} s wall, beside the kernels' build; "
+        f"rank 0's parts (s) {laps} [{card}]")
+
+
+def _log_m4c(torch, card, ranks, wall):
+    """(M4c), run beside (M1) and (M2): log and hold it to one process."""
+    _tp_launches(ranks, "M4c")
+    c = ranks[0]["M4c"]
+    err = float((c["logits"] - c["ref_logits"]).abs().max())
+    same = bool(torch.equal(c["tokens"], c["ref_tokens"]))
+    calls = [r["M4c"]["flash_calls"] for r in ranks]
+    want = c["layers"] * (MESH_M4C["prompt"] + MESH_M4C["steps"])
+    laps = {k: round(v, 1) for k, v in ranks[0]["laps"].items()}
+    log(f"[mesh M4c] {MESH_M4C['arch']} at published widths, {c['layers']} layers, "
+        f"f32, (1 x 4) mesh, cache {MESH_M4C['cache']} entries placed "
+        f"{c['cache_spec']}: {MESH_M4C['steps']} greedy tokens "
+        f"{'equal' if same else 'NOT equal'} to one process; logits max|diff| "
+        f"{err:.3e}; flash_decode calls per rank {calls} (want {want}); "
+        f"{c['seconds']:.3f} s for {MESH_M4C['prompt'] + MESH_M4C['steps']} decode "
+        f"steps vs {c['ref_seconds']:.3f} s in one process; peak "
+        f"{[round(r['M4c']['peak_gib'], 2) for r in ranks]} GiB a rank; {wall:.1f} s "
+        f"wall beside M1 and M2; rank 0's parts (s) {laps} [{card}]")
+    if not same or err > M4C_LOGIT_ATOL or calls != [want] * 4:
+        raise AssertionError("M4c: the sharded decode is off the one-process decode")
 
 
 # ---------------------------------------------------------------------------
@@ -4347,7 +4515,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     name, card = phase_card(torch)
-    phase_build()
+    tensor_parallel = start_tensor_parallel()
+    try:
+        phase_build()
+    except BaseException:
+        _kill(tensor_parallel[1])
+        raise
+    phase_tensor_parallel(torch, card, tensor_parallel)
     worst = phase_ca_checks(torch)
     stage_err = phase_stage_checks(torch)
     phase_flash_checks(torch)

@@ -8,33 +8,20 @@ NamedTuple field as ``.field``, as ``jax.tree_util`` key paths print),
 and a ``__manifest__`` entry lists the names, bf16 leaves marked
 ``::bf16`` (numpy has no bf16, so they are stored as f32). Restore takes a
 ``like`` tree: its structure, shapes and dtypes are checked and kept, and
-each leaf lands on the ``like`` leaf's device.
+each leaf lands on the ``like`` leaf's device. On a mesh each rank
+restores its blocks from the whole tree's archive (``shardings=``).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, List, Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.tree import _is_namedtuple, tree_unflatten
-
-
-def _flatten_with_path(tree: Any, path: Tuple[str, ...] = ()) -> List:
-    """``[(path, leaf)]`` in :func:`repro_torch.tree.tree_leaves` order."""
-    if isinstance(tree, dict):
-        return [x for k in tree for x in _flatten_with_path(tree[k], path + (str(k),))]
-    if _is_namedtuple(tree):
-        return [x for f, v in zip(tree._fields, tree)
-                for x in _flatten_with_path(v, path + ("." + f,))]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, v in enumerate(tree)
-                for x in _flatten_with_path(v, path + (str(i),))]
-    if tree is None:
-        return []
-    return [(path, tree)]
+from repro_torch.tree import tree_leaves_with_path as _flatten_with_path
+from repro_torch.tree import tree_unflatten
 
 
 def _key_str(path: Tuple[str, ...]) -> str:
@@ -68,19 +55,28 @@ def save_pytree(tree: Any, path: str) -> None:
             os.unlink(tmp)
 
 
-def load_pytree(path: str, like: Any) -> Any:
+def load_pytree(path: str, like: Any, shardings: Any = None) -> Any:
     """The tree saved at ``path``, in the structure of ``like``: every name
     and shape is checked, each leaf is cast to the ``like`` leaf's dtype
-    and put on its device."""
+    and put on its device.
+
+    ``shardings`` (a tree of ``distribution.sharding.Sharding`` records in
+    ``like``'s structure): ``like`` holds this rank's blocks; each archive
+    leaf must have the global shape of its block, and this rank keeps only
+    its block of it."""
     leaves = []
+    shs = [None] * len(_flatten_with_path(like)) if shardings is None else \
+        [sh for _, sh in _flatten_with_path(shardings)]
     with np.load(path, allow_pickle=False) as z:
-        for p, ref in _flatten_with_path(like):
+        for (p, ref), sh in zip(_flatten_with_path(like), shs):
             k = _key_str(p)
             if k not in z:
                 raise KeyError(f"checkpoint {path} missing leaf {k}")
             arr = z[k]
-            if tuple(arr.shape) != tuple(ref.shape):
-                raise ValueError(f"{k}: shape {arr.shape} != expected "
-                                 f"{tuple(ref.shape)}")
+            want = tuple(ref.shape) if sh is None else sh.global_shape(ref.shape)
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{k}: shape {arr.shape} != expected {want}")
+            if sh is not None:
+                arr = arr[sh.index(arr.shape)]
             leaves.append(torch.from_numpy(np.array(arr)).to(ref.device, ref.dtype))
     return tree_unflatten(like, leaves)

@@ -2,23 +2,38 @@
 :class:`repro_torch.launch.mesh.Mesh`.
 
 * :func:`all_gather`: this rank's line along an axis, concatenated in
-  axis order;
-* :func:`all_reduce`: the sum or mean over an axis;
+  axis order along a dimension;
+* :func:`all_reduce`: the sum, mean or max over an axis;
+* :func:`reduce_scatter`: the sum over an axis, this rank's block of it;
+* :func:`all_to_all`: block ``j`` of a dimension to the ``j``-th rank of
+  the line, the blocks received concatenated in source order;
 * :func:`exchange`: point-to-point sends and receives along an axis,
   posted together and then waited on, so two neighbours never both block;
 * :func:`barrier` over the whole mesh.
 
+The differentiable forms carry the sharded train step's backward across
+ranks (``torch.autograd.Function`` subclasses, each with its transpose):
+:func:`all_to_all_ad` (an all-to-all back), :func:`all_gather_ad` (a
+reduce-scatter back, or this rank's slice when what follows is the same
+on every rank of the line), and the column / row-parallel pair
+:func:`enter_parallel` (identity forward, gradient summed over the line)
+and :func:`leave_parallel` (sum forward, gradient passed through), with
+:func:`scale_grad`.
+
 An axis of one rank (and a 1-rank mesh) makes every collective an
-identity. On an NCCL group tensors travel as they are, on the card. On a
-gloo group, which carries host tensors only, a CUDA tensor is copied to
-the host, sent, and the result copied back: ranks that share one card
-talk this way, so their transfers measure host staging, not a link.
-:func:`transport` names which of the two a mesh uses. A CPU tensor on an
-NCCL group raises; nothing falls back silently.
+identity; a collective over several axes runs over each in turn. On an
+NCCL group tensors travel as they are, on the card. On a gloo group,
+which carries host tensors only, a CUDA tensor is copied to the host,
+sent, and the result copied back: ranks that share one card talk this
+way, so their transfers measure host staging, not a link. bf16 travels
+as its 16 bits (a float16 view) where a transfer only moves data, and is
+summed in f32 and rounded once where it is reduced. :func:`transport`
+names which of the two a mesh uses. A CPU tensor on an NCCL group
+raises; nothing falls back silently.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,12 +44,9 @@ from repro_torch.launch.mesh import Mesh
 Tensor = torch.Tensor
 
 
-def _axis(mesh: Mesh, axes: Axes) -> Optional[str]:
-    """The one mesh axis a collective runs over (``None``: no transfer)."""
-    names = [a for a in axes_tuple(axes) if mesh.shape.get(a, 1) > 1]
-    if len(names) > 1:
-        raise NotImplementedError(f"a collective over several axes {names}")
-    return names[0] if names else None
+def _axes(mesh: Mesh, axes: Axes) -> List[str]:
+    """The mesh axes of more than one rank a collective runs over."""
+    return [a for a in axes_tuple(axes) if mesh.shape.get(a, 1) > 1]
 
 
 def _staged(x: Tensor, group) -> bool:
@@ -49,9 +61,10 @@ def _staged(x: Tensor, group) -> bool:
 
 
 def _wire(x: Tensor) -> Tensor:
-    """A contiguous tensor gloo can carry: bf16 travels as its int16 bits."""
+    """A contiguous tensor gloo can carry: bf16 travels as its 16 bits,
+    viewed as float16 (gloo carries no int16)."""
     x = x.contiguous()
-    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+    return x.view(torch.float16) if x.dtype == torch.bfloat16 else x
 
 
 def transport(mesh: Mesh) -> str:
@@ -63,39 +76,201 @@ def transport(mesh: Mesh) -> str:
     return "nccl" if backend == dist.Backend.NCCL else f"{backend}, staged through the host"
 
 
-def all_gather(x: Tensor, mesh: Mesh, axes: Axes) -> Tensor:
-    """``x`` of every rank on this rank's line along ``axes``,
-    concatenated along the leading dimension in axis order."""
-    axis = _axis(mesh, axes)
-    if axis is None:
-        return x
-    group = mesh.groups[axis]
+def _moved(x: Tensor, dim: int, group) -> Tuple[Tensor, bool]:
+    """``x`` detached with ``dim`` leading, contiguous, on the host when
+    ``group`` stages it; and whether it does."""
     staged = _staged(x, group)
-    src = x.detach().cpu() if staged else x.detach()
-    wire = _wire(src)
-    parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, wire, group=group)
-    if src.dtype == torch.bfloat16:
-        parts = [p.view(torch.bfloat16) for p in parts]
-    out = torch.cat(parts)
-    return out.to(x.device) if staged else out
+    src = x.detach().movedim(dim, 0).contiguous()
+    return (src.cpu() if staged else src), staged
+
+
+def all_gather(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
+    """``x`` of every rank on this rank's line along ``axes``,
+    concatenated along ``dim`` in axis order (row-major over several
+    axes, the first outermost)."""
+    for axis in reversed(_axes(mesh, axes)):
+        group = mesh.groups[axis]
+        src, staged = _moved(x, dim, group)
+        wire = _wire(src)
+        parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, wire, group=group)
+        if src.dtype == torch.bfloat16:
+            parts = [p.view(torch.bfloat16) for p in parts]
+        out = torch.cat(parts).movedim(0, dim)
+        x = out.to(x.device) if staged else out
+    return x
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+        "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(x: Tensor, mesh: Mesh, axes: Axes, op: str = "sum") -> Tensor:
-    """The sum (``op="sum"``) or mean (``"mean"``) of ``x`` over this
-    rank's line along ``axes``; ``x`` is left as it was."""
-    if op not in ("sum", "mean"):
-        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
-    axis = _axis(mesh, axes)
-    if axis is None:
+    """The sum (``op="sum"``), mean (``"mean"``) or max (``"max"``) of
+    ``x`` over this rank's line along ``axes`` (over the sub-grid they
+    span, for several); ``x`` is left as it was."""
+    if op not in _OPS:
+        raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+    for axis in _axes(mesh, axes):
+        group = mesh.groups[axis]
+        staged = _staged(x, group)
+        dt = x.dtype
+        buf = x.detach().cpu() if staged else x.detach()
+        buf = buf.float() if dt == torch.bfloat16 else buf.clone()
+        dist.all_reduce(buf, op=_OPS[op], group=group)
+        if op == "mean":
+            buf = buf / mesh.shape[axis]
+        buf = buf.to(dt)
+        x = buf.to(x.device) if staged else buf
+    return x
+
+
+def reduce_scatter(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
+    """The sum of ``x`` over this rank's line along ``axes``, of which this
+    rank keeps its block of ``dim`` (the block :func:`all_gather` would
+    put at its place)."""
+    for axis in _axes(mesh, axes):
+        group = mesh.groups[axis]
+        n = mesh.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"{x.shape[dim]} rows do not split over {axis} ({n})")
+        dt = x.dtype
+        src, staged = _moved(x, dim, group)
+        src = src.float() if dt == torch.bfloat16 else src
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        out = out.to(dt).movedim(0, dim)
+        x = out.to(x.device) if staged else out
+    return x
+
+
+def all_to_all(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
+    """Block ``j`` of ``x``'s ``dim`` (split into as many equal blocks as
+    the line has ranks) goes to the ``j``-th rank of the line; the blocks
+    this rank receives come back concatenated along ``dim`` in source
+    order (``jax.lax.all_to_all`` with ``split_axis = concat_axis``)."""
+    axis = _axes(mesh, axes)
+    if len(axis) > 1:
+        raise NotImplementedError(f"an all-to-all over several axes {axis}")
+    if not axis:
         return x
-    group = mesh.groups[axis]
-    staged = _staged(x, group)
-    buf = x.detach().cpu().clone() if staged else x.detach().clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    if op == "mean":
-        buf = buf / mesh.shape[axis]
-    return buf.to(x.device) if staged else buf
+    group = mesh.groups[axis[0]]
+    src, staged = _moved(x, dim, group)
+    wire = _wire(src)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    if src.dtype == torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    out = out.movedim(0, dim)
+    return out.to(x.device) if staged else out
+
+
+def _slice_block(x: Tensor, mesh: Mesh, axes: Axes, dim: int) -> Tensor:
+    """This rank's block of ``x``'s ``dim`` along ``axes`` (no transfer)."""
+    for axis in _axes(mesh, axes):
+        n, i = mesh.shape[axis], mesh.axis_index(axis)
+        per = x.shape[dim] // n
+        x = x.narrow(dim, i * per, per)
+    return x
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return all_to_all(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, *ctx.args), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad):
+        ctx.args = (mesh, axes, dim)
+        ctx.grad = grad
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = reduce_scatter if ctx.grad == "sum" else _slice_block
+        return fn(g.contiguous(), *ctx.args), None, None, None, None
+
+
+class _EnterParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, *ctx.args), None, None
+
+
+class _LeaveParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def all_to_all_ad(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
+    """:func:`all_to_all` whose backward is the all-to-all of the
+    gradient (its transpose)."""
+    if not _axes(mesh, axes):
+        return x
+    return _AllToAll.apply(x, mesh, axes, dim)
+
+
+def all_gather_ad(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0,
+                  grad: str = "sum") -> Tensor:
+    """:func:`all_gather` along ``dim`` with a backward: ``grad="sum"``
+    reduce-scatters the gradient (the transpose: what follows differs
+    from rank to rank of the line, each gradient a part); ``"slice"``
+    keeps this rank's block of it (what follows is the same on every rank
+    of the line, each gradient already whole)."""
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad must be 'sum' or 'slice', got {grad!r}")
+    if not _axes(mesh, axes):
+        return x
+    return _AllGather.apply(x, mesh, axes, dim, grad)
+
+
+def enter_parallel(x: Tensor, mesh: Mesh, axes: Axes) -> Tensor:
+    """Identity forward; the gradient is summed over the line (the input
+    of column-parallel products, each rank's gradient a part)."""
+    if not _axes(mesh, axes):
+        return x
+    return _EnterParallel.apply(x, mesh, axes)
+
+
+def leave_parallel(x: Tensor, mesh: Mesh, axes: Axes) -> Tensor:
+    """The sum over the line forward; the gradient passes through (the
+    partial outputs of row-parallel products, or partial statistics)."""
+    if not _axes(mesh, axes):
+        return x
+    return _LeaveParallel.apply(x, mesh, axes)
+
+
+def scale_grad(x: Tensor, scale: float) -> Tensor:
+    """Identity forward; the gradient times ``scale``."""
+    return x if scale == 1 else _ScaleGrad.apply(x, scale)
 
 
 def exchange(mesh: Mesh, axis: str,
@@ -123,7 +298,7 @@ def exchange(mesh: Mesh, axis: str,
         tag = sent[off] = sent.get(off, -1) + 1
         works.append(dist.isend(wire, dst=peers[me + off], tag=tag))
     for shape, dtype, off in recvs:
-        wdtype = torch.int16 if dtype == torch.bfloat16 else dtype
+        wdtype = torch.float16 if dtype == torch.bfloat16 else dtype
         dev = "cpu" if staged else device
         buf = torch.empty(shape, dtype=wdtype, device=dev)
         tag = got[off] = got.get(off, -1) + 1

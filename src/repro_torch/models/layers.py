@@ -5,9 +5,14 @@ returns a dict of tensors, the ``*_apply``-style functions consume it.
 Activations run in their own dtype (bf16 in production) with f32 norm,
 rope, softmax and router arithmetic, and every rounding point sits where
 the reference puts it. Attention takes a KV cache for serving (a scalar
-or a per-row cache index, and the sliding-window ring). The distributed
-``flash_decode`` over a length-sharded cache and the all-to-all MoE
-across cards (``moe_a2a``) come with the multi-card work.
+or a per-row cache index, and the sliding-window ring).
+
+Under the sharded step (``distribution.sharding``) the attention, MLP and
+MoE functions take a ``split`` (:class:`~repro_torch.distribution.sharding.ModelSplit`):
+their weights are then this rank's blocks along the model axis (heads,
+FFN columns, experts), or whole where the split gathers them, and the
+partial results are summed over the model axis. ``split=None`` is the
+one-process layer.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution import collectives as C
 
 Tensor = torch.Tensor
 
@@ -280,7 +286,7 @@ def _cached_attention(q: Tensor, ck: Tensor, cv: Tensor, bias: Tensor,
 
 def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
                     kv_cache=None, cache_index=None, impl: str = "auto",
-                    plan: Optional[CachePlan] = None):
+                    plan: Optional[CachePlan] = None, split=None):
     """Self-attention with GQA + RoPE.
 
     ``positions``: (S,) absolute positions, or (B, S) per-row positions
@@ -295,13 +301,17 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     writes its fresh K/V at its own position and masks its own history),
     with the sliding-window ring of :func:`cache_plan`. ``plan``: the
     forward's shared :class:`CachePlan` (made here when None). The cached
-    path ignores ``impl``, as the reference's does. The reference's
-    distributed flash-decode branch needs an active distribution context
-    (a length-sharded cache on a device mesh); the port has none, so that
-    branch is never taken.
+    path ignores ``impl``, as the reference's does.
+
+    ``split`` (the sharded step): this rank's heads or columns, see
+    :func:`_sharded_attention`.
 
     Returns ``(out, new_cache)``, ``new_cache`` None without a cache.
     """
+    if split is not None and split.attn is not None:
+        return _sharded_attention(params, x, cfg, positions=positions,
+                                  kv_cache=kv_cache, cache_index=cache_index,
+                                  impl=impl, plan=plan, split=split)
     b, s, d = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -333,18 +343,135 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
         cv = _row_cache_update(kv_cache["v"], v, plan.rows)
         out = _cached_attention(q, ck, cv, plan.bias, v.dtype)
         new_cache = {"k": ck, "v": cv}
-    elif impl == "pallas":
-        from repro_torch.kernels.flash_attention import flash_attention
-
-        out = flash_attention(q, k, v, causal=True, window=cfg.attention_window)
-    elif impl == "chunked" or (impl == "auto" and s > 2048):
-        out = chunked_attention(q, k, v, q_offset=0, window=cfg.attention_window)
-    elif impl in ("auto", "dense"):
-        out = dense_attention(q, k, v, q_offset=0, window=cfg.attention_window)
     else:
-        raise ValueError(f"unknown attention impl {impl!r}")
+        out = _attention_core(q, k, v, cfg, impl)
     out = out.reshape(b, s, h * hd).to(dt)  # the cache dtype may differ
     return out @ params["wo"].to(dt), new_cache
+
+
+def _attention_core(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
+                    impl: str) -> Tensor:
+    """Causal (windowed) attention of a fresh sequence by ``impl``."""
+    if impl == "pallas":
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True, window=cfg.attention_window)
+    if impl == "chunked" or (impl == "auto" and q.shape[1] > 2048):
+        return chunked_attention(q, k, v, q_offset=0, window=cfg.attention_window)
+    if impl in ("auto", "dense"):
+        return dense_attention(q, k, v, q_offset=0, window=cfg.attention_window)
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _length_shard_update(cache: Tensor, fresh: Tensor, rows: Tensor,
+                         start: int) -> Tensor:
+    """:func:`_row_cache_update` on this rank's part of a cache split by
+    length: global entries ``start .. start + L_loc - 1``. Each row's
+    fresh entries (one token: ``rows`` (B, 1)) land here only if their
+    global row is in that range."""
+    l_loc = cache.shape[1]
+    loc = rows - start
+    inside = (loc >= 0) & (loc < l_loc)
+    loc = loc.clamp(0, l_loc - 1)
+    idx = loc[:, :, None, None].expand(*loc.shape, *cache.shape[2:])
+    old = torch.gather(cache, 1, idx)
+    fresh = torch.where(inside[:, :, None, None], fresh.to(cache.dtype), old)
+    return cache.scatter(1, idx, fresh)
+
+
+def _sharded_attention(params, x: Tensor, cfg: ModelConfig, *, positions,
+                       kv_cache, cache_index, impl, plan, split):
+    """Attention on a model line (``split.attn``):
+
+    * ``"heads"``: this rank's query heads from its column blocks of
+      ``wq`` (``bq``); its KV heads from its blocks of ``wk``/``wv`` when
+      ``split.kv_heads``, else every KV head from the gathered weights,
+      of which each local query head takes its own; its rows of ``wo``,
+      the partial outputs summed over the model axis.
+    * ``"cols"`` (decoding on a cache split by length, or replicated):
+      the query, key and value columns of this rank's blocks, gathered
+      into whole heads; every head attends (through ``flash_decode`` on a
+      length split); this rank's rows of ``wo``, summed.
+    """
+    mesh, ax = split.mesh, split.axis
+    b, s, d = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    # a rank's x-gradient through its heads or column blocks is a part
+    xin = C.enter_parallel(x, mesh, ax)
+
+    def proj(w, bias):
+        whole = split.attn == "cols" and params[w].shape[1] == (
+            h if w == "wq" else kh) * hd  # the same on every rank
+        y = (x if whole else xin) @ params[w].to(dt)
+        return y + params[bias].to(dt) if cfg.qkv_bias else y
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    if split.attn == "heads":
+        hl = q.shape[-1] // hd
+        q = q.reshape(b, s, hl, hd)
+        if k.shape[-1] < kh * hd:  # this rank's KV heads
+            k = k.reshape(b, s, -1, hd)
+            v = v.reshape(b, s, -1, hd)
+        else:  # every KV head: each local query head takes its own
+            sel = (split.index * hl + torch.arange(hl, device=x.device)) // (h // kh)
+            k = k.reshape(b, s, kh, hd)[:, :, sel]
+            v = v.reshape(b, s, kh, hd)[:, :, sel]
+    else:
+        # the column blocks of q, k and v gathered in one transfer; with this
+        # rank's rows of wo, each rank's head gradients are parts
+        grad = "sum" if params["wo"].shape[0] < h * hd else "slice"
+        parts = [q, k, v]
+        cut = [i for i, n in enumerate((h, kh, kh)) if parts[i].shape[-1] < n * hd]
+        if cut:
+            cols = [parts[i].shape[-1] for i in cut]
+            got = C.all_gather_ad(torch.cat([parts[i] for i in cut], dim=-1), mesh,
+                                  ax, dim=-1, grad=grad)
+            got = got.reshape(b, s, split.size, sum(cols))
+            for i, piece in zip(cut, torch.split(got, cols, dim=-1)):
+                parts[i] = piece.reshape(b, s, -1)
+        q, k, v = (t.reshape(b, s, -1, hd) for t in parts)
+    if kv_cache is not None and plan is None:
+        plan = cache_plan(cfg, positions, cache_index, b, s,
+                          split.kv_len or kv_cache["k"].shape[1])
+    if plan is not None:
+        cos, sin = plan.cos, plan.sin
+    else:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    hq = q.shape[2]
+    qk = apply_rope(torch.cat([q, k], dim=2), cos, sin)
+    q, k = qk[:, :, :hq], qk[:, :, hq:]
+
+    new_cache = None
+    if kv_cache is not None and split.kv_len is not None:
+        from repro_torch.models.flash_decode import flash_decode
+
+        window = cfg.attention_window
+        if s != 1 or (window is not None and split.kv_len == window):
+            raise NotImplementedError(
+                "a cache split by length takes one-token decode steps off the "
+                "sliding-window ring; prefill it in one process")
+        start = split.index * kv_cache["k"].shape[1]
+        ck = _length_shard_update(kv_cache["k"], k, plan.rows, start)
+        cv = _length_shard_update(kv_cache["v"], v, plan.rows, start)
+        out = flash_decode(q, ck, cv, cache_index, window=window)
+        new_cache = {"k": ck, "v": cv}
+    elif kv_cache is not None:
+        ck = _row_cache_update(kv_cache["k"], k, plan.rows)
+        cv = _row_cache_update(kv_cache["v"], v, plan.rows)
+        out = _cached_attention(q, ck, cv, plan.bias, v.dtype)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        out = _attention_core(q, k, v, cfg, impl)
+    out = out.reshape(b, s, -1).to(dt)
+    wo = params["wo"]
+    if out.shape[-1] > wo.shape[0]:  # every head, this rank's rows of wo
+        per = wo.shape[0]
+        out = out[..., split.index * per:(split.index + 1) * per]
+    y = out @ wo.to(dt)
+    if out.shape[-1] < h * hd:  # partial sums of the row-parallel product
+        y = C.leave_parallel(y, mesh, ax)
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +495,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
     }
 
 
-def mlp_apply(params, x: Tensor, activation: str) -> Tensor:
-    """Each product is rounded to ``x.dtype``, as the reference's einsums."""
+def mlp_apply(params, x: Tensor, activation: str, split=None) -> Tensor:
+    """Each product is rounded to ``x.dtype``, as the reference's einsums.
+    ``split.mlp``: this rank's FFN columns (``w_gate`` / ``w_up``) and rows
+    (``w_down``), the partial outputs summed over the model axis."""
+    if split is not None and split.mlp:
+        x = C.enter_parallel(x, split.mesh, split.axis)
+        return C.leave_parallel(mlp_apply(params, x, activation), split.mesh,
+                                split.axis)
     dt = x.dtype
     if activation == "swiglu":
         g = x @ params["w_gate"].to(dt)
@@ -381,13 +514,13 @@ def mlp_apply(params, x: Tensor, activation: str) -> Tensor:
 
 
 def mlp_block(norm_w: Tensor, params, x: Tensor, activation: str,
-              eps: float = 1e-6) -> Tensor:
+              eps: float = 1e-6, split=None) -> Tensor:
     """Reference residual MLP half-block: ``x + mlp(rms_norm(x))``.
 
     The hand-written stage kernel (:mod:`repro_torch.kernels.stage_block`)
     computes the same function with fewer roundings; its backward is
     autograd of THIS function, as the JAX kernel's custom VJP is."""
-    return x + mlp_apply(params, rms_norm(x, norm_w, eps), activation)
+    return x + mlp_apply(params, rms_norm(x, norm_w, eps), activation, split)
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +570,23 @@ def _topk_gates(probs: Tensor, k: int):
     return gates, ids
 
 
-def _load_balance_aux(probs: Tensor, ids: Tensor, cfg: ModelConfig) -> Tensor:
+def _load_balance_aux(probs: Tensor, ids: Tensor, cfg: ModelConfig,
+                      split=None) -> Tensor:
     """Switch load-balance loss ``E * sum_e f_e P_e * weight``, with f_e
     the share of tokens whose first choice is e; means over every axis
-    but the experts'."""
+    but the experts'. ``split``: the means are over the whole batch, its
+    rows summed over the batch axes."""
     e = cfg.moe.num_experts
     dims = tuple(range(probs.dim() - 1))
-    f_e = torch.mean(F.one_hot(ids[..., 0], e).float(), dim=dims)
-    p_e = torch.mean(probs, dim=dims)
+    if split is None or not split.batch:
+        f_e = torch.mean(F.one_hot(ids[..., 0], e).float(), dim=dims)
+        p_e = torch.mean(probs, dim=dims)
+    else:
+        n = probs[..., 0].numel() * math.prod(split.mesh.shape.get(a, 1)
+                                              for a in split.batch)
+        f_e = C.all_reduce(F.one_hot(ids[..., 0], e).float().sum(dims),
+                           split.mesh, split.batch) / n
+        p_e = C.leave_parallel(probs.sum(dims), split.mesh, split.batch) / n
     return e * torch.sum(f_e * p_e) * cfg.moe.router_aux_weight
 
 
@@ -465,10 +607,21 @@ def expert_ffn(x: Tensor, w_gate, w_up: Tensor, w_down: Tensor,
     return mm(h, w_down)
 
 
-def moe_apply(params, x: Tensor, cfg: ModelConfig):
+def _expert_range(split, e: int):
+    """This rank's experts ``(lo, hi)`` under ``split.experts``, else all."""
+    if split is None or not split.experts:
+        return 0, e
+    per = e // split.size
+    return split.index * per, (split.index + 1) * per
+
+
+def moe_apply(params, x: Tensor, cfg: ModelConfig, split=None):
     """Capacity-bounded MoE, x (B, S, D) -> ``(y, aux)``. Dispatch by
     scatter-add into an (E, C, D) buffer per group (= batch row); choices
-    past an expert's capacity are dropped."""
+    past an expert's capacity are dropped. ``split.experts``: the expert
+    stacks are this rank's experts, which run on their part of the
+    buffer; every choice's output is summed over the model axis from the
+    rank of its expert."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
@@ -487,13 +640,15 @@ def moe_apply(params, x: Tensor, cfg: ModelConfig):
     slot = expert_ids * c + torch.clamp(pos_in_expert, max=c - 1)  # (B, S, k)
 
     # k separate scatters into the flattened (B * E * C, D) buffer
+    lo, hi = _expert_range(split, e)
+    xe = x if hi - lo == e else C.enter_parallel(x, split.mesh, split.axis)
     group = (torch.arange(b, device=x.device) * (e * c))[:, None]
     buf = x.new_zeros((b * e * c, d))
     for j in range(k):
-        src = x * keep[:, :, j:j + 1].to(dt)
+        src = xe * keep[:, :, j:j + 1].to(dt)
         buf = buf.index_add(0, (slot[:, :, j] + group).reshape(-1),
                             src.reshape(-1, d))
-    buf = buf.reshape(b, e, c, d)
+    buf = buf.reshape(b, e, c, d)[:, lo:hi]
 
     if cfg.activation == "swiglu":
         g = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt))
@@ -503,21 +658,26 @@ def moe_apply(params, x: Tensor, cfg: ModelConfig):
         u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
         hcurr = activation_fn(cfg.activation)(u)
     out = torch.einsum("becf,efd->becd", hcurr, params["w_down"].to(dt))
+    if hi - lo < e:  # this rank's experts in the whole buffer
+        out = torch.cat([out.new_zeros((b, lo, c, d)), out,
+                         out.new_zeros((b, e - hi, c, d))], dim=1)
     out = out.reshape(b, e * c, d)
 
     got = out[torch.arange(b, device=x.device)[:, None],
               slot.reshape(b, s * k)].reshape(b, s, k, d)
+    if hi - lo < e:
+        got = C.leave_parallel(got, split.mesh, split.axis)
     w = (gate_vals * keep).to(dt)
     y = torch.einsum("bskd,bsk->bsd", got, w)
-    return y, _load_balance_aux(probs, expert_ids, cfg)
+    return y, _load_balance_aux(probs, expert_ids, cfg, split)
 
 
-def _moe_route(params, xt: Tensor, cfg: ModelConfig):
+def _moe_route(params, xt: Tensor, cfg: ModelConfig, split=None):
     """Token routing shared by the dropless and dense-reference paths:
     xt (T, D) -> ``(gates (T, k) f32, expert_ids (T, k), aux)``."""
     probs = _router_probs(params, xt)
     gates, ids = _topk_gates(probs, cfg.moe.top_k)
-    return gates, ids, _load_balance_aux(probs, ids, cfg)
+    return gates, ids, _load_balance_aux(probs, ids, cfg, split)
 
 
 def _moe_combine(out_choices: Tensor, gates: Tensor, dtype) -> Tensor:
@@ -576,7 +736,8 @@ def dropless_layout(expert_ids: Tensor, num_experts: int, block_size: int):
 
 
 def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
-                       impl: str = "reference", block_size: int = 128):
+                       impl: str = "reference", block_size: int = 128,
+                       split=None):
     """Dropless MoE dispatch: every routed (token, choice) is computed.
 
     x (B, S, D) -> ``(y, aux)``. The choices are gathered into the
@@ -587,7 +748,10 @@ def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
     over gathered weights); ``impl="pallas"`` the hand-written grouped
     kernel (:mod:`repro_torch.kernels.moe_dispatch`), whose activation
     rounds once where the reference rounds per operation. Padding rows are
-    zero and never gathered back."""
+    zero and never gathered back. ``split.experts``: the expert stacks
+    are this rank's experts, which run on their blocks of the buffer;
+    every choice's output is summed over the model axis from the rank of
+    its expert."""
     from repro_torch.kernels.moe_dispatch import (
         grouped_ffn_reference, grouped_moe_ffn,
     )
@@ -599,19 +763,34 @@ def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
     k = m.top_k
     t = b * s
     xt = x.reshape(t, d)
-    gates, ids, aux = _moe_route(params, xt, cfg)
+    gates, ids, aux = _moe_route(params, xt, cfg, split)
     order, dest, p_rows, block_eid = dropless_layout(ids, m.num_experts,
                                                      block_size)
-    pbuf = x.new_zeros((p_rows, d)).index_copy(0, dest, xt[order // k])
-    if impl == "reference":
+    lo, hi = _expert_range(split, m.num_experts)
+    local = hi - lo < m.num_experts
+    xe = C.enter_parallel(xt, split.mesh, split.axis) if local else xt
+    pbuf = x.new_zeros((p_rows, d)).index_copy(0, dest, xe[order // k])
+    rows = None
+    if local:  # this rank's experts' blocks
+        mine = torch.nonzero((block_eid >= lo) & (block_eid < hi))[:, 0]
+        rows = (mine[:, None] * block_size
+                + torch.arange(block_size, device=x.device)).reshape(-1)
+        pbuf, block_eid = pbuf[rows], block_eid[mine] - lo
+    if not pbuf.shape[0]:  # no block routed to this rank's experts
+        out_p = pbuf
+    elif impl == "reference":
         out_p = grouped_ffn_reference(pbuf, block_eid, params.get("w_gate"),
                                       params["w_up"], params["w_down"],
                                       cfg.activation)
     else:
         out_p = grouped_moe_ffn(pbuf, block_eid, params,
                                 activation=cfg.activation)
+    if local:
+        out_p = out_p.new_zeros((p_rows, d)).index_copy(0, rows, out_p)
     out_sorted = out_p[dest]
     inv = torch.argsort(order)  # flat choice -> sorted row
     got = out_sorted[inv].reshape(t, k, d)
+    if local:
+        got = C.leave_parallel(got, split.mesh, split.axis)
     y = _moe_combine(got, gates, x.dtype)
     return y.reshape(b, s, d), aux

@@ -13,6 +13,15 @@ caches (:func:`init_caches`, the same stacked per-slot layout) through
 the same loop. A modality frontend's projected features (vision patches,
 audio frames: :mod:`repro_torch.models.frontends`) are prepended to the
 token embeddings, and the loss counts only the text region.
+
+Sharded (``shardings=``, the records of
+:func:`repro_torch.distribution.sharding.param_shardings`): the params
+are this rank's blocks and the batch its rows, under an
+``activation_sharding`` context on the same mesh. Each layer's blocks are
+gathered just before use as the rules say (inside the rematerialized
+period, so the backward gathers them again), the layers run on this
+rank's heads, FFN columns, experts and vocabulary, and each gradient
+comes back as the whole gradient of the rank's block.
 """
 from __future__ import annotations
 
@@ -23,6 +32,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution import collectives as C
+from repro_torch.distribution import context as ctx
+from repro_torch.distribution import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.frontends import frontend_apply, init_frontend
@@ -84,7 +96,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, slot_sig,
 
 
 def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
-                cache=None, cache_index=None, impl: str = "auto", plan=None):
+                cache=None, cache_index=None, impl: str = "auto", plan=None,
+                split=None):
     """One residual block. Returns ``(x, new_cache, aux)``.
 
     ``impl="pallas_stage"`` (the split executor's
@@ -111,7 +124,7 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
         out, new_kv = L.attention_apply(
             p["attn"], h, cfg, positions=positions,
             kv_cache=None if cache is None else {"k": cache["k"], "v": cache["v"]},
-            cache_index=cache_index, impl=half_impl, plan=plan)
+            cache_index=cache_index, impl=half_impl, plan=plan, split=split)
         new_cache = {} if new_kv is None else new_kv
     else:
         out, (new_ssm, new_conv) = S.mamba_apply(
@@ -123,19 +136,28 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
     x = x + out
     if has_mlp:
         if is_moe:
+            from repro_torch.models.moe_a2a import a2a_applicable, moe_apply_a2a
+
             h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-            if cfg.moe.dispatch == "dropless":
-                y, aux = L.moe_apply_dropless(p["moe"], h2, cfg)
+            if ctx.moe_a2a_enabled() and a2a_applicable(cfg):
+                y, aux = moe_apply_a2a(p["moe"], h2, cfg)
+            elif cfg.moe.dispatch == "dropless":
+                y, aux = L.moe_apply_dropless(p["moe"], h2, cfg, split=split)
             else:
-                y, aux = L.moe_apply(p["moe"], h2, cfg)
+                y, aux = L.moe_apply(p["moe"], h2, cfg, split=split)
             x = x + y
         elif impl == "pallas_stage":
             from repro_torch.kernels.stage_block import stage_mlp_block
 
+            if split is not None and split.mlp:
+                raise NotImplementedError(
+                    "the stage kernel fuses a whole MLP half-block; it does not "
+                    "run on FFN columns split over the model axis")
             x = stage_mlp_block(p["norm2"], p["mlp"], x,
                                 activation=cfg.activation, eps=cfg.norm_eps)
         else:
-            x = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps)
+            x = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps,
+                            split=split)
     return x, new_cache, aux
 
 
@@ -226,9 +248,44 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
+def model_split(cfg: ModelConfig, shardings, caches=None, cache_shardings=None):
+    """The :class:`~repro_torch.distribution.sharding.ModelSplit` of a
+    sharded forward: the mesh of the records, the batch axes of the active
+    ``activation_sharding`` context (which must be on that mesh), and,
+    with caches, the placement of the first attention slot's KV cache."""
+    mesh = tree_leaves(shardings)[0].mesh
+    if not ctx.active() or ctx.mesh().shape != mesh.shape:
+        raise ValueError("a sharded step runs under activation_sharding on the "
+                         f"mesh of its shardings ({mesh.shape})")
+    cache_spec = cache_len = None
+    if caches is not None:
+        sig = signature(cfg)
+        attn = [si for si in range(find_period(sig)) if sig[si][0] == "A"]
+        if attn:
+            rec = cache_shardings[attn[0]]["k"]
+            cache_spec = rec.spec
+            cache_len = rec.global_shape(caches[attn[0]]["k"].shape)[2]
+    return SH.model_split(cfg, mesh, ctx.batch_axes(), ctx.model_axis(),
+                          cache_spec=cache_spec, cache_len=cache_len)
+
+
+def _embed_lookup(embed: Tensor, tokens: Tensor, split) -> Tensor:
+    """Rows of ``embed`` for ``tokens``; with the vocabulary split over the
+    model axis, each rank looks up the tokens of its rows (zeros for the
+    others) and the lookups are summed over the axis."""
+    if split is None or not split.vocab:
+        return embed[tokens.long()]
+    vb = embed.shape[0]
+    ids = tokens.long() - split.index * vb
+    inside = (ids >= 0) & (ids < vb)
+    x = embed[ids.clamp(0, vb - 1)] * inside[..., None].to(embed.dtype)
+    return C.leave_parallel(x, split.mesh, split.axis)
+
+
 def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
             cache_index=None, frontend_feats=None, impl: str = "auto",
-            remat: bool = False, compute_dtype=torch.bfloat16):
+            remat: bool = False, compute_dtype=torch.bfloat16,
+            shardings=None, cache_shardings=None):
     """tokens: (B, S) int. Returns ``(logits, new_caches, aux)``, ``aux``
     the sum of the MoE blocks' router losses.
 
@@ -243,12 +300,27 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
     serving engine's slots); ``new_caches`` has the same layout, None
     without caches. ``remat`` recomputes each period of blocks in the
     backward pass (``torch.utils.checkpoint``); the value is the same
-    either way."""
+    either way.
+
+    ``shardings`` (and ``cache_shardings`` with caches): a sharded forward
+    on this rank's blocks and rows (see the module docstring). Its logits
+    are this rank's part of the vocabulary when the model axis splits it
+    (``model_split(...).vocab``)."""
     sig = signature(cfg)
     period = find_period(sig)
-    x = params["embed"].to(compute_dtype)[tokens.long()]
+    split = None
+    if shardings is not None:
+        split = model_split(cfg, shardings, caches, cache_shardings)
+
+    def top(name):  # a top-level leaf as the forward computes with it
+        if split is None:
+            return params[name]
+        return SH.use_tree(params[name], shardings[name], split, name)
+
+    embed = top("embed")
+    x = _embed_lookup(embed.to(compute_dtype), tokens, split)
     if frontend_feats is not None:
-        fe = frontend_apply(params["frontend"], frontend_feats.to(compute_dtype))
+        fe = frontend_apply(top("frontend"), frontend_feats.to(compute_dtype))
         x = torch.cat([fe, x], dim=1)
     s = x.shape[1]
     steps = torch.arange(s, device=x.device)
@@ -264,15 +336,20 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
     attn = [si for si in range(period) if sig[si][0] == "A"]
     if caches is not None and attn:
         plan = L.cache_plan(cfg, positions, cache_index, x.shape[0], s,
-                            caches[attn[0]]["k"].shape[2])
+                            (split and split.kv_len) or caches[attn[0]]["k"].shape[2])
+    layer_sh = None if split is None else [
+        tree_map(lambda sh: sh.drop_leading(), slot) for slot in shardings["slots"]]
 
     def run(blocks, layer_caches, xact, aux):
+        if split is not None:  # gathered here, so a recomputed period regathers
+            blocks = [SH.use_tree(blk, layer_sh[si], split, f"slots/{si}")
+                      for si, blk in enumerate(blocks)]
         new = []
         for si in range(period):
             xact, nc, a = block_apply(
                 blocks[si], xact, cfg, sig[si], positions=positions,
                 cache=None if layer_caches is None else layer_caches[si],
-                cache_index=cache_index, impl=impl, plan=plan)
+                cache_index=cache_index, impl=impl, plan=plan, split=split)
             new.append(nc)
             aux = aux + a
         return xact, aux, new
@@ -295,8 +372,10 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
         new_caches = tuple(
             tree_map(lambda *xs: torch.stack(xs), *[nc[si] for nc in per_layer])
             for si in range(period))
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    x = L.rms_norm(x, top("final_norm"), cfg.norm_eps)
+    head = embed.T if cfg.tie_embeddings else top("lm_head")
+    if split is not None and split.vocab:  # each rank's x-gradient is a part
+        x = C.enter_parallel(x, split.mesh, split.axis)
     logits = x @ head.to(compute_dtype)
     return logits, new_caches, aux
 
@@ -306,12 +385,35 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *, caches=None,
 # ---------------------------------------------------------------------------
 
 
-def softmax_xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None):
-    """logits: (B,S,V); labels: (B,S) int; mask: (B,S) 1 = count. f32."""
+def softmax_xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None,
+                 split=None):
+    """logits: (B,S,V); labels: (B,S) int; mask: (B,S) 1 = count. f32.
+
+    ``split`` (a sharded forward's): the rows are this rank's, the mean is
+    over the whole batch, and this rank's part of it comes back (their
+    sum over the batch axes is the loss); with the vocabulary split over
+    the model axis, ``logits`` are this rank's part of it and the
+    log-softmax is taken across the axis."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if split is not None and split.vocab:
+        mesh, ax = split.mesh, split.axis
+        m = C.all_reduce(logits.detach().amax(dim=-1), mesh, ax, op="max")
+        se = C.leave_parallel(torch.exp(logits - m[..., None]).sum(-1), mesh, ax)
+        logz = m + torch.log(se)
+        vb = logits.shape[-1]
+        ids = labels.long() - split.index * vb
+        inside = (ids >= 0) & (ids < vb)
+        gold = torch.gather(logits, -1, ids.clamp(0, vb - 1)[..., None])[..., 0]
+        gold = C.leave_parallel(gold * inside, mesh, ax)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
+    if split is not None and split.batch:
+        count = nll.new_tensor(float(nll.numel())) if mask is None else mask.float().sum()
+        count = C.all_reduce(count, split.mesh, split.batch)
+        num = nll.sum() if mask is None else (nll * mask.float()).sum()
+        return num / torch.clamp(count, min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -319,34 +421,48 @@ def softmax_xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, impl="auto", remat=True,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, shardings=None):
     """``(loss + aux, (loss, aux))`` of ``batch = {"tokens", "labels"[,
     "mask"][, "frontend"]}``; with frontend features the loss counts only
     the text region (the features are a prefix). ``compute_dtype`` is the
-    reference's ``forward`` default (bf16); pass f32 for an f32 forward."""
+    reference's ``forward`` default (bf16); pass f32 for an f32 forward.
+    ``shardings``: a sharded forward on this rank's blocks and rows;
+    ``loss`` is then this rank's part of the batch mean (see
+    :func:`softmax_xent`) and ``aux`` the whole batch's."""
     frontend = batch.get("frontend")
     logits, _, aux = forward(params, batch["tokens"], cfg,
                              frontend_feats=frontend, impl=impl, remat=remat,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, shardings=shardings)
     if frontend is not None:
         logits = logits[:, logits.shape[1] - batch["labels"].shape[1]:]
-    loss = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    split = None if shardings is None else model_split(cfg, shardings)
+    loss = softmax_xent(logits, batch["labels"], batch.get("mask"), split)
     return loss + aux, (loss, aux)
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, *, impl="auto", remat=True,
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, shardings=None):
     """``((total, (loss, aux)), grads)``: the value and gradient of
-    :func:`loss_fn` with respect to every leaf, in the params layout."""
+    :func:`loss_fn` with respect to every leaf, in the params layout.
+    ``shardings``: params are this rank's blocks and ``batch`` its rows;
+    the loss is the whole batch's and each gradient the whole gradient of
+    the rank's block."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
         total, (loss, aux) = loss_fn(p, batch, cfg, impl=impl, remat=remat,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     shardings=shardings)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    return ((total.detach(), (loss.detach(), aux.detach())),
-            tree_unflatten(params, grads))
+    grads = tree_unflatten(params, [torch.zeros_like(t) if g is None else g
+                                    for t, g in zip(leaves, grads)])
+    loss, aux = loss.detach(), aux.detach()
+    if shardings is not None:
+        split = model_split(cfg, shardings)
+        grads = SH.sync_grads(grads, shardings, split)
+        loss = C.all_reduce(loss, split.mesh, split.batch)
+        total = loss + aux
+    return (total.detach(), (loss, aux)), grads
 
 
 def compute_copy(params, dtype):
@@ -371,24 +487,30 @@ def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
     are cast to it once per step (:func:`compute_copy`), the gradient is
     taken with respect to that copy and cast back to each master's dtype,
     and the optimizer updates the f32 masters (classic mixed precision).
-    ``param_shardings_tree`` pins the copy to the masters' shardings in
-    the reference; the parameter sharding rules are not ported yet, so it
-    raises."""
-    if param_shardings_tree is not None:
-        raise NotImplementedError(
-            "param_shardings_tree needs the parameter sharding rules, which "
-            "are not ported yet; the step runs in one process")
+
+    ``param_shardings_tree`` (:func:`~repro_torch.distribution.sharding.param_shardings`
+    of the params): the sharded step. Under ``activation_sharding`` on the
+    records' mesh, ``params`` and both AdamW moments are this rank's blocks
+    and ``batch`` its rows (``batch_sharding``); the step computes what the
+    one-process step computes on the whole tree and batch. The bf16 copy
+    is cast on the blocks, never on a gathered tensor, and the optimizer
+    clips by the mesh-wide global norm (``update(..., shardings=)``)."""
+    psh = param_shardings_tree
 
     def train_step(params, opt_state, batch):
         src = (params if compute_copy_dtype is None
                else compute_copy(params, compute_copy_dtype))
         (total, (loss, aux)), grads = loss_and_grads(
             src, batch, cfg, impl=impl, remat=remat,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, shardings=psh)
         del src  # the copy is spent: free it before the optimizer's trees
         if compute_copy_dtype is not None:
             grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
+        if psh is None:
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+        else:
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  shardings=psh)
         del grads
         params = apply_updates(params, updates)
         return params, opt_state, {"loss": loss, "aux": aux, "total": total}
@@ -414,16 +536,42 @@ def make_prefill_step(cfg: ModelConfig, *, impl="auto",
 
 
 def make_decode_step(cfg: ModelConfig, *, impl="auto",
-                     compute_dtype=torch.bfloat16):
+                     compute_dtype=torch.bfloat16, param_shardings_tree=None,
+                     cache_shardings_tree=None):
     """``decode(params, tokens (B, 1), caches, cache_index) -> (logits
     (B, V), caches)``; ``cache_index`` is the tokens already seen, a
     scalar (a lockstep batch) or a (B,) vector (per-slot counts, the
-    serving engine)."""
+    serving engine).
+
+    ``param_shardings_tree`` (``param_shardings(mode="serve")``) and
+    ``cache_shardings_tree`` (``cache_shardings``): the sharded decode
+    step, under ``activation_sharding`` on their mesh. ``params`` and
+    ``caches`` are this rank's blocks, ``tokens`` and ``cache_index`` its
+    rows, and the logits of its rows come back whole. A cache whose KV
+    heads the model axis does not divide is split by length and every
+    layer decodes through ``models.flash_decode``. Attention-only configs:
+    an SSM or hybrid config on a model axis above 1 raises."""
+    psh, csh = param_shardings_tree, cache_shardings_tree
+    if psh is not None:
+        if csh is None:
+            raise ValueError("a sharded decode step needs cache_shardings_tree")
+        mesh = tree_leaves(psh)[0].mesh
+        if "M" in cfg.pattern and mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the sharded decode of Mamba blocks (SSM heads and "
+                "conv channels over the model axis) is not ported; decode it on "
+                "a mesh whose model axis has one rank")
 
     def decode(params, tokens, caches, cache_index):
         logits, new_caches, _ = forward(
             params, tokens, cfg, caches=caches, cache_index=cache_index,
-            impl=impl, compute_dtype=compute_dtype)
-        return logits[:, -1], new_caches
+            impl=impl, compute_dtype=compute_dtype, shardings=psh,
+            cache_shardings=csh)
+        logits = logits[:, -1]
+        if psh is not None:
+            split = model_split(cfg, psh, caches, csh)
+            if split.vocab:
+                logits = C.all_gather(logits, split.mesh, split.axis, dim=-1)
+        return logits, new_caches
 
     return decode

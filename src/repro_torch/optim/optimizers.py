@@ -9,7 +9,10 @@ frameworks take the same steps from the same state::
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-Functional, like the reference: every call returns new tensors.
+Functional, like the reference: every call returns new tensors. On a
+mesh, ``update(grads, state, params, shardings=)`` takes trees of this
+rank's blocks (``distribution.sharding.param_shardings``) and clips by
+the global norm of the whole tree, summed over the mesh.
 """
 from __future__ import annotations
 
@@ -38,16 +41,22 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32. ``shardings``:
+    ``tree`` holds this rank's blocks, and the norm is the whole tree's
+    (``distribution.sharding.global_norm``)."""
+    if shardings is not None:
+        from repro_torch.distribution.sharding import global_norm as mesh_norm
+
+        return mesh_norm(tree, shardings)
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 
 
-def _clip_scale(tree, max_norm: float):
+def _clip_scale(tree, max_norm: float, shardings=None):
     """``(scale, norm)``: the factor that brings ``tree``'s global norm to
     at most ``max_norm``, and that norm."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -100,10 +109,10 @@ def adamw(
             nu=tree_map(lambda x: torch.zeros_like(x, dtype=state_dtype), params),
         )
 
-    def update(grads, state: OptState, params=None):
+    def update(grads, state: OptState, params=None, shardings=None):
         scale = None
         if max_grad_norm is not None:  # clip_by_global_norm, leaf by leaf below
-            scale, _ = _clip_scale(grads, max_grad_norm)
+            scale, _ = _clip_scale(grads, max_grad_norm, shardings)
         step = state.step + 1
         stepf = step.float()
         bc1 = 1 - b1 ** stepf
@@ -144,8 +153,8 @@ def sgd_momentum(lr: Union[float, Callable] = 1e-2,
             step=torch.zeros((), dtype=torch.int32, device=leaf.device),
             mu=tree_map(torch.zeros_like, params))
 
-    def update(grads, state: OptState, params=None):
-        step = state.step + 1
+    def update(grads, state: OptState, params=None, shardings=None):
+        step = state.step + 1  # no clip: blocks update as they are
         mu = tree_map(lambda m, g: momentum * m + g.to(m.dtype), state.mu, grads)
         lr_t = lr_fn(step)
         updates = tree_map(lambda m, p: (-lr_t * m).to(p.dtype), mu, params)

@@ -8,7 +8,7 @@ not leaves.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -28,6 +28,24 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def tree_leaves_with_path(tree: Any, path: Tuple[str, ...] = ()) -> List:
+    """``[(path, leaf)]`` in :func:`tree_leaves` order: a dict key or a
+    list/tuple index as written, a NamedTuple field as ``.field``, as
+    ``jax.tree_util`` key paths print."""
+    if isinstance(tree, dict):
+        return [x for k in tree
+                for x in tree_leaves_with_path(tree[k], path + (str(k),))]
+    if _is_namedtuple(tree):
+        return [x for f, v in zip(tree._fields, tree)
+                for x in tree_leaves_with_path(v, path + ("." + f,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (str(i),))]
+    if tree is None:
+        return []
+    return [(path, tree)]
 
 
 def tree_leaves(tree: Any) -> List[Any]:

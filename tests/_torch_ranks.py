@@ -66,8 +66,9 @@ def finish(handle, timeout=60):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"{worker} rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    failed = [f"rank {r} exited {p.returncode}:\n{out[-3000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs)) if p.returncode]
+    assert not failed, f"{worker}: " + "\n".join(failed)
     import torch
 
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
@@ -252,6 +253,323 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
         out["env"] = (float(loss), P.gather_stage_tree(grads, params, cfg,
                                                        bounds, mesh))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the (data x model) mesh: sharded train and decode steps, moe_a2a,
+# load_pytree(shardings=) and the zoo trainer on a (2 x 2) host mesh
+# ---------------------------------------------------------------------------
+
+
+class CaptureGrads:
+    """An optimizer that returns zero updates and keeps the gradients as
+    its state (so a step hands them back)."""
+
+    def update(self, grads, state, params=None, shardings=None):
+        from repro_torch.tree import tree_map
+
+        return tree_map(lambda g: g * 0, grads), grads
+
+
+def tp_config(arch, **over):
+    """The reduced arch with ``over`` replaced (an ``moe`` dict replaces
+    fields of the MoE config)."""
+    import dataclasses
+
+    from repro_torch import configs as TC
+
+    cfg = TC.get_config(arch).reduced()
+    if "moe" in over:
+        over = dict(over, moe=dataclasses.replace(cfg.moe, **over["moe"]))
+    return dataclasses.replace(cfg, **over)
+
+
+def tp_batch(cfg, rows, seq, seed):
+    """A numpy-drawn batch of the whole ``rows`` (the same on every rank)."""
+    from repro_torch.data import synthetic_batch
+
+    return synthetic_batch(cfg, rows, seq, seed=seed, device="cpu")
+
+
+def tp_train_cases():
+    """(name, arch, overrides, dtype) of the (2 x 2) train steps: three
+    configs in f32 and bf16, and in f32 the capacity MoE dispatch, a
+    frontend (Pixtral's projector) and tied embeddings on an SSM-only
+    stack (Mamba2-370m)."""
+    out = []
+    for name, arch, over in (("stablelm", "stablelm-1.6b", {}),
+                             ("qwen3-moe", "qwen3-moe-30b-a3b", {"num_kv_heads": 1}),
+                             ("jamba", "jamba-v0.1-52b", {})):
+        for dtype in ("float32", "bfloat16"):
+            out.append((f"{name}-{dtype}", arch, over, dtype))
+    return out + [("qwen3-moe-capacity-float32", "qwen3-moe-30b-a3b",
+                   {"moe": {"dispatch": "capacity"}}, "float32"),
+                  ("pixtral-float32", "pixtral-12b", {}, "float32"),
+                  ("mamba2-float32", "mamba2-370m", {}, "float32")]
+
+
+TP_ROWS, TP_SEQ, TP_CLIP = 4, 32, 0.5
+
+
+def a2a_train_config(cf):
+    """Reduced Qwen3-MoE for the ``moe_a2a`` train step: capacity factor
+    ``cf``, and no Switch loss, whose value differs by design between the
+    all-to-all path (each data shard's, averaged) and the dropless one
+    (the whole batch's) and whose gradient reaches every leaf before the
+    router."""
+    return tp_config("qwen3-moe-30b-a3b",
+                     moe={"capacity_factor": cf, "router_aux_weight": 0.0})
+
+
+def tp_step(cfg, dtype, shardings=None, opt=None):
+    """The step of a (2 x 2) train case: f32 compute, or bf16 compute over
+    a bf16 weight copy."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    bf16 = dtype == "bfloat16"
+    return M.make_train_step(
+        cfg, opt or adamw(1e-3, max_grad_norm=TP_CLIP),
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+        compute_copy_dtype=torch.bfloat16 if bf16 else None,
+        param_shardings_tree=shardings)
+
+
+def tp_update(params, grads, shardings=None):
+    """One AdamW update (clipped at ``TP_CLIP``) from fresh moments: the
+    optimizer half of a train step, on the gradients a capture step
+    handed back."""
+    from repro_torch.optim import adamw, apply_updates
+
+    opt = adamw(1e-3, max_grad_norm=TP_CLIP)
+    kw = {} if shardings is None else {"shardings": shardings}
+    updates, state = opt.update(grads, opt.init(params), params, **kw)
+    return apply_updates(params, updates), state
+
+
+def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
+    """4 ranks on a (2 x 2) (data x model) mesh: (a) the train cases, their
+    gradients' mesh-wide norm and one AdamW step; (b) StableLM's bf16
+    gradients from the JAX package's weights; (c) ``moe_apply_a2a`` at the
+    default capacity factor (outputs, aux, drops, gradients of the output
+    sum) and at ``a2a_cf``; (d) a train step with ``moe_a2a=True``; (e)
+    sharded decode steps (a cache split by length, then by heads); (f)
+    ``load_pytree(shardings=)``; (g) ``launch.train`` with ``--data-par 2
+    --model-par 2``. Rank 0 returns the gathered trees."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import weights as W
+    from repro_torch.checkpoint.store import load_pytree, save_pytree
+    from repro_torch.distribution import context as ctx
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe_a2a as A2A
+    from repro_torch.optim import optimizers as O
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_host_mesh(2, 2, device="cpu")
+    lead = rank == 0
+    out = {"train": {}, "decode": {}, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    def rows(batch):
+        mine = SH.shard_rows(mesh, SH.batch_axes(mesh, TP_ROWS), TP_ROWS)
+        return {k: v[mine] for k, v in batch.items()}
+
+    def gathered(tree, shardings):
+        full = SH.gather_tree(tree, shardings)
+        return full if lead else None
+
+    # (a) the train cases
+    for name, arch, over, dtype in tp_train_cases():
+        cfg = tp_config(arch, **over)
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        psh = SH.param_shardings(params, cfg, mesh)
+        blocks = SH.blocks(params, psh)
+        batch = rows(tp_batch(cfg, TP_ROWS, TP_SEQ, seed=1))
+        with ctx.activation_sharding(mesh, SH.batch_axes(mesh, TP_ROWS)):
+            _, grads, m = tp_step(cfg, dtype, psh, CaptureGrads())(blocks, None, batch)
+            norm = float(O.global_norm(grads, psh))
+            new, state = tp_update(blocks, grads, psh)
+        out["train"][name] = dict(
+            loss=float(m["loss"]), aux=float(m["aux"]), norm=norm,
+            grads=gathered(grads, psh), params=gathered(new, psh),
+            mu=gathered(state.mu, psh), nu=gathered(state.nu, psh),
+            block_shapes={"embed": tuple(new["embed"].shape),
+                          "mu_slot0": tuple(tree_leaves(state.mu["slots"][0])[-1].shape)})
+
+    lap("a")
+    # (b) StableLM from the JAX package's weights, bf16 as the reference
+    with np.load(stablelm_path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    cfg = tp_config("stablelm-1.6b")
+    params = W.model_params_from_jax(unflatten(flat), "cpu")
+    psh = SH.param_shardings(params, cfg, mesh)
+    batch = {"tokens": torch.from_numpy(flat["__tokens__"]).long(),
+             "labels": torch.from_numpy(flat["__labels__"]).long()}
+    with ctx.activation_sharding(mesh, SH.batch_axes(mesh, TP_ROWS)):
+        _, grads, m = M.make_train_step(cfg, CaptureGrads(), param_shardings_tree=psh)(
+            SH.blocks(params, psh), None, rows(batch))
+    out["jax_step"] = dict(loss=float(m["loss"]), grads=gathered(grads, psh))
+
+    lap("b")
+    # (c) moe_apply_a2a: the default capacity factor, then a2a_cf
+    with np.load(moe_path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    x_all = torch.from_numpy(flat["__x__"])
+    mp = {k: torch.from_numpy(v) for k, v in flat.items() if not k.startswith("__")}
+    out["a2a"] = {}
+    for cf in (None, a2a_cf):
+        cfg = tp_config("qwen3-moe-30b-a3b")
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+        msh = SH.param_shardings(mp, cfg, mesh)
+        xs = SH.batch_sharding(mesh, x_all.shape[0], extra_dims=2)
+        x = xs.block(x_all)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(SH.blocks(mp, msh))]
+        blk = dict(zip(mp, leaves))
+        with ctx.activation_sharding(mesh, SH.batch_axes(mesh, x_all.shape[0]),
+                                     moe_a2a=True):
+            split = SH.model_split(cfg, mesh, ctx.batch_axes())
+            assert A2A.a2a_applicable(cfg)
+            y, aux = A2A.moe_apply_a2a(SH.use_tree(blk, msh, split), x, cfg)
+            g = torch.autograd.grad(y.float().sum(), leaves)
+            grads = SH.sync_grads(dict(zip(mp, g)), msh, split)
+            dropped = torch.tensor(float(A2A.dropped_choices(mp, x, cfg)))
+            dropped = SH.gather_tree({"d": dropped[None]}, {"d": SH.Sharding(mesh, ("data",))})
+            ys = SH.gather_tree(y.detach(), xs)
+        out["a2a"]["default" if cf is None else "cf"] = dict(
+            y=ys if lead else None, aux=float(aux.detach()), dropped=float(dropped["d"].sum()),
+            grads=gathered(grads, msh))
+
+    lap("c")
+    # (d) a train step through moe_a2a, at a capacity factor with no drops
+    cfg = a2a_train_config(a2a_cf)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    psh = SH.param_shardings(params, cfg, mesh)
+    batch = rows(tp_batch(cfg, TP_ROWS, TP_SEQ, seed=1))
+    opt = O.adamw(1e-3, max_grad_norm=TP_CLIP)
+    blocks = SH.blocks(params, psh)
+    with ctx.activation_sharding(mesh, SH.batch_axes(mesh, TP_ROWS), moe_a2a=True):
+        new, state, m = tp_step(cfg, "float32", psh, opt)(blocks, opt.init(blocks), batch)
+    out["a2a_train"] = dict(loss=float(m["loss"]), aux=float(m["aux"]),
+                            params=gathered(new, psh), mu=gathered(state.mu, psh))
+
+    lap("d")
+    # (e) sharded decode steps
+    for name, kv in (("length", 1), ("heads", 2)):
+        out["decode"][name] = decode_run(mesh, kv)
+
+    lap("e")
+    # (f) load_pytree(shardings=): the whole tree saved, each rank its blocks
+    cfg = tp_config("stablelm-1.6b")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    psh = SH.param_shardings(params, cfg, mesh)
+    ck = os.path.join(tmp, "params.npz")
+    if lead:
+        save_pytree(params, ck)
+    dist.barrier()
+    blocks = SH.blocks(params, psh)
+    back = load_pytree(ck, tree_map(torch.zeros_like, blocks), shardings=psh)
+    out["load"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                         tree_leaves(blocks)))
+
+    lap("f")
+    # (g) the zoo trainer on the (2 x 2) mesh
+    res = TRAIN.main(TRAIN_ARGV + ["--data-par", "2", "--model-par", "2",
+                                   "--ckpt", os.path.join(tmp, "trained.npz")])
+    out["launcher"] = dict(losses=res["losses"])
+    lap("g")
+    return out
+
+
+TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--steps", "3", "--batch", "4", "--seq",
+              "32", "--device", "cpu"]
+DECODE_STEPS, DECODE_BATCH, DECODE_CACHE = 6, 2, 8
+
+
+def decode_tokens(cfg, seed=3):
+    """The teacher-forced tokens (steps, B) of the decode runs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (DECODE_STEPS, DECODE_BATCH))
+
+
+def decode_case(kv):
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg = tp_config("qwen2.5-3b", num_kv_heads=kv)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    return cfg, params
+
+
+def decode_run(mesh, kv):
+    """``DECODE_STEPS`` f32 decode steps of reduced Qwen2.5-3B with ``kv``
+    KV heads from an empty ``DECODE_CACHE``-entry cache, each row at its
+    own position (row b starts at b), on ``mesh`` (``mesh=None``: in one
+    process). Returns the logits of every step (B, V) and whether the
+    steps went through ``flash_decode``."""
+    import torch
+
+    from repro_torch.distribution import context as ctx
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.models import flash_decode as FD
+    from repro_torch.models import model as M
+
+    cfg, params = decode_case(kv)
+    caches = M.init_caches(cfg, DECODE_BATCH, DECODE_CACHE, dtype=torch.float32,
+                           device="cpu")
+    toks = torch.from_numpy(decode_tokens(cfg)).long()
+    idx0 = torch.arange(DECODE_BATCH)
+    calls = []
+    real = FD.flash_decode
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    FD.flash_decode = counted
+    try:
+        if mesh is None:
+            step = M.make_decode_step(cfg, compute_dtype=torch.float32)
+            out = []
+            for t in range(DECODE_STEPS):
+                lg, caches = step(params, toks[t][:, None], caches, idx0 + t)
+                out.append(lg)
+            return dict(logits=torch.stack(out), flash=len(calls))
+        psh = SH.param_shardings(params, cfg, mesh, mode="serve")
+        csh = SH.cache_shardings(caches, cfg, mesh, DECODE_BATCH)
+        bsh = SH.batch_sharding(mesh, DECODE_BATCH, extra_dims=0)
+        step = M.make_decode_step(cfg, compute_dtype=torch.float32,
+                                  param_shardings_tree=psh, cache_shardings_tree=csh)
+        blocks, cblocks = SH.blocks(params, psh), SH.blocks(caches, csh)
+        out = []
+        with ctx.activation_sharding(mesh, SH.batch_axes(mesh, DECODE_BATCH)):
+            for t in range(DECODE_STEPS):
+                lg, cblocks = step(blocks, bsh.block(toks[t])[:, None], cblocks,
+                                   bsh.block(idx0 + t))
+                out.append(SH.gather_tree(lg, SH.batch_sharding(mesh, DECODE_BATCH)))
+        return dict(logits=torch.stack(out), flash=len(calls),
+                    spec=csh[0]["k"].spec)
+    finally:
+        FD.flash_decode = real
 
 
 # ---------------------------------------------------------------------------
@@ -480,8 +798,373 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
     return out
 
 
+def _tree_rel(a, b):
+    """Per leaf, ``|a - b|_F / |b|_F``; the largest over the leaves."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    return max(float(torch.linalg.norm((x.double() - y.double()).flatten())
+                     / max(float(torch.linalg.norm(y.double().flatten())), 1e-30))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _in_turn(rank, world, fn):
+    """``fn()`` on each rank in turn (rank order, one at a time), so that
+    transient whole-model tensors of several ranks never coexist on a
+    shared card."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
+                         device="cuda"):
+    """(M4) four gloo ranks sharing the card on (data x model) meshes,
+    each part against the one-process run on rank 0: (M4a) the zoo
+    trainer on a (2 x 2) mesh (``launch.train.main``); (M4b) one (2 x 2)
+    train step with ``moe_a2a=True`` (the one-process dropless step first,
+    its results kept on the host and freed from the card); (M4c) greedy
+    decoding on a (1 x 4) mesh, the cache split by length (every layer
+    through ``flash_decode``). Runs the ``parts`` named, each with its
+    dict of sizes; reports each part's kernel launches (none expected).
+    ``device="cpu"`` with reduced parts runs it on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distribution import context as ctx
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.distribution.collectives import transport
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train_mhsl_rl import executed_config
+    from repro_torch.models import flash_decode as FD
+    from repro_torch.models import model as M
+    from repro_torch.models import moe_a2a as A2A
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lead = rank == 0
+    out = {"launches": {}, "laps": {}}
+    cuda = device == "cuda"
+    clock = [time.perf_counter()]
+
+    def lap(name):  # wall seconds of each part of the worker, in order
+        now = time.perf_counter()
+        out["laps"][name] = now - clock[0]
+        clock[0] = now
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+
+    def reset():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if "M4a" in parts:
+        # (M4a) the zoo trainer: (2 x 2) mesh, then one process on rank 0
+        argv = list(m4a["argv"])
+        reset()
+        before = _launches()
+        t0 = time.perf_counter()
+        res = TRAIN.main(argv + ["--data-par", "2", "--model-par", "2"])
+        wall = time.perf_counter() - t0
+        out["launches"]["M4a"] = _since(before)
+        mesh, psh = res["mesh"], res["shardings"]
+        resident = sum(t.numel() * t.element_size() for t in
+                       tree_leaves((res["params"], res["opt_state"].mu, res["opt_state"].nu)))
+        a = dict(losses=res["losses"], seconds=res["step_seconds"], wall=wall,
+                 peak_gib=peak(),
+                 resident_gib=resident / 2 ** 30, transport=transport(mesh))
+        lap("M4a mesh run")
+        params = SH.gather_tree(res["params"], psh)
+        del res
+        reset()
+        if lead:
+            saved = _launches()
+            ref = TRAIN.main(argv)
+            a.update(ref_losses=ref["losses"], ref_seconds=ref["step_seconds"],
+                     ref_peak_gib=peak(),
+                     param_rel=_tree_rel(params, ref["params"]))
+            init = M.init_params(torch.Generator(device=device).manual_seed(0), ref["cfg"],
+                                 device=device)
+            a["update_rel"] = _tree_rel(tree_map(lambda x, y: x - y, params, init),
+                                        tree_map(lambda x, y: x - y, ref["params"], init))
+            a["n_params"] = sum(t.numel() for t in tree_leaves(init))
+            del ref, init
+            _restore(saved)
+        lap("M4a gather + one process")
+        del params
+        reset()
+        out["M4a"] = a
+        dist.barrier()
+
+    if "M4b" in parts:
+        # (M4b) one (2 x 2) step through moe_a2a, f32, no Switch loss
+        base = executed_config(m4b["arch"], m4b["depth"], reduced=not cuda)
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=m4b["capacity_factor"], router_aux_weight=0.0))
+        mesh = make_host_mesh(2, 2, device=device)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (m4b["rows"], m4b["seq"])))
+                 .to(device) for k in ("tokens", "labels")}
+        opt = adamw(linear_warmup_cosine(3e-4, 10, 1), max_grad_norm=1.0)
+        b = {}
+        ref = None
+        if lead:  # the one-process dropless step first; its results on the host
+            saved = _launches()
+            params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                   device=device)
+            step = M.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                     remat=m4b["remat"])
+            sync()
+            t1 = time.perf_counter()
+            new, state, m = step(params, opt.init(params), batch)
+            sync()
+            b.update(ref_seconds=time.perf_counter() - t1, ref_loss=float(m["loss"]),
+                     ref_peak_gib=peak())
+            ref = tree_map(lambda x: x.cpu(), state.mu)
+            del params, new, state, step
+            _restore(saved)
+            reset()
+        dist.barrier()
+        psh = None
+
+        def init_blocks():
+            nonlocal psh
+            full = M.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                 device=device)
+            psh = SH.param_shardings(full, cfg, mesh)
+            blk = SH.blocks(full, psh)
+            del full
+            reset()
+            return blk
+
+        lap("M4b one process")
+        blocks = _in_turn(rank, world, init_blocks)
+        lap("M4b blocks")
+        reset()
+        rows = SH.shard_rows(mesh, SH.batch_axes(mesh, m4b["rows"]), m4b["rows"])
+        local = {k: v[rows] for k, v in batch.items()}
+        before = _launches()
+        with ctx.activation_sharding(mesh, SH.batch_axes(mesh, m4b["rows"]), moe_a2a=True):
+            calls = []  # each MoE layer's dropped copies on this rank, per call
+            real = A2A.moe_apply_a2a
+
+            def counted(p, x, c):
+                calls.append(A2A.dropped_choices(p, x, c))
+                return real(p, x, c)
+
+            A2A.moe_apply_a2a = counted
+            try:
+                step = M.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                         remat=m4b["remat"], param_shardings_tree=psh)
+                sync()
+                t1 = time.perf_counter()
+                new, state, m = step(blocks, opt.init(blocks), local)
+                sync()
+                secs = time.perf_counter() - t1
+            finally:
+                A2A.moe_apply_a2a = real
+        out["launches"]["M4b"] = _since(before)
+        b.update(loss=float(m["loss"]), seconds=secs, a2a_calls=len(calls),
+                 dropped=calls, peak_gib=peak(),
+                 experts_per_rank=tree_leaves(new["slots"][0]["moe"]["w_up"])[0].shape[1])
+        lap("M4b mesh step")
+        b["mu_rel"] = _scattered_rel(state.mu, psh, ref, mesh, device)
+        lap("M4b compare")
+        del blocks, new, state, step, ref
+        reset()
+        out["M4b"] = b
+        dist.barrier()
+
+    if "M4c" in parts:
+        # (M4c) greedy decoding on a (1 x 4) mesh, the cache split by length
+        cfg = executed_config(m4c["arch"], None, reduced=not cuda)
+        if not cuda:  # a head count the 4-rank model axis does not divide
+            cfg = dataclasses.replace(cfg, num_kv_heads=2)
+        mesh = make_host_mesh(1, 4, device=device)
+        starts = torch.tensor(m4c["starts"], device=device)
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (m4c["prompt"], len(m4c["starts"])))).to(device)
+
+        def decode(step, params, caches):
+            """The prompt teacher-forced, then greedy steps; the logits and
+            tokens from the last prompt step on (every row on every rank: the
+            mesh has one data rank)."""
+            toks, logits, tok = [], [], None
+            t1 = time.perf_counter()
+            for t in range(m4c["prompt"] + m4c["steps"]):
+                feed = prompt[t] if t < m4c["prompt"] else tok
+                lg, caches = step(params, feed[:, None], caches, starts + t)
+                tok = lg.argmax(-1)
+                if t >= m4c["prompt"] - 1:
+                    logits.append(lg.float().cpu())
+                    toks.append(tok.cpu())
+            sync()
+            return torch.stack(toks[:-1]), torch.stack(logits[:-1]), time.perf_counter() - t1
+
+        c = {}
+        if lead:
+            saved = _launches()
+            params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                   device=device)
+            caches = M.init_caches(cfg, len(m4c["starts"]), m4c["cache"],
+                                   dtype=torch.float32, device=device)
+            step = M.make_decode_step(cfg, compute_dtype=torch.float32)
+            c["ref_tokens"], c["ref_logits"], c["ref_seconds"] = decode(step, params, caches)
+            del params, caches, step
+            _restore(saved)
+            reset()
+        dist.barrier()
+        lap("M4c one process")
+        caches = M.init_caches(cfg, len(m4c["starts"]), m4c["cache"], dtype=torch.float32,
+                               device=device)
+        csh = SH.cache_shardings(caches, cfg, mesh, len(m4c["starts"]))
+        psh = None
+
+        def serve_blocks():
+            nonlocal psh
+            full = M.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                 device=device)
+            psh = SH.param_shardings(full, cfg, mesh, mode="serve")
+            blk = SH.blocks(full, psh)
+            del full
+            reset()
+            return blk
+
+        blocks = _in_turn(rank, world, serve_blocks)
+        cblocks = SH.blocks(caches, csh)
+        del caches
+        reset()
+        lap("M4c blocks")
+        step = M.make_decode_step(cfg, compute_dtype=torch.float32,
+                                  param_shardings_tree=psh, cache_shardings_tree=csh)
+        calls = []
+        real = FD.flash_decode
+
+        def counted(*args, **kw):
+            calls.append(1)
+            return real(*args, **kw)
+
+        FD.flash_decode = counted
+        before = _launches()
+        try:
+            with ctx.activation_sharding(mesh, SH.batch_axes(mesh, len(m4c["starts"]))):
+                c["tokens"], c["logits"], c["seconds"] = decode(step, blocks, cblocks)
+        finally:
+            FD.flash_decode = real
+        out["launches"]["M4c"] = _since(before)
+        c.update(flash_calls=len(calls), cache_spec=csh[0]["k"].spec,
+                 peak_gib=peak(),
+                 layers=cfg.num_layers)
+        out["M4c"] = c
+        lap("M4c mesh decode")
+    return out
+
+
+def card_tp_step(rank, world, tmp, device="cuda"):
+    """Four gloo ranks sharing the card: reduced StableLM-1.6B's (2 x 2)
+    f32 train step (the gradients, their mesh-wide norm, one AdamW
+    update), against the one-process step on rank 0 (same weights: the
+    seeded CPU init, moved)."""
+    import torch
+
+    from repro_torch.distribution import context as ctx
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_map
+
+    mesh = make_host_mesh(2, 2, device=device)
+    cfg = tp_config("stablelm-1.6b")
+    params = tree_map(lambda t: t.to(device), M.init_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    batch = {k: v.to(device) for k, v in tp_batch(cfg, TP_ROWS, TP_SEQ, seed=1).items()}
+    psh = SH.param_shardings(params, cfg, mesh)
+    rows = SH.shard_rows(mesh, SH.batch_axes(mesh, TP_ROWS), TP_ROWS)
+    before = _launches()
+    with ctx.activation_sharding(mesh, SH.batch_axes(mesh, TP_ROWS)):
+        blocks = SH.blocks(params, psh)
+        _, grads, m = tp_step(cfg, "float32", psh, CaptureGrads())(
+            blocks, None, {k: v[rows] for k, v in batch.items()})
+        norm = float(global_norm(grads, psh))
+        new, state = tp_update(blocks, grads, psh)
+    out = dict(launches=_since(before), loss=float(m["loss"]), norm=norm,
+               device=str(mesh.device))
+    new, mu = SH.gather_tree(new, psh), SH.gather_tree(state.mu, psh)
+    if rank == 0:
+        _, ref_grads, rm = tp_step(cfg, "float32", None, CaptureGrads())(params, None, batch)
+        ref, ref_state = tp_update(params, ref_grads)
+        out.update(ref_loss=float(rm["loss"]), ref_norm=float(global_norm(ref_grads)),
+                   param_rel=_tree_rel(new, ref), mu_rel=_tree_rel(mu, ref_state.mu))
+    return out
+
+
+def _scattered_rel(blocks, shardings, ref, mesh, device):
+    """Per leaf, ``|blocks - ref|_F / |ref|_F`` of the whole tree, the
+    largest over the leaves. Rank 0 holds ``ref`` (on the host) and
+    scatters each rank its block of every leaf; each block's squared
+    norms count once (divided by the ranks that hold it), summed over the
+    mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distribution import collectives as C
+    from repro_torch.distribution.sharding import Sharding
+    from repro_torch.launch.mesh import Mesh
+
+    grid = [Mesh(mesh.axis_names, mesh.axis_sizes, tuple(int(c) for c in xy))
+            for xy in np.ndindex(*mesh.axis_sizes)]  # rank r at grid[r]
+    refs = [r for _, r in _paths(ref)] if mesh.rank == 0 else None
+    worst = 0.0
+    for i, ((_, x), (_, sh)) in enumerate(zip(_paths(blocks), _paths(shardings))):
+        mine = torch.empty(x.shape, dtype=x.dtype)
+        parts = None if refs is None else [
+            Sharding(at, sh.spec).block(refs[i]).contiguous() for at in grid]
+        dist.scatter(mine, parts, src=0)
+        y = mine.to(device)
+        sq = torch.stack([torch.sum(torch.square((x - y).double())),
+                          torch.sum(torch.square(y.double()))]) / sh.replicas
+        num, den = C.all_reduce(sq, mesh, mesh.axis_names).tolist()
+        worst = max(worst, (num / max(den, 1e-300)) ** 0.5)
+    return worst
+
+
+def _paths(tree):
+    from repro_torch.tree import tree_leaves_with_path
+
+    return tree_leaves_with_path(tree)
+
+
+def _restore(saved):
+    """Put the kernel counters back to ``saved`` (a reference run's
+    launches are not the path's)."""
+    from repro_torch.launch import train_mhsl_rl as RUN
+
+    for name, mod in RUN.KERNEL_MODULES.items():
+        mod.launches = saved[name]
+
+
 WORKERS = {f.__name__: f for f in (population_runs, sac_runs, stage_runs,
-                                   card_one_rank, card_two_ranks, card_stage)}
+                                   tensor_parallel_runs, card_one_rank,
+                                   card_two_ranks, card_stage,
+                                   card_tensor_parallel, card_tp_step)}
 
 
 def _main(argv):

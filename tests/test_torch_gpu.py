@@ -1059,3 +1059,23 @@ def test_two_gloo_ranks_share_the_card(tmp_path):
     assert other["pop_diff"] == 0.0 and other["pop_updated"]
     assert np.isfinite(lead["sac_diff"]) and lead["sac_updated"]
     assert lead["launches"]["ca_attention"] > 0 and other["launches"]["ca_attention"] > 0
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_step_on_four_gloo_ranks(tmp_path):
+    """Four gloo ranks sharing the card on a (2 x 2) (data x model) mesh:
+    reduced StableLM-1.6B's f32 train step, params and AdamW moments as
+    ``param_shardings`` blocks, against the one-process step: loss ``rtol
+    1e-5``, the clip's mesh-wide norm ``rtol 1e-6``, the updated params
+    and first moment 1e-4 relative per leaf (``chip_smoke.MESH_GRAD_REL``);
+    no kernel route (the counterpart of ``chip_smoke.py``'s (M4))."""
+    _card()
+    import _torch_ranks as TR
+
+    lead, *rest = TR.spawn("card_tp_step", 4, tmp_path, timeout=400)
+    assert lead["device"].startswith("cuda")
+    assert lead["loss"] == pytest.approx(lead["ref_loss"], rel=1e-5)
+    assert lead["norm"] == pytest.approx(lead["ref_norm"], rel=1e-6)
+    assert lead["param_rel"] <= 1e-4 and lead["mu_rel"] <= 1e-4, lead
+    assert all(not any(r["launches"].values()) for r in [lead, *rest])
+

@@ -12,8 +12,11 @@ against the JAX package, on the CPU.
   the port's parts (``make_train_step``, ``adamw(linear_warmup_cosine(
   3e-4, 10, 5))``, ``synthetic_stream``) against the same JAX parts; the
   reference's forward computes in bf16, so the curve is held at bf16.
+* On a 1-rank mesh, ``make_train_step(param_shardings_tree=)`` with the
+  bf16 copy is the one-process step (``rtol 1e-5``, the mean of its loss
+  summed in another order).
 * The trainer's ``main`` on reduced StableLM, Pixtral and Jamba on the
-  CPU, ``--ckpt``, and the flags it refuses.
+  CPU, ``--ckpt``, and a mesh larger than the world.
 
 Tolerances (bf16: two frameworks round different sums):
 - bf16 copy: loss ``rtol 1e-3`` (measured 1.2e-4); gradients in
@@ -39,7 +42,10 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch import data as TD  # noqa: E402
 from repro_torch import weights as W  # noqa: E402
 from repro_torch.checkpoint.store import load_pytree  # noqa: E402
+from repro_torch.distribution.context import activation_sharding  # noqa: E402
+from repro_torch.distribution.sharding import param_shardings  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.optim import optimizers as TO  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -84,7 +90,7 @@ class _JaxCapture:
 
 
 class _Capture:
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shardings=None):
         return tree_map(torch.zeros_like, grads), grads
 
 
@@ -143,9 +149,25 @@ def test_compute_copy_casts_what_the_reference_casts():
                        TM.compute_copy(params, torch.bfloat16))
         assert jax.tree.leaves(got) == jax.tree.leaves(rule)
         assert TM.compute_copy(params, torch.bfloat16)["final_norm"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        TM.make_train_step(TC.get_config("jamba-v0.1-52b").reduced(), _Capture(),
-                           param_shardings_tree={})
+    # the copy is cast on the masters' blocks: on a 1-rank mesh the sharded
+    # step is the one-process step (its loss's mean sums in another order)
+    cfg = TC.get_config("jamba-v0.1-52b").reduced()
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = TD.synthetic_batch(cfg, 2, 16, device="cpu")
+    mesh = make_host_mesh(1, 1, device="cpu")
+    psh = param_shardings(params, cfg, mesh)
+    step = TM.make_train_step(cfg, _Capture(), compute_copy_dtype=torch.bfloat16,
+                              param_shardings_tree=psh)
+    with pytest.raises(ValueError, match="activation_sharding"):
+        step(params, None, batch)
+    with activation_sharding(mesh, ("data",)):
+        _, got, m = step(params, None, batch)
+    _, ref, mref = TM.make_train_step(cfg, _Capture(), compute_copy_dtype=torch.bfloat16)(
+        params, None, batch)
+    assert float(m["loss"]) == pytest.approx(float(mref["loss"]), rel=1e-6)
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        assert a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_no_copy_step_is_unchanged():
@@ -205,9 +227,12 @@ def test_main_trains_on_cpu(arch, tmp_path, capsys):
 
 
 def test_main_refuses_meshes_and_takes_published_widths():
-    for flag in ("--data-par", "--model-par"):
-        with pytest.raises(SystemExit):
-            TRAIN.parse_args([flag, "2"])
+    args = TRAIN.parse_args(["--data-par", "2", "--model-par", "2"])
+    assert (args.data_par, args.model_par) == (2, 2)
+    assert (TRAIN.parse_args([]).data_par, TRAIN.parse_args([]).model_par) == (1, 1)
+    # a mesh larger than the world raises (one rank here)
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 1"):
+        TRAIN.main(["--data-par", "2", "--model-par", "2", "--device", "cpu"])
     args = TRAIN.parse_args(["--no-reduced", "--depth", "2"])
     assert not args.reduced and args.depth == 2
     assert TRAIN.parse_args([]).reduced  # reduced stays the default
