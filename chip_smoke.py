@@ -64,12 +64,13 @@ Phases (each raises on failure; any failure exits non-zero):
    (the stage calls on the tensor-core GEMMs, no FMA grid) and of one
    held-out call (the 8 attention calls on ``flash_fwd_tc``); then one
    f32 pipelined step at depth 2 against ``make_train_step``;
-4c. (A) Mamba2-370m through the launcher at full width and full depth
-   (48 layers): plan, 1F1B training through ``ssd_chunked``, and a
-   held-out loss whose 48 scans run on ``ssd_scan``; the kernel against
+4c. (A) Mamba2-370m through the launcher at full width, depth 24 of 48
+   (a cut for the smoke's time): plan, 1F1B training through
+   ``ssd_chunked``, and a held-out loss whose 24 scans run on
+   ``ssd_scan``; the kernel against
    its plain version on every scan of one held-out call, and that loss
    against the ``ssd_chunked`` route's; a trace of one held-out call (the
-   48 scans on the 3xTF32 kernel ``ssd_scan_tc``);
+   24 scans on the 3xTF32 kernel ``ssd_scan_tc``);
 4d. (B) one Qwen3-MoE-30B-A3B MoE layer at full width on 8 x 256 bf16
    tokens: the dropless dispatch through ``grouped_moe_ffn``, held to the
    reference route; the capacity dispatch beside them; a trace of one
@@ -109,8 +110,8 @@ Phases (each raises on failure; any failure exits non-zero):
    (``figures.band.POP_CARD_BAND``) on 3 seeds against the JAX runs
    committed in ``tests/data/torch_population_reference.json``, every
    metric inside, the population never leaving warmup outside;
-4h. serving: (S1) Qwen2.5-3B at published widths and full depth (36
-   layers), f32, through the continuous-batching engine on a 32-request
+4h. serving: (S1) Qwen2.5-3B at published widths, depth 18 of 36 (a
+   cut for the smoke's time), f32, through the continuous-batching engine on a 32-request
    Poisson trace (16 slots): every greedy completion bitwise equal to
    ``generate_reference``'s; at temperature 0.7 every completion bitwise
    equal to static batching's (``run_static``) and the 4 longest to
@@ -154,12 +155,17 @@ Phases (each raises on failure; any failure exits non-zero):
    step; (M2) two gloo ranks sharing the card, beside M1: four scenarios
    split over them bit for bit the 1-rank population, ``train_sac`` with
    its envs split against one rank (its difference recorded); (M3) four
-   gloo ranks: Qwen2.5-3B at published widths, depth 8 on 4 stages, M =
+   gloo ranks, run beside 4g's population band (host-bound, one
+   process) and checked here: Qwen2.5-3B at published widths, depth 8 on 4 stages, M =
    4, 8 x 256 tokens, bf16 through ``stage_mlp_block`` with host-staged
    hops, the gradients assembled on rank 0 and held to the in-process
-   step (seconds per step beside it, peak memory per rank), then a (2 x
-   2) stage x env step at depth 4 in f32 against the in-process step at
-   the JAX package's gate; the children's launches join the kernels line;
+   step (seconds per step beside it, peak memory per rank), one step of
+   the launcher's ``make_pipeline_train_step(mesh=)`` (AdamW on the
+   shares, the clip's norm summed over the ranks, the tied embedding
+   once) against the one-process launcher step's norm and updated
+   parameters on the same inputs, then a (2 x 2) stage x env step at depth
+   4 in f32 against the in-process step at the JAX package's gate; the
+   children's launches join the kernels line;
 4k. the (data x model) mesh, four gloo ranks sharing the card (children
    that launch no kernel: (M4a) and (M4b) beside the kernels' build,
    (M4c) beside 4j's M1 and M2): (M4a) the zoo trainer with ``--data-par 2 --model-par
@@ -170,7 +176,16 @@ Phases (each raises on failure; any failure exits non-zero):
    one-process dropless step (no copy dropped); (M4c) a (1 x 4) f32
    decode of Qwen2.5-3B at full depth on a cache split by length, every
    layer through ``flash_decode``, its greedy tokens equal to one
-   process's. No kernel route: the children launch none;
+   process's; and Mamba2-370m at full depth on the same (1 x 4) mesh,
+   each Mamba block on its SSM heads and conv channels, its greedy tokens
+   equal to one process's. No kernel route: the children launch none;
+4l. (M5a, beside 4f's band) serving on four gloo stage ranks sharing the
+   card: Qwen2.5-3B at published widths and full depth on stages 9/18/27/36,
+   bf16 with ``stage_impl="pallas"``, ``ServingService(mesh=)`` over an
+   8-request Poisson trace, every rank's completions bit for bit the
+   one-process service's, each rank launching ``stage_mlp_block`` for its
+   own 9 layers once per ring pass (added to the kernels line), ms per
+   decode step and peak memory per rank;
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1953,6 +1968,11 @@ MESH_TIMEOUT_S = 420
 # max|ref| per leaf)
 MESH_LOSS_RTOL = 1e-6
 MESH_GRAD_REL = 1e-4
+# (M3)'s launcher step on the stage ranks: the clip's norm (per-rank
+# partial sums of f32 squares, summed over the ranks) against the
+# one-process launcher step's norm on the same inputs, and the updated
+# parameters against its updated parameters at the step's gate
+MESH_NORM_RTOL = 1e-6
 ENV_LOSS_RTOL = 1e-6
 ENV_GRAD_REL = 1e-5
 
@@ -1975,13 +1995,38 @@ def _mesh_step_check(what, res, loss_rtol, grad_rel, card):
         raise AssertionError(f"{what}: the mesh step is off the in-process step: {res}")
 
 
-def phase_mesh(torch, card):
+def start_stage_mesh():
+    """4j. Start (M3) on four gloo ranks sharing this card, a child process
+    each (``tests/_torch_ranks.py``'s ``card_stage``), to run beside the
+    population band (host-bound, one process);
+    :func:`finish_stage_mesh` waits and :func:`phase_mesh` checks."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ranks as TR
+
+    base = ROOT / "build" / "chip_smoke_m3"
+    shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter(), TR.start("card_stage", 4, base, backend="gloo",
+                                         **MESH_M3)
+
+
+def finish_stage_mesh(started):
+    """(M3)'s ranks' results under ``MESH_TIMEOUT_S`` and its wall time."""
+    import _torch_ranks as TR
+
+    t0, handle = started
+    return TR.finish(handle, MESH_TIMEOUT_S), time.perf_counter() - t0
+
+
+def phase_mesh(torch, card, m3):
     """4j. (M1) one NCCL rank, (M2) two gloo ranks and 4k's (M4c) four gloo
-    ranks, side by side, then (M3) four gloo ranks, all on this card, as
-    child processes
-    (``tests/_torch_ranks.py``'s card workers) under a timeout. Each child
-    reports the kernel launches of its mesh runs. Returns the launches to
-    add to the kernels line."""
+    ranks, side by side, all on this card, as child processes
+    (``tests/_torch_ranks.py``'s card workers) under a timeout, then the
+    checks of (M3) (four gloo ranks, run beside the population band:
+    ``m3`` is :func:`finish_stage_mesh`'s result). Each child reports the
+    kernel launches of its mesh runs. Returns the launches to add to the
+    kernels line."""
     import shutil
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1994,7 +2039,8 @@ def phase_mesh(torch, card):
     m2 = TR.start("card_two_ranks", 2, base / "m2", backend="gloo", **MESH_M2)
     # 4k's (M4c) beside them: it launches no kernel
     m4c = TR.start("card_tensor_parallel", 4, base / "m4c", backend="gloo",
-                   parts=["M4c"], m4c=MESH_M4C)
+                   parts=["M4c", "M4c_mamba"], m4c=MESH_M4C,
+                   m4c_mamba=MESH_M4C_MAMBA)
     try:
         (r1,), r2 = TR.finish(m1, MESH_TIMEOUT_S), TR.finish(m2, MESH_TIMEOUT_S)
     except BaseException:
@@ -2038,12 +2084,11 @@ def phase_mesh(torch, card):
     log(f"[mesh] M1 and M2 side by side: {t12:.1f} s wall [{card}]")
     _log_m4c(torch, card, TR.finish(m4c, MESH_TIMEOUT_S), time.perf_counter() - t0)
 
-    t0 = time.perf_counter()
-    r3 = TR.finish(TR.start("card_stage", 4, base / "m3", backend="gloo", **MESH_M3),
-                   MESH_TIMEOUT_S)
+    r3, m3_wall = m3
     stage = [r["launches"]["stage"]["stage_mlp_block"] for r in r3]
     env = [r["launches"]["stage_env"]["stage_mlp_block"] for r in r3]
-    want = _mesh_stage_launches(MESH_M3["micro"], MESH_M3["bounds"], MESH_M3["steps"])
+    # the timed steps and the launcher's step
+    want = _mesh_stage_launches(MESH_M3["micro"], MESH_M3["bounds"], MESH_M3["steps"] + 1)
     want_env = [n for n in _mesh_stage_launches(MESH_M3["micro"], MESH_M3["env_bounds"], 1)
                 for _ in range(2)]
     first = r3[0]["stage"]
@@ -2056,14 +2101,26 @@ def phase_mesh(torch, card):
         f"{[round(r['stage']['peak_gib'], 2) for r in r3]} GiB; stage_mlp_block per "
         f"rank {stage} [{card}]")
     _mesh_step_check("M3 4-stage mesh", first, MESH_LOSS_RTOL, MESH_GRAD_REL, card)
+    log(f"[mesh M3] the launcher's step (make_pipeline_train_step(mesh=), "
+        f"{first['update_seconds']:.3f} s) on the 4 stage ranks: clip norm "
+        f"{first['norm']:.9g} summed over the ranks vs {first['ref_norm']:.9g} in "
+        f"the one-process launcher step (relative "
+        f"{abs(first['norm'] - first['ref_norm']) / first['ref_norm']:.3e}); updated "
+        f"params max|diff| {first['update_rel']:.3e} of max|ref| per leaf at most "
+        f"[{card}]")
+    if (abs(first["norm"] - first["ref_norm"]) > MESH_NORM_RTOL * first["ref_norm"]
+            or first["update_rel"] > MESH_GRAD_REL):
+        raise AssertionError(f"M3: the stage-rank update is off the one-process update: "
+                             f"{first}")
     if stage != want or env != want_env:
         raise AssertionError(f"M3 stage_mlp_block launches {stage} / {env}, want "
                              f"{want} / {want_env}")
     _mesh_step_check("M3 (2 x 2) stage x env, f32, depth "
                      f"{MESH_M3['env_depth']}", r3[0]["stage_env"], ENV_LOSS_RTOL,
                      ENV_GRAD_REL, card)
-    log(f"[mesh] M3 {time.perf_counter() - t0:.1f} s wall [{card}]")
+    log(f"[mesh] M3 {m3_wall:.1f} s wall beside the population band [{card}]")
     shutil.rmtree(base, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "chip_smoke_m3", ignore_errors=True)
     return {"ca_attention": ca,
             "stage_mlp_block": m1_stage + sum(stage) + sum(env)}
 
@@ -2100,6 +2157,14 @@ MESH_M4B = dict(arch="qwen3-moe-30b-a3b", depth=2, rows=8, seq=128,
 # a shard boundary), one prompt token, then 16 greedy steps
 MESH_M4C = dict(arch="qwen2.5-3b", cache=1024, starts=[200, 250, 500, 900],
                 prompt=1, steps=16)
+# (M4c, its SSM part) Mamba2-370m at published widths and full depth (48
+# layers), f32, on the same (1 x 4) mesh: each Mamba block on its 8 of 32
+# SSM heads and 576 of 2 304 conv channels (1 096 of in_proj's 4 384
+# columns, 512 of out_proj's 2 048 rows); batch 4, one prompt token, then
+# 16 greedy steps (the state carries no positions; the cache length is
+# unused)
+MESH_M4C_MAMBA = dict(arch="mamba2-370m", cache=32, starts=[0, 1, 2, 3], prompt=1,
+                      steps=16)
 # gates: (M4a) bf16 partial sums round on each rank, so the losses are held
 # at rtol 2e-3 and the updated params at 1e-2 relative Frobenius norm per
 # leaf (the CPU test's bf16 gates measured at most 1.7e-4 and 5.2e-3);
@@ -2109,6 +2174,77 @@ MESH_M4C = dict(arch="qwen2.5-3b", cache=1024, starts=[200, 250, 500, 900],
 M4A_LOSS_RTOL, M4A_PARAM_REL = 2e-3, 1e-2
 M4B_LOSS_RTOL, M4B_MU_REL = 1e-5, 1e-4
 M4C_LOGIT_ATOL = 1e-3
+
+
+# (M5a) serving on 4 gloo stage ranks sharing the card: Qwen2.5-3B at
+# published widths and full depth (36 layers, stages 9/18/27/36), bf16
+# compute and wire with stage_impl "pallas" (each rank's dense MLP halves
+# through stage_mlp_block), ServingService(mesh=) over a short Poisson trace
+# (8 requests, up to 16 new tokens, 8 slots), against the same service in
+# one process on rank 0; it runs beside the host-bound band phase
+MESH_M5A = dict(arch="qwen2_5_3b", bounds=[9, 18, 27, 36],
+                serve=dict(num_slots=8, arrival_slots=4, prompt_pad=32, max_new=16,
+                           decode_chunk=8),
+                trace=dict(n_requests=8, rate_per_sec=64.0, plen_range=(4, 32),
+                           gen_range=(4, 16), seed=0))
+
+
+def start_serve_stage():
+    """4h2. Start (M5a) on four gloo ranks sharing this card, a child
+    process each (``tests/_torch_ranks.py``'s ``card_serve_stage``), to
+    run beside the band phase; :func:`phase_serve_stage` waits."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ranks as TR
+
+    base = ROOT / "build" / "chip_smoke_m5a"
+    shutil.rmtree(base, ignore_errors=True)
+    return time.perf_counter(), TR.start("card_serve_stage", 4, base, backend="gloo",
+                                         **MESH_M5A)
+
+
+def phase_serve_stage(torch, card, started):
+    """4h2. (M5a): wait for the children under ``MESH_TIMEOUT_S``; every
+    rank's completions bit for bit the one-process service's, each rank's
+    ``stage_mlp_block`` launches its own layers' (one per layer per ring
+    pass, no other kernel). Returns the stage kernel's launches."""
+    import numpy as np
+
+    import _torch_ranks as TR
+
+    t0, handle = started
+    ranks = TR.finish(handle, MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lead = ranks[0]
+    ref = lead["ref_completions"]
+    if len(ref) != MESH_M5A["trace"]["n_requests"]:
+        raise AssertionError(f"M5a: the one-process service completed {len(ref)} requests")
+    stage = []
+    for k, r in enumerate(ranks):
+        got = r["completions"]
+        if got.keys() != ref.keys() or not all(np.array_equal(got[q], v)
+                                               for q, v in ref.items()):
+            raise AssertionError(f"M5a: rank {k}'s completions differ from one process")
+        n = r["launches"]["stage_mlp_block"]
+        want = (r["passes"]["prefill"] + r["passes"]["decode"]) * r["stage_layers"]
+        others = {q: v for q, v in r["launches"].items() if q != "stage_mlp_block" and v}
+        if n != want or others or r["passes"] != lead["passes"]:
+            raise AssertionError(f"M5a rank {k}: launches {r['launches']}, passes "
+                                 f"{r['passes']}, want stage_mlp_block {want}")
+        stage.append(n)
+    ms = [statistics.median(r["decode_ms"]) for r in ranks]
+    log(f"[mesh M5a] {MESH_M5A['arch']} at published widths, {lead['layers']} layers "
+        f"on {len(ranks)} stage ranks {tuple(MESH_M5A['bounds'])} ({lead['transport']}), "
+        f"bf16, stage_impl 'pallas': {len(ref)} completions bit for bit the one-process "
+        f"service's on every rank; ring passes {lead['passes']}; stage_mlp_block per "
+        f"rank {stage}; decode step median ms per rank {[round(x, 3) for x in ms]}; "
+        f"{lead['seconds']:.3f} s ({lead['tokens_per_sec']:.1f} tokens/s, "
+        f"{lead['ticks']} ticks) vs {lead['ref_seconds']:.3f} s in one process "
+        f"({lead['ref_tokens_per_sec']:.1f} tokens/s); peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a rank; {wall:.1f} s wall "
+        f"beside the band [{card}]")
+    return sum(stage)
 
 
 def start_tensor_parallel():
@@ -2194,25 +2330,27 @@ def phase_tensor_parallel(torch, card, started):
 
 
 def _log_m4c(torch, card, ranks, wall):
-    """(M4c), run beside (M1) and (M2): log and hold it to one process."""
+    """(M4c) and its SSM part, run beside (M1) and (M2): log and hold each
+    to one process."""
     _tp_launches(ranks, "M4c")
-    c = ranks[0]["M4c"]
-    err = float((c["logits"] - c["ref_logits"]).abs().max())
-    same = bool(torch.equal(c["tokens"], c["ref_tokens"]))
-    calls = [r["M4c"]["flash_calls"] for r in ranks]
-    want = c["layers"] * (MESH_M4C["prompt"] + MESH_M4C["steps"])
     laps = {k: round(v, 1) for k, v in ranks[0]["laps"].items()}
-    log(f"[mesh M4c] {MESH_M4C['arch']} at published widths, {c['layers']} layers, "
-        f"f32, (1 x 4) mesh, cache {MESH_M4C['cache']} entries placed "
-        f"{c['cache_spec']}: {MESH_M4C['steps']} greedy tokens "
-        f"{'equal' if same else 'NOT equal'} to one process; logits max|diff| "
-        f"{err:.3e}; flash_decode calls per rank {calls} (want {want}); "
-        f"{c['seconds']:.3f} s for {MESH_M4C['prompt'] + MESH_M4C['steps']} decode "
-        f"steps vs {c['ref_seconds']:.3f} s in one process; peak "
-        f"{[round(r['M4c']['peak_gib'], 2) for r in ranks]} GiB a rank; {wall:.1f} s "
-        f"wall beside M1 and M2; rank 0's parts (s) {laps} [{card}]")
-    if not same or err > M4C_LOGIT_ATOL or calls != [want] * 4:
-        raise AssertionError("M4c: the sharded decode is off the one-process decode")
+    for part, m in (("M4c", MESH_M4C), ("M4c_mamba", MESH_M4C_MAMBA)):
+        c = ranks[0][part]
+        err = float((c["logits"] - c["ref_logits"]).abs().max())
+        same = bool(torch.equal(c["tokens"], c["ref_tokens"]))
+        calls = [r[part]["flash_calls"] for r in ranks]
+        want = c["layers"] * (m["prompt"] + m["steps"]) if part == "M4c" else 0
+        log(f"[mesh {part}] {m['arch']} at published widths, {c['layers']} layers, "
+            f"f32, (1 x 4) mesh, caches placed {c['cache_spec']}: {m['steps']} "
+            f"greedy tokens {'equal' if same else 'NOT equal'} to one process; "
+            f"logits max|diff| {err:.3e}; flash_decode calls per rank {calls} (want "
+            f"{want}); {c['seconds']:.3f} s for {m['prompt'] + m['steps']} decode "
+            f"steps vs {c['ref_seconds']:.3f} s in one process; peak "
+            f"{[round(r[part]['peak_gib'], 2) for r in ranks]} GiB a rank [{card}]")
+        if not same or err > M4C_LOGIT_ATOL or calls != [want] * 4:
+            raise AssertionError(f"{part}: the sharded decode is off the one-process decode")
+    log(f"[mesh M4c] {wall:.1f} s wall beside M1 and M2; rank 0's parts (s) {laps} "
+        f"[{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -2672,7 +2810,7 @@ def _step_trace(torch, card, res, args, label, must_see=(), must_not_see=()):
     res["params"] = res["opt_state"] = None
     with _traced(torch) as prof:
         t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, toks, labs)
+        params, opt_state, loss, _ = step(params, opt_state, toks, labs)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     res["params"], res["opt_state"] = params, opt_state
@@ -3089,29 +3227,30 @@ def _moe_grad_check(torch, MD, buf, eid, params, act):
 
 
 # ---------------------------------------------------------------------------
-# 4c. (A) Mamba2-370m through the launcher, full depth
+# 4c. (A) Mamba2-370m through the launcher, depth 24 of 48
 # ---------------------------------------------------------------------------
 
-# the launcher's arguments: Mamba2-370m at its published widths and full
-# depth (48 layers); a short SAC run on its 48-layer profile; 4 stages,
+# the launcher's arguments: Mamba2-370m at its published widths, depth 24
+# of its 48 layers (a cut for the smoke's time; (M4c) and S3 run all 48);
+# a short SAC run on its 48-layer profile; 4 stages,
 # M = 4 microbatches of 2 x 256 tokens, 4 steps; 8 x 1024 held-out tokens
 MAMBA_ARGV = ["--arch", "mamba2-370m", "--episodes", "24", "--num-envs", "8",
-              "--pipeline-steps", "4", "--stages", "4", "--depth", "48",
+              "--pipeline-steps", "4", "--stages", "4", "--depth", "24",
               "--microbatches", "4", "--batch", "8", "--seq", "256",
               "--eval-batch", "8", "--eval-seq", "1024", "--seed", "0"]
 # held-out loss through the scan kernel vs the ssd_chunked route
 # (impl="auto") on the same params and tokens, bf16 compute. The two
 # scans are different f32 formulas (exp of a difference of cumulative
 # sums vs exp of segment sums), and every block rounds its scan output
-# to bf16, so an ulp-level difference flips bf16 roundings that 48
-# layers carry on: measured 3.64e-4 nats apart (of 11.04) on an H100
-# 80GB HBM3 at 700 W; held at 2e-3. The kernel itself is held to its
-# plain version on each of the 48 scans (SSD_REL).
+# to bf16, so an ulp-level difference flips bf16 roundings that the
+# layers carry on: measured 3.64e-4 nats apart (of 11.04) at 48 layers on
+# an H100 80GB HBM3 at 700 W; held at 2e-3. The kernel itself is held to
+# its plain version on each of the scans (SSD_REL).
 MAMBA_EVAL_ATOL = 2e-3
 
 
 def phase_mamba(torch, card):
-    """(A): the launcher on Mamba2-370m at full depth, counters at 0 just
+    """(A): the launcher on Mamba2-370m at depth 24, counters at 0 just
     before and read just after; the scan kernel held to its plain version
     on every scan of one held-out call; the loss held to the ssd_chunked
     route's."""
@@ -3128,7 +3267,7 @@ def phase_mamba(torch, card):
               "grouped_moe_ffn": 0}
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
-    _expect_config(cfg, args, full_depth=True)
+    _expect_config(cfg, args)
     _check_launcher_result(torch, res, args)
     n_params = sum(t.numel() for t in tree_leaves(res["params"]))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3843,8 +3982,10 @@ def phase_ssm_moe_timing(torch, card):
 # 4h. serving
 # ---------------------------------------------------------------------------
 
-# (S1) Qwen2.5-3B at published widths and full depth, f32, one card
-SERVE_S1 = dict(arch="qwen2_5_3b", reduced=False, num_slots=16,
+# (S1) Qwen2.5-3B at published widths, depth 18 of 36 (a cut for the
+# smoke's time: the 32 greedy references alone took 58 s at full depth),
+# f32, one card
+SERVE_S1 = dict(arch="qwen2_5_3b", reduced=False, num_layers=18, num_slots=16,
                 arrival_slots=8, prompt_pad=128, max_new=64, decode_chunk=8)
 SERVE_TRACE = dict(n_requests=32, rate_per_sec=64.0, plen_range=(4, 128),
                    gen_range=(4, 64), seed=0)
@@ -3855,7 +3996,7 @@ SERVE_TF_REQUESTS = 4  # requests whose decode logits meet a teacher-forced forw
 # full forward at the same positions, f32, as a share of max|forward|: the
 # two take every product at other shapes, so cuBLAS sums in other orders
 SERVE_TF_REL = 1e-3
-SERVE_DEFAULT_BOUNDS = (9, 18, 27, 36)
+SERVE_DEFAULT_BOUNDS = (5, 9, 14, 18)
 # stage kernel calls on the bf16 pipelined runner against
 # stage_mlp_block_ref on their own inputs: two bf16 ulps of max|ref|
 SERVE_STAGE_REL = 2.0 ** -6
@@ -3962,7 +4103,7 @@ def _fill_slots(svc, rng, vocab):
 
 def _serve_s1(torch, card, out):
     """(S1): the engine, its references, the teacher-forced forward and
-    static batching on Qwen2.5-3B at full depth, f32, one card."""
+    static batching on Qwen2.5-3B at depth 18, f32, one card."""
     import numpy as np
 
     from repro_torch.launch.serve import run_static
@@ -4116,9 +4257,11 @@ def _serve_s2(torch, card, out, cfg, mcfg, params, trace, res, plan_full):
     from repro_torch.serving import PipelineRunner, ServingService
     from repro_torch.serving.service import make_runner
 
-    if (plan_full is not None and len(plan_full) == 4
-            and int(plan_full[-1]) == mcfg.num_layers):
-        bounds, which = tuple(int(b) for b in plan_full), "the plan learned in 4b"
+    from repro_torch.launch.train_mhsl_rl import rescale_boundaries
+
+    if plan_full is not None and len(plan_full) == 4:
+        bounds = rescale_boundaries(plan_full, mcfg.num_layers, 4)
+        which = f"the plan learned in 4b, {tuple(plan_full)}, rescaled to the depth"
     else:
         bounds, which = SERVE_DEFAULT_BOUNDS, "the default (no 4-stage plan from 4b)"
     log(f"[serve S2] boundaries {bounds}: {which}")
@@ -4480,7 +4623,7 @@ def _serve_faulted(torch, card, out, cfg, params, trace, res, res_p, bounds):
 
 
 def phase_serving(torch, card, plan_full):
-    """4h. serving: (S1) Qwen2.5-3B at full depth on the engine, (S2) on
+    """4h. serving: (S1) Qwen2.5-3B at depth 18 on the engine, (S2) on
     the pipelined runner, (S3) Mamba2-370m's cached decode, (S4)
     Qwen3-MoE-30B-A3B at depth 4. Each path runs with every launch
     counter at 0 just before and read just after."""
@@ -4551,16 +4694,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     pixtral_launches, pixtral_flash_err = phase_pixtral(torch, card)
     torch.cuda.empty_cache()
-    phase_band(torch, card)
+    serve_stage = start_serve_stage()
+    try:
+        phase_band(torch, card)
+    except BaseException:
+        _kill(serve_stage[1])
+        raise
+    m5a_launches = phase_serve_stage(torch, card, serve_stage)
     pop_train_launches, fig6_err, ckpt = phase_population_train(torch, card)
     resume = phase_resume(torch, card)
-    phase_population_band(torch, card)
+    stage_mesh = start_stage_mesh()
+    try:
+        phase_population_band(torch, card)
+        m3 = finish_stage_mesh(stage_mesh)
+    except BaseException:
+        _kill(stage_mesh[1])
+        raise
     torch.cuda.empty_cache()
     attack_small = phase_attack_band(torch, card)
     phase_attack_lm(torch, card, attack_small)
     chaos_launches = phase_chaos(torch, card)
     torch.cuda.empty_cache()
-    mesh_launches = phase_mesh(torch, card)
+    mesh_launches = phase_mesh(torch, card, m3)
     serve = phase_serving(torch, card, plan_full)
     torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
@@ -4581,7 +4736,8 @@ def main() -> int:
         f"{moe_model_launches}; (H) Jamba-v0.1-52B {jamba_launches}; (F) "
         f"Pixtral-12B {pixtral_launches}; serving: S2 bf16 pipelined stage_mlp_block "
         f"{serve['stage_launches']}, S3 Mamba2-370m prefill ssd_scan "
-        f"{serve['ssd_launches']}; mesh children (M1-M3) {mesh_launches}")
+        f"{serve['ssd_launches']}; mesh children (M1-M3) {mesh_launches}; (M5a) "
+        f"stage-rank serving stage_mlp_block {m5a_launches}")
     log(f"[runs] plan scorer: {plan['kernels_per_call']} kernels per call at "
         f"every enumeration; card vs CPU {plan['cpu_err']:.3e}, vs plan_cost "
         f"{plan['host_err']:.3e}")
@@ -4614,7 +4770,8 @@ def main() -> int:
     for kname, replaces, err, n in (
             ("stage_mlp_block", "src/repro/kernels/stage_block.py:58",
              stage_err, split_launches["stage_mlp_block"] + serve["stage_launches"]
-             + jamba_launches["stage_mlp_block"] + mesh_launches["stage_mlp_block"]),
+             + jamba_launches["stage_mlp_block"] + mesh_launches["stage_mlp_block"]
+             + m5a_launches),
             ("flash_attention", "src/repro/kernels/flash_attention.py:30",
              flash_err, split_launches["flash_attention"]
              + pixtral_launches["flash_attention"]),

@@ -45,8 +45,9 @@ mesh, each tick's transfers are posted together and waited on before its
 compute).
 Pipelined serving (:func:`pipeline_serve_fns`) runs the reference's
 serial token ring over per-stage KV rings (:func:`stage_kv_caches`), in
-one process. ``fill_drain`` runs in one process only: its backward is
-autograd of the whole forward, which does not cross processes.
+one process or one stage per rank. ``fill_drain`` runs in one process
+only: its backward is autograd of the whole forward, which does not
+cross processes.
 """
 from __future__ import annotations
 
@@ -671,29 +672,61 @@ def _attention_only(cfg: ModelConfig, what: str) -> None:
 
 def stage_kv_caches(cfg: ModelConfig, boundaries: Sequence[int],
                     num_slots: int, cache_len: int, dtype=torch.float32,
-                    device=None):
+                    device=None, *, mesh=None, stage_axis: str = "stage"):
     """Per-stage KV rings for pipelined serving, zero-filled.
 
     Returns ``{"k", "v"}`` of shape ``(S, max_len, B, kv_len, KH, hd)``,
     the reference's layout: stage ``k``'s ring holds only its own layers'
     entries (row ``i`` of stage ``k`` is global layer ``boundaries[k-1] +
-    i``); the rows past a stage's length pad the layout and stay zero."""
+    i``); the rows past a stage's length pad the layout and stay zero.
+    On a stage ``mesh`` it returns this rank's ring only, the reference's
+    ``P(stage)`` block: ``(1, max_len, B, kv_len, KH, hd)``."""
     from repro_torch.device import resolve_device
 
     _attention_only(cfg, "stage_kv_caches")
     lens = stage_lengths(boundaries)
+    _check_mesh(mesh, len(lens), stage_axis, None)
     kv_len = (min(cache_len, cfg.attention_window)
               if cfg.attention_window is not None else cache_len)
-    shape = (len(lens), max(lens), num_slots, kv_len, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (1 if mesh is not None else len(lens), max(lens), num_slots, kv_len,
+             cfg.num_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _serve_stage(cfg, sig, layers, ring, x, positions, cache_index, blk_impl,
+                 plan):
+    """A stage's serving pass: ``layers`` (global index, block params) in
+    turn over the stage's KV ring ``ring`` (``{"k", "v"}``, ``(max_len,
+    B, kv_len, KH, hd)``). Returns ``x`` and the new ring, its padding
+    rows kept."""
+    ks, vs = [], []
+    for i, (layer, blk) in enumerate(layers):
+        x, nc, _ = M.block_apply(
+            blk, x, cfg, sig[layer], positions=positions,
+            cache={"k": ring["k"][i], "v": ring["v"][i]},
+            cache_index=cache_index, impl=blk_impl, plan=plan)
+        ks.append(nc["k"])
+        vs.append(nc["v"])
+
+    def kept(old, new):
+        new = torch.stack(new)
+        return torch.cat([new, old[len(layers):]]) if old.shape[0] > len(layers) else new
+
+    return x, {"k": kept(ring["k"], ks), "v": kept(ring["v"], vs)}
+
+
+def _serve_logits(params, cfg, x):
+    """The last stage's final norm and LM head, in f32."""
+    xh = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (xh @ _head(params, cfg).to(x.dtype)).float()
+
+
 def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
                        pipe: PipelineConfig = PipelineConfig(
-                           compute_dtype="float32")):
+                           compute_dtype="float32"),
+                       mesh=None, stage_axis: str = "stage"):
     """The serving passes of a split plan: ``(prefill, decode)`` with the
     serving engine's runner signatures.
 
@@ -703,15 +736,29 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
     * ``decode(params, tok, caches, pos)``: ``tok`` (B, 1), ``pos`` (B,)
       per-slot entry counts -> ``(logits (B, V) f32, caches)``.
 
-    Both run the reference's serial token ring in one process: stage
-    ``t`` runs its own layers over its own KV ring, then its output hops
-    to stage ``t + 1`` cast to ``pipe.wire`` and back to the compute dtype
-    (the Eq. 1 transmission); the last stage's final norm and LM head give
-    the logits, in f32 as the reference's masked ``psum`` returns them.
+    Both run the reference's serial token ring: stage ``t`` runs its own
+    layers over its own KV ring, then its output hops to stage ``t + 1``
+    cast to ``pipe.wire`` and back to the compute dtype (the Eq. 1
+    transmission); the last stage's final norm and LM head give the
+    logits, in f32 as the reference's masked ``psum`` returns them.
     ``pipe.stage_impl="pallas"`` routes each dense MLP half-block through
     the stage kernel. Attention-only configs run, mixed periods (MoE every
     k layers) with each layer's own slot; SSM and hybrid configs and
-    capacity MoE are refused as the reference refuses them."""
+    capacity MoE are refused as the reference refuses them.
+
+    Without ``mesh`` every stage runs in turn in this process over the
+    whole ``(S, ...)`` rings and the whole ``params``. On a stage ``mesh``
+    (``launch.mesh.make_stage_mesh``) stage ``t`` runs on the rank at
+    coordinate ``t`` of ``stage_axis``, over its own ring
+    (``stage_kv_caches(mesh=)``) and its share of the parameters
+    (:func:`stage_params`); every rank passes the same tokens. The hop
+    into stage ``t`` is a point-to-point transfer of the wire-dtype
+    activation from rank ``t - 1``, and the logits come off the last
+    stage in one broadcast, so every rank holds the same f32 logits, bit
+    for bit: the value of the reference's masked sum, whose other terms
+    are exact zeros. A rank's transfers depend only on its stage, never on
+    which slots are live (the reference keeps its hops outside every
+    ``cond`` for the same reason)."""
     _attention_only(cfg, "pipeline serving")
     sig = M.signature(cfg)
     if any(is_moe for _, is_moe, _ in sig) and cfg.moe.dispatch != "dropless":
@@ -721,44 +768,78 @@ def pipeline_serve_fns(cfg: ModelConfig, boundaries: Sequence[int], *,
             "moe.dispatch='dropless'")
     period = M.find_period(sig)
     ranges = _stage_ranges(cfg, boundaries)
+    _check_mesh(mesh, len(ranges), stage_axis, None)
     blk_impl, cdtype, wdtype = pipe.block_impl, pipe.dtype, pipe.wire
 
     def ring_pass(params, caches, x, positions, cache_index):
         plan = L.cache_plan(cfg, positions, cache_index, x.shape[0], x.shape[1],
                             caches["k"].shape[3])
-        new_k, new_v = [], []
+        new = []
         for t, (lo, hi) in enumerate(ranges):
             if t > 0:  # the hop: wire-dtype bytes
                 x = x.to(wdtype).to(cdtype)
-            ks, vs = [], []
-            for i, layer in enumerate(range(lo, hi)):
-                x, nc, _ = M.block_apply(
-                    _layer_params(params, layer, period), x, cfg, sig[layer],
-                    positions=positions,
-                    cache={"k": caches["k"][t, i], "v": caches["v"][t, i]},
-                    cache_index=cache_index, impl=blk_impl, plan=plan)
-                ks.append(nc["k"])
-                vs.append(nc["v"])
-            pad = caches["k"].shape[1] - (hi - lo)  # padding rows stay
-            new_k.append(torch.cat([torch.stack(ks), caches["k"][t, hi - lo:]])
-                         if pad else torch.stack(ks))
-            new_v.append(torch.cat([torch.stack(vs), caches["v"][t, hi - lo:]])
-                         if pad else torch.stack(vs))
-        xh = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (xh @ _head(params, cfg).to(x.dtype)).float()
-        return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+            layers = [(r, _layer_params(params, r, period)) for r in range(lo, hi)]
+            x, ring = _serve_stage(cfg, sig, layers,
+                                   {"k": caches["k"][t], "v": caches["v"][t]},
+                                   x, positions, cache_index, blk_impl, plan)
+            new.append(ring)
+        return _serve_logits(params, cfg, x), {
+            k: torch.stack([r[k] for r in new]) for k in ("k", "v")}
+
+    if mesh is not None:
+        ring_pass = _rank_ring_pass(cfg, sig, ranges, period, pipe, mesh,
+                                    stage_axis)
 
     def prefill(params, caches, prompts):
-        x = params["embed"].to(cdtype)[prompts.long()]
+        x = None if "embed" not in params else params["embed"].to(cdtype)[prompts.long()]
         positions = torch.arange(prompts.shape[1], device=prompts.device)
         with torch.inference_mode():
             return ring_pass(params, caches, x, positions, 0)
 
     def decode(params, tok, caches, pos):
-        x = params["embed"].to(cdtype)[tok.long()]
+        x = None if "embed" not in params else params["embed"].to(cdtype)[tok.long()]
         pos = pos.long()
         with torch.inference_mode():
             logits, caches = ring_pass(params, caches, x, pos[:, None], pos)
         return logits[:, -1], caches
 
     return prefill, decode
+
+
+def _rank_ring_pass(cfg, sig, ranges, period, pipe, mesh, stage_axis):
+    """:func:`pipeline_serve_fns`' ring on a stage mesh: this rank's
+    stage. ``x`` is the embedded input on the first stage (the other
+    stages receive theirs); its batch and length come from ``positions``
+    and the ring."""
+    from repro_torch.distribution import collectives as C
+
+    s_stages = len(ranges)
+    i = mesh.axis_index(stage_axis)
+    lo, hi = ranges[i]
+    first, last = i == 0, i == s_stages - 1
+    rows = _slot_rows(lo, hi, period)
+
+    def ring_pass(params, caches, x, positions, cache_index):
+        b, s = caches["k"].shape[2], positions.shape[-1]
+        dev = caches["k"].device
+        plan = L.cache_plan(cfg, positions, cache_index, b, s, caches["k"].shape[3])
+        if not first:  # the hop in from the previous stage
+            x = C.exchange(mesh, stage_axis, [],
+                           [((b, s, cfg.d_model), pipe.wire, -1)],
+                           device=dev)[0].to(pipe.dtype)
+        layers = [(r, M.layer_params(params["slots"][r % period],
+                                     r // period - rows[r % period][0]))
+                  for r in range(lo, hi)]
+        x, ring = _serve_stage(cfg, sig, layers,
+                               {"k": caches["k"][0], "v": caches["v"][0]}, x,
+                               positions, cache_index, pipe.block_impl, plan)
+        if last:
+            logits = _serve_logits(params, cfg, x)
+        else:
+            C.exchange(mesh, stage_axis, [(x.to(pipe.wire), +1)], [])
+            logits = torch.empty((b, s, cfg.vocab_size), dtype=torch.float32,
+                                 device=dev)
+        logits = C.broadcast(logits, mesh, stage_axis, src=s_stages - 1)
+        return logits, {k: v[None] for k, v in ring.items()}
+
+    return ring_pass

@@ -9,6 +9,9 @@
   the line, the blocks received concatenated in source order;
 * :func:`exchange`: point-to-point sends and receives along an axis,
   posted together and then waited on, so two neighbours never both block;
+* :func:`broadcast`: one rank's tensor to every rank of its line (the
+  serving ring's logits off the last stage, the host's tick schedule off
+  rank 0);
 * :func:`barrier` over the whole mesh.
 
 The differentiable forms carry the sharded train step's backward across
@@ -309,6 +312,22 @@ def exchange(mesh: Mesh, axis: str,
     out = [b.view(torch.bfloat16) if d == torch.bfloat16 else b
            for b, (_, d, _) in zip(out, recvs)]
     return [b.to(device) for b in out] if device is not None else out
+
+
+def broadcast(x: Tensor, mesh: Mesh, axis: str, src: int = 0) -> Tensor:
+    """The tensor of the rank at coordinate ``src`` of this rank's line
+    along ``axis``, on every rank of the line: each rank passes a tensor of
+    the same shape and dtype (the others' values are not read) and gets
+    the source's, bit for bit, on its own tensor's device."""
+    if not _axes(mesh, axis):
+        return x
+    group = mesh.groups[axis]
+    staged = _staged(x, group)
+    buf = x.detach().cpu() if staged else x.detach()
+    wire = _wire(buf).clone()
+    dist.broadcast(wire, src=mesh.axis_ranks(axis)[src], group=group)
+    out = wire.view(torch.bfloat16) if x.dtype == torch.bfloat16 else wire
+    return out.to(x.device) if staged else out
 
 
 def barrier(mesh: Mesh) -> None:

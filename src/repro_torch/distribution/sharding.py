@@ -37,7 +37,11 @@ gathered over ``model`` where its block would not be whole:
   summed over ``model``;
 * the attention of a config whose query heads the axis does not divide;
 * an FFN width or an expert count the axis does not divide;
-* Mamba's fused ``in_proj`` / ``out_proj`` (and the rest of the block);
+* Mamba's fused ``in_proj`` / ``out_proj`` (and the rest of the block),
+  except when decoding: then the block runs on this rank's ``in_proj``
+  columns, conv channels, SSM heads and ``out_proj`` rows, whose splits
+  do not line up, so the columns and the conv output are gathered and
+  each rank takes the pieces its heads read (``models.ssm``);
 * the frontend ``proj``;
 * ``embed`` / ``lm_head`` when the axis does not divide the vocabulary.
 
@@ -137,6 +141,9 @@ class Sharding:
 
     mesh: Mesh
     spec: Tuple[Axes, ...]
+    # how many ranks hold the block, where the spec alone does not say it
+    # (:func:`stage_shardings`)
+    holders: Optional[int] = None
 
     def index(self, shape) -> Tuple[slice, ...]:
         """This rank's block of a global tensor of ``shape``."""
@@ -156,7 +163,9 @@ class Sharding:
     @property
     def replicas(self) -> int:
         """How many ranks hold each block (the ranks the spec does not
-        split it over)."""
+        split it over, unless ``holders`` says it)."""
+        if self.holders is not None:
+            return self.holders
         return self.mesh.size // math.prod(axes_size(self.mesh, ax)
                                            for ax in self.spec)
 
@@ -201,6 +210,33 @@ def stage_sharding(mesh: Mesh, ndim: int = 1, stage_axis: str = STAGE_AXIS,
         return slice(None)
     num = mesh_axis_size(mesh, stage_axis) if num is None else num
     return shard_rows(mesh, stage_axis, num)
+
+
+def stage_shardings(share, cfg, boundaries: Sequence[int], mesh: Mesh,
+                    stage_axis: str = STAGE_AXIS):
+    """Records for a :func:`repro_torch.core.pipeline.stage_params` share
+    on a stage mesh, so that :func:`global_norm` (and so AdamW's clip,
+    ``update(..., shardings=)``) counts every leaf of the whole tree once:
+    a slot's rows are split over the stage axis by the plan (unevenly, so
+    ``block`` and ``global_shape`` do not apply to them); the embedding
+    lives on the first stage and, with tied embeddings, on the last too
+    (two holders of one summed gradient); the final norm and the head on
+    the last stage, a frontend on the first. Along any other axis of the
+    mesh each is replicated."""
+    n = mesh_axis_size(mesh, stage_axis)
+    if n != len(boundaries):
+        raise ValueError(f"a {len(boundaries)}-stage plan on a {stage_axis!r} "
+                         f"axis of {n} ranks")
+    other = mesh.size // n
+
+    def one(path, leaf):
+        spec = [None] * leaf.dim()
+        if path.startswith("slots/"):
+            spec[0] = stage_axis
+        twice = path == "embed" and cfg.tie_embeddings and n > 1
+        return Sharding(mesh, tuple(spec), holders=(2 if twice else 1) * other)
+
+    return _with_paths(share, one)
 
 
 def microbatch_sharding(mesh: Mesh, ndim: int, env_axis: str = ENV_AXIS,
@@ -374,7 +410,9 @@ class ModelSplit:
     replicated) or ``None`` (the attention weights gathered); ``mlp``,
     ``experts``, ``vocab``: the FFN columns, the experts and the
     vocabulary split over ``axis``; ``kv_len``: the global cache length
-    when the cache is split by length over ``axis``."""
+    when the cache is split by length over ``axis``; ``ssm``: decoding
+    Mamba blocks on this rank's ``in_proj`` columns, conv channels, SSM
+    heads and ``out_proj`` rows (``models.ssm.mamba_apply``)."""
 
     mesh: Mesh
     batch: Tuple[str, ...]
@@ -385,6 +423,7 @@ class ModelSplit:
     experts: bool = False
     vocab: bool = False
     kv_len: Optional[int] = None
+    ssm: bool = False
 
     @property
     def size(self) -> int:
@@ -397,11 +436,14 @@ class ModelSplit:
 
 def model_split(cfg, mesh: Mesh, batch: Axes, model_axis: str = "model", *,
                 cache_spec: Optional[Sequence[Axes]] = None,
-                cache_len: Optional[int] = None) -> ModelSplit:
+                cache_len: Optional[int] = None,
+                decoding: bool = False) -> ModelSplit:
     """The :class:`ModelSplit` of ``cfg`` on ``mesh`` with the batch split
     over ``batch``. ``cache_spec`` (a KV cache leaf's spec, decoding):
     heads over the model axis attend on this rank's heads, a length split
-    (global length ``cache_len``) or a replicated cache on every head."""
+    (global length ``cache_len``) or a replicated cache on every head.
+    ``decoding`` (a forward through caches): Mamba blocks run on this
+    rank's part of the block, as ``cache_shardings`` places their states."""
     tp = mesh_axis_size(mesh, model_axis) if model_axis in mesh.axis_names else 1
     base = dict(mesh=mesh, batch=axes_tuple(batch),
                 axis=model_axis if tp > 1 else None)
@@ -422,7 +464,8 @@ def model_split(cfg, mesh: Mesh, batch: Axes, model_axis: str = "model", *,
         **base, attn=attn, kv_heads=kv_heads, kv_len=kv_len,
         mlp=bool(cfg.d_ff) and cfg.d_ff % tp == 0,
         experts=moe and cfg.moe.num_experts % tp == 0,
-        vocab=cfg.vocab_size % tp == 0)
+        vocab=cfg.vocab_size % tp == 0,
+        ssm=decoding and "M" in cfg.pattern)
 
 
 def leaf_use(path: str, split: ModelSplit) -> Tuple[bool, bool]:
@@ -443,6 +486,8 @@ def leaf_use(path: str, split: ModelSplit) -> Tuple[bool, bool]:
         return split.mlp, False
     if family == "moe":
         return leaf != "router" and split.experts, False
+    if family == "mamba":
+        return split.ssm and leaf in ("in_proj", "out_proj"), False
     if leaf in ("embed", "lm_head") and len(parts) == 1:
         return split.vocab, False
     return False, False

@@ -16,10 +16,21 @@ Port of ``repro.launch.serve``::
     PYTHONPATH=src python -m repro_torch.launch.serve --config serve.json \\
         --set num_slots 16 --set decode_chunk 4
 
+    # a 2-stage plan on 2 ranks, stage t on rank t (gloo on the CPU)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --device cpu --set boundaries 1,2
+
 Every engine and scheduler knob is a :class:`repro_torch.serving.ServeConfig`
 field. ``--mode static`` runs the same trace through the static-batch
 baseline (``make_generate_fn``: batch, wait for ALL rows, next batch).
 ``--device`` is ``cuda`` by default.
+
+Started by ``torchrun`` (``WORLD_SIZE`` set) with ``boundaries`` of as
+many stages as ranks or fewer, the plan is served on a stage mesh of
+``len(boundaries)`` ranks, stage ``t`` on rank ``t``, as the reference
+serves it on ``make_stage_mesh(len(boundaries))``: NCCL when every rank
+has a card of its own, else gloo (ranks sharing one card, host-staged).
+Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -34,20 +45,33 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 def run_static(cfg, trace, *, warmup: bool = False, params=None,
-               device: DeviceLike = None):
+               device: DeviceLike = None, mesh=None):
     """Static-batch baseline: admit in arrival order, N at a time, wait
     for the whole batch (every row pays the full ``max_new - 1`` decode
     steps, as the reference's scan). ``warmup=True`` runs one throwaway
-    batch before the clock starts. ``params``: the model's weights, else
-    drawn from ``cfg.seed`` as the service draws them."""
+    batch before the clock starts. ``params``: the model's weights (the
+    whole tree), else drawn from ``cfg.seed`` as the service draws them.
+    ``mesh``: a stage mesh for ``cfg.boundaries`` (by default
+    ``serving.service.stage_mesh_for``'s), each rank serving its stage
+    over its share of ``params``; every rank runs the same batches and
+    returns the same completions."""
     from repro_torch.serving.batching import make_generate_fn
-    from repro_torch.serving.service import init_model_params, make_runner
+    from repro_torch.serving.service import (init_model_params, make_runner,
+                                             stage_mesh_for)
 
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = stage_mesh_for(cfg, device)
+    dev = resolve_device(mesh.device if device is None and mesh is not None
+                         else device)
     model_cfg = cfg.model_config()
     if params is None:
         params = init_model_params(cfg, model_cfg, dev)
-    runner = make_runner(cfg, model_cfg, dev)
+    runner = make_runner(cfg, model_cfg, dev, mesh)
+    if mesh is not None:
+        from repro_torch.core.pipeline import stage_params
+
+        params = stage_params(params, model_cfg, cfg.boundaries,
+                              mesh.axis_index(runner.stage_axis))
     n = cfg.num_slots
     gen = make_generate_fn(runner, max_new=cfg.max_new,
                            temperature=cfg.temperature)
@@ -127,11 +151,27 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run without a card)")
     args = ap.parse_args(argv)
 
-    from repro_torch.serving import ServeConfig, ServingService, poisson_trace
+    from repro_torch.launch.train_mhsl_rl import init_ranks
+    from repro_torch.serving import ServeConfig
 
-    dev = resolve_device(args.device)
     overrides = {k: ServeConfig.parse_override(k, v) for k, v in args.set}
     cfg = ServeConfig.load(args.config, overrides)
+    owns_group = init_ranks(args.device) if cfg.boundaries else False
+    try:
+        return _serve(args, cfg)
+    finally:
+        if owns_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg):
+    from repro_torch.serving import ServingService, poisson_trace
+    from repro_torch.serving.service import stage_mesh_for
+
+    mesh = stage_mesh_for(cfg, args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     model_cfg = cfg.model_config()
     trace = poisson_trace(
         n_requests=args.requests, rate_per_sec=args.rate,
@@ -140,9 +180,11 @@ def main(argv=None):
         seed=args.trace_seed)
 
     if args.mode == "static":
-        res = run_static(cfg, trace, device=dev)
+        res = run_static(cfg, trace, device=dev, mesh=mesh)
     else:
-        res = ServingService(cfg, device=dev).run(trace)
+        res = ServingService(cfg, device=dev, mesh=mesh).run(trace)
+    if mesh is not None and mesh.rank != 0:  # rank 0 prints
+        return res
 
     metrics = {k: v for k, v in res.items()
                if k not in ("completions", "latencies", "replans")}

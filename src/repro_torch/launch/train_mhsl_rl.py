@@ -16,7 +16,7 @@
         --arch mamba2-370m --depth 48
     PYTHONPATH=src python -m repro_torch.launch.train_mhsl_rl \
         --arch qwen3-moe-30b-a3b --depth 2 --stages 2
-    PYTHONPATH=src torchrun --nproc-per-node 2 \
+    PYTHONPATH=src torchrun --nproc-per-node 4 \
         -m repro_torch.launch.train_mhsl_rl --shard-envs
 
 Every arch of the zoo runs: attention with a dense MLP or an MoE, Mamba,
@@ -33,12 +33,21 @@ learning rate are the example's (:data:`STAGE_IMPL`, :data:`EVAL_IMPL`,
 :data:`COMPUTE_DTYPE`, :data:`LR`). ``--checkpoint-dir DIR`` saves the
 controller's training (step 1) there every ``--checkpoint-every``
 episodes and resumes it when run again (``--fresh`` ignores a saved
-one), as the example does. ``--shard-envs`` trains the controller on a
-population mesh over the launched ranks (``torchrun``'s environment
-initializes the process group: NCCL when every rank has a card of its
-own, gloo otherwise; without it, one rank), its ``num_envs`` axis
-sharded; rank 0 prints, writes the checkpoints and runs steps 2-4 on
-its own card, and the other ranks return after step 1.
+one), as the example does.
+
+Launched on ranks (``torchrun``'s environment initializes the process
+group: NCCL when every rank has a card of its own, gloo otherwise),
+step 3 runs on a stage mesh, as the example runs it on
+``make_stage_mesh(stages)`` over its first ``stages`` devices: the plan
+is cut to ``min(--stages, world)`` stages and stage ``k`` runs on rank
+``k``, holding its share of the parameters and of AdamW's moments; the
+clip reads the norm of the whole gradient, summed over the stage ranks.
+Rank 0 trains the controller (step 1), rolls out the plan (step 2) and
+sends it to the other ranks; with ``--shard-envs`` every rank trains the
+controller on a population mesh of every rank, its ``num_envs`` axis
+sharded. Rank 0 prints, writes the checkpoints and computes the held-out
+loss on the gathered parameters; ranks past the plan's stages return
+after step 2. One process runs every stage in turn, as before.
 """
 from __future__ import annotations
 
@@ -65,9 +74,10 @@ from repro_torch.core.profiles import transformer_profile
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ca_attention, flash_attention, moe_dispatch
 from repro_torch.kernels import ssd_scan, stage_block
-from repro_torch.launch.mesh import make_population_mesh
+from repro_torch.distribution.sharding import stage_shardings
+from repro_torch.launch.mesh import make_mesh, make_population_mesh, make_stage_mesh
 from repro_torch.models import model as M
-from repro_torch.optim.optimizers import adamw, apply_updates
+from repro_torch.optim.optimizers import adamw, apply_updates, global_norm
 
 # episodes of random-policy rollouts before SAC updates start (the
 # example's value)
@@ -139,15 +149,27 @@ def executed_config(arch: str, depth: Optional[int],
 
 
 def make_pipeline_train_step(cfg: ModelConfig, boundaries, n_microbatches: int,
-                             pipe: PipelineConfig, opt):
-    """``(params, opt_state, tokens, labels) -> (params, opt_state, loss)``:
-    one pipelined forward/backward and one optimizer update."""
-    step_fn = pipeline_step_fn(cfg, boundaries, n_microbatches, pipe=pipe)
+                             pipe: PipelineConfig, opt, *, mesh=None,
+                             stage_axis: str = "stage"):
+    """``(params, opt_state, tokens, labels) -> (params, opt_state, loss,
+    grad_norm)``: one pipelined forward/backward and one optimizer update;
+    ``grad_norm`` is the global norm of the gradients (what the clip reads).
+
+    ``mesh``: a stage mesh, stage ``k`` on rank ``k``. ``params`` and
+    ``opt_state`` are then this rank's :func:`~repro_torch.core.pipeline.
+    stage_params` share and its moments, and the clip's norm is the whole
+    gradient's, summed over the ranks with every leaf counted once
+    (``distribution.sharding.stage_shardings``: the tied embedding's
+    gradient, held by the first and the last stage, once)."""
+    step_fn = pipeline_step_fn(cfg, boundaries, n_microbatches, pipe=pipe,
+                               mesh=mesh, stage_axis=stage_axis)
 
     def train_step(params, opt_state, tokens, labels):
         loss, grads = step_fn(params, tokens, labels)
-        ups, opt_state = opt.update(grads, opt_state, params)
-        return apply_updates(params, ups), opt_state, loss
+        norm = global_norm(grads, None if mesh is None else stage_shardings(
+            params, cfg, boundaries, mesh, stage_axis))
+        ups, opt_state = opt.update(grads, opt_state, params, grad_norm=norm)
+        return apply_updates(params, ups), opt_state, loss, norm
 
     return train_step
 
@@ -211,7 +233,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     built (the executed config, the trained params, optimizer and its
     state, the eval batch)."""
     args = parse_args(argv)
-    owns_group = init_ranks(args.device) if args.shard_envs else False
+    owns_group = init_ranks(args.device)
     try:
         return _run(args)
     finally:
@@ -219,14 +241,33 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             dist.destroy_process_group()
 
 
+def _plan_from_rank0(mesh, axis, boundaries_full, devices, stages: int):
+    """Rank 0's plan on every rank of ``mesh`` (one broadcast along its
+    ``axis``, which spans the world)."""
+    from repro_torch.distribution.collectives import broadcast
+
+    msg = torch.zeros((1 + 2 * stages,), dtype=torch.long)
+    n = len(boundaries_full)
+    msg[0] = n
+    msg[1:1 + n] = torch.tensor(boundaries_full)
+    msg[1 + n:1 + 2 * n] = torch.tensor(devices)
+    msg = broadcast(msg.to(mesh.device), mesh, axis, 0).cpu().tolist()
+    n = msg[0]
+    return tuple(msg[1:1 + n]), tuple(msg[1 + n:1 + 2 * n])
+
+
 def _run(args) -> Dict[str, Any]:
-    mesh = None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = world_mesh = None
     if args.shard_envs:
-        mesh = make_population_mesh(device=args.device)
+        mesh = world_mesh = make_population_mesh(device=args.device)
         dev = mesh.device
+    elif world > 1:
+        world_mesh = make_mesh((world,), ("rank",), args.device)
+        dev = world_mesh.device
     else:
         dev = resolve_device(args.device)
-    lead = mesh is None or mesh.rank == 0
+    lead = world_mesh is None or world_mesh.rank == 0
 
     def say(msg: str) -> None:
         if lead:
@@ -247,52 +288,89 @@ def _run(args) -> Dict[str, Any]:
     say(f"[1/4] training ICM-CA SAC on {args.arch} profile "
         f"({prof.num_layers} layers, {args.episodes} episodes, "
         f"{args.num_envs} batched envs) on {dev}")
-    res = LP.train_sac(env, sac_cfg, episodes=args.episodes, seed=args.seed,
-                       warmup_episodes=WARMUP_EPISODES,
-                       num_envs=args.num_envs, mesh=mesh,
-                       checkpoint_dir=args.checkpoint_dir,
-                       checkpoint_every=args.checkpoint_every,
-                       resume=not args.fresh)
-    say(f"      reward: first10={np.mean(res.episode_reward[:10]):.2f} "
-        f"last10={np.mean(res.episode_reward[-10:]):.2f}")
-    if not lead:  # steps 2-4 run on rank 0
-        return {"train": res, "env": env, "mesh": mesh}
+    res, boundaries_full, devices = None, (), ()
+    if lead or mesh is not None:
+        res = LP.train_sac(env, sac_cfg, episodes=args.episodes, seed=args.seed,
+                           warmup_episodes=WARMUP_EPISODES,
+                           num_envs=args.num_envs, mesh=mesh,
+                           checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every,
+                           resume=not args.fresh)
+        say(f"      reward: first10={np.mean(res.episode_reward[:10]):.2f} "
+            f"last10={np.mean(res.episode_reward[-10:]):.2f}")
 
-    # 2) the plan
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
-    boundaries_full, devices, leaked, t_r, e_r = rollout_plan(
-        env, res.params, sac_cfg, gen)
-    say(f"[2/4] learned plan on {prof.num_layers} layers: "
-        f"boundaries={boundaries_full} devices={devices} "
-        f"leaked={leaked:.3f} T_R={t_r:.2f}s E_R={e_r:.1f}J")
+    # 2) the plan, rolled out on rank 0 and sent to every rank
+    if lead:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+        boundaries_full, devices, leaked, t_r, e_r = rollout_plan(
+            env, res.params, sac_cfg, gen)
+        say(f"[2/4] learned plan on {prof.num_layers} layers: "
+            f"boundaries={boundaries_full} devices={devices} "
+            f"leaked={leaked:.3f} T_R={t_r:.2f}s E_R={e_r:.1f}J")
+    if world_mesh is not None:
+        boundaries_full, devices = _plan_from_rank0(
+            world_mesh, world_mesh.axis_names[0], boundaries_full, devices,
+            args.stages)
 
-    # 3) execute the plan, rescaled to the executed depth
+    # 3) execute the plan, rescaled to the executed depth: every stage in
+    # this process, or stage k on rank k
     cfg = executed_config(args.arch, args.depth, args.reduced)
-    boundaries = rescale_boundaries(boundaries_full, args.depth, args.stages)
+    boundaries = rescale_boundaries(boundaries_full, args.depth,
+                                    min(args.stages, world) if world > 1
+                                    else args.stages)
+    smesh = (make_stage_mesh(len(boundaries), device=args.device)
+             if world > 1 else None)
+    out = {"train": res, "env": env, "mesh": mesh, "stage_mesh": smesh,
+           "plan_full": boundaries_full, "devices": devices,
+           "boundaries": boundaries}
+    if smesh is not None and smesh.coords is None:  # past the plan's stages
+        return out
     pipe = PipelineConfig(stage_impl=STAGE_IMPL, compute_dtype=COMPUTE_DTYPE)
+    where = ("in this process" if smesh is None else
+             f"on {smesh.size} stage rank(s)")
     say(f"[3/4] executing plan {boundaries} as a {len(boundaries)}-stage "
         f"1F1B pipeline of {cfg.name} (d_model {cfg.d_model}, "
-        f"{cfg.num_layers} layers), M={args.microbatches}, "
+        f"{cfg.num_layers} layers) {where}, M={args.microbatches}, "
         f"{args.batch}x{args.seq} tokens/step, {pipe}")
     params = M.init_params(torch.Generator(device=dev).manual_seed(args.seed),
                            cfg, device=dev)
+    like = None
+    if smesh is not None:  # this rank's share; rank 0 keeps the layout
+        from repro_torch.core.pipeline import stage_params
+        from repro_torch.tree import tree_map
+
+        if lead:
+            like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                  device="meta"), params)
+        params = stage_params(params, cfg, boundaries,
+                              smesh.axis_index("stage"))
     opt = adamw(LR, max_grad_norm=1.0)
     opt_state = opt.init(params)
     train_step = make_pipeline_train_step(cfg, boundaries, args.microbatches,
-                                          pipe, opt)
+                                          pipe, opt, mesh=smesh)
     rng = np.random.default_rng(args.seed)
-    losses, seconds = [], []
+    losses, norms, seconds = [], [], []
     for step in range(args.pipeline_steps):
         toks = _tokens(rng, cfg.vocab_size, args.batch, args.seq, dev)
         labs = _tokens(rng, cfg.vocab_size, args.batch, args.seq, dev)
         t0 = time.perf_counter()
-        params, opt_state, loss = train_step(params, opt_state, toks, labs)
+        params, opt_state, loss, norm = train_step(params, opt_state, toks, labs)
         loss = float(loss)  # waits for the step
         seconds.append(time.perf_counter() - t0)
         losses.append(loss)
+        norms.append(float(norm))
         if step % 5 == 0 or step == args.pipeline_steps - 1:
             say(f"      pipeline step {step:3d} loss {loss:.4f} "
                 f"({seconds[-1]:.3f} s)")
+    out.update(losses=losses, grad_norms=norms, step_seconds=seconds,
+               cfg=cfg, pipe=pipe, opt=opt, opt_state=opt_state, params=params)
+    if smesh is not None:
+        from repro_torch.core.pipeline import gather_stage_tree
+
+        full = gather_stage_tree(params, like, cfg, boundaries, smesh)
+        if not lead:
+            return out
+        out["share"], params = params, full
 
     # 4) held-out loss
     eval_rng = np.random.default_rng(args.seed + 1)
@@ -311,13 +389,9 @@ def _run(args) -> Dict[str, Any]:
         f"({eval_seconds:.3f} s)")
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     say(f"      kernel launches in this run: {launches}")
-    return {"plan_full": boundaries_full, "devices": devices,
-            "launches": launches,
-            "boundaries": boundaries, "losses": losses,
-            "step_seconds": seconds, "eval_loss": eval_loss,
-            "eval_seconds": eval_seconds, "cfg": cfg, "params": params,
-            "opt_state": opt_state, "pipe": pipe, "opt": opt,
-            "eval_batch": batch, "train": res, "env": env, "mesh": mesh}
+    out.update(launches=launches, eval_loss=eval_loss,
+               eval_seconds=eval_seconds, params=params, eval_batch=batch)
+    return out
 
 
 if __name__ == "__main__":

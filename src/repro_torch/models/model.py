@@ -131,7 +131,8 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
             p["mamba"], h, cfg,
             ssm_state=None if cache is None else cache["ssm"],
             conv_state=None if cache is None else cache["conv"],
-            use_pallas=half_impl == "pallas")
+            use_pallas=half_impl == "pallas",
+            split=split if split is not None and split.ssm else None)
         new_cache = {} if cache is None else {"ssm": new_ssm, "conv": new_conv}
     x = x + out
     if has_mlp:
@@ -266,7 +267,8 @@ def model_split(cfg: ModelConfig, shardings, caches=None, cache_shardings=None):
             cache_spec = rec.spec
             cache_len = rec.global_shape(caches[attn[0]]["k"].shape)[2]
     return SH.model_split(cfg, mesh, ctx.batch_axes(), ctx.model_axis(),
-                          cache_spec=cache_spec, cache_len=cache_len)
+                          cache_spec=cache_spec, cache_len=cache_len,
+                          decoding=caches is not None)
 
 
 def _embed_lookup(embed: Tensor, tokens: Tensor, split) -> Tensor:
@@ -549,18 +551,12 @@ def make_decode_step(cfg: ModelConfig, *, impl="auto",
     ``caches`` are this rank's blocks, ``tokens`` and ``cache_index`` its
     rows, and the logits of its rows come back whole. A cache whose KV
     heads the model axis does not divide is split by length and every
-    layer decodes through ``models.flash_decode``. Attention-only configs:
-    an SSM or hybrid config on a model axis above 1 raises."""
+    layer decodes through ``models.flash_decode``. A Mamba block decodes
+    on this rank's SSM heads and conv channels (``models.ssm``), as the
+    reference decodes under ``cache_shardings``."""
     psh, csh = param_shardings_tree, cache_shardings_tree
-    if psh is not None:
-        if csh is None:
-            raise ValueError("a sharded decode step needs cache_shardings_tree")
-        mesh = tree_leaves(psh)[0].mesh
-        if "M" in cfg.pattern and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the sharded decode of Mamba blocks (SSM heads and "
-                "conv channels over the model axis) is not ported; decode it on "
-                "a mesh whose model axis has one rank")
+    if psh is not None and csh is None:
+        raise ValueError("a sharded decode step needs cache_shardings_tree")
 
     def decode(params, tokens, caches, cache_index):
         logits, new_caches, _ = forward(

@@ -154,8 +154,14 @@ def causal_conv1d(x: Tensor, w: Tensor, bias: Tensor, state=None):
     return F.silu(y), new_state
 
 
+def _block(local: int, whole: int, me: int) -> slice:
+    """This rank's block of ``whole`` items when it holds ``local`` of
+    them (all of them where the model axis does not divide ``whole``)."""
+    return slice(None) if local == whole else slice(me * local, (me + 1) * local)
+
+
 def mamba_apply(params, x: Tensor, cfg: ModelConfig, *, ssm_state=None,
-                conv_state=None, use_pallas: bool = False):
+                conv_state=None, use_pallas: bool = False, split=None):
     """Mamba-2 block: x (B, S, D) -> ``(y, (ssm_state', conv_state'))``.
 
     Without states (training, held-out loss) the scan starts from zero.
@@ -166,28 +172,55 @@ def mamba_apply(params, x: Tensor, cfg: ModelConfig, *, ssm_state=None,
     the reference's kernel, starts from a zero state: a passed
     ``ssm_state`` is dropped there, as the reference drops it. The conv
     state continues the convolution across calls and comes back in its
-    own dtype."""
+    own dtype.
+
+    ``split`` (a sharded decode's ``ModelSplit`` with ``split.ssm``, with
+    states): the block runs on this rank's part of the weights and states,
+    as GSPMD runs the reference under ``cache_shardings``: ``in_proj`` is
+    this rank's block of columns, the conv state its block of channels,
+    the SSM state its block of heads and ``out_proj`` its block of rows
+    (each whole where the model axis does not divide it). The splits do
+    not line up (a block of columns cuts across z, x, B, C and dt; B and C
+    are read by every head), so the projected columns and the convolved
+    channels are gathered over the line and each rank takes what its heads
+    read. The gated RMSNorm's sum of squares over ``d_inner`` and the
+    row-parallel ``out_proj``'s partial products are summed over the
+    line."""
     bsz, s, d = x.shape
     sc = cfg.ssm
     di = sc.d_inner(d)
     nh = sc.num_heads(d)
     n = sc.d_state
+    hd = sc.head_dim
     dtv = x.dtype
+    ch = heads = cols = slice(None)
+    if split is not None:
+        from repro_torch.distribution import collectives as C
+
+        mesh, ax, me = split.mesh, split.axis, split.index
+        hl = ssm_state.shape[1]  # this rank's heads, conv channels
+        ch = _block(conv_state.shape[-1], di + 2 * n, me)
+        heads, cols = _block(hl, nh, me), _block(hl * hd, di, me)
 
     zxbcdt = x @ params["in_proj"].to(dtv)
+    if zxbcdt.shape[-1] != 2 * di + 2 * n + nh:  # this rank's columns
+        zxbcdt = C.all_gather(zxbcdt, mesh, ax, dim=-1)
     z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     decode = ssm_state is not None and s == 1
     conv_out, new_conv = causal_conv1d(
-        conv_in, params["conv_w"].to(dtv), params["conv_b"].to(dtv),
+        conv_in[..., ch], params["conv_w"][:, ch].to(dtv),
+        params["conv_b"][ch].to(dtv),
         state=None if conv_state is None else conv_state.to(dtv))
     if conv_state is not None and new_conv is not None:
         new_conv = new_conv.to(conv_state.dtype)
+    if conv_out.shape[-1] != di + 2 * n:  # this rank's channels
+        conv_out = C.all_gather(conv_out, mesh, ax, dim=-1)
     xin, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
-    dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
-    a = -torch.exp(params["a_log"])
+    dt = F.softplus(dt[..., heads].float() + params["dt_bias"][heads][None, None, :])
+    a = -torch.exp(params["a_log"][heads])
 
-    xh = xin.reshape(bsz, s, nh, sc.head_dim)
+    xh = xin.reshape(bsz, s, nh, hd)[:, :, heads]
     if decode:
         y, new_ssm = ssd_decode_step(xh.float(), dt, a, bmat.float(),
                                      cmat.float(), ssm_state.float())
@@ -204,12 +237,25 @@ def mamba_apply(params, x: Tensor, cfg: ModelConfig, *, ssm_state=None,
         y, new_ssm = ssd_chunked(
             xh.float(), dt, a, bmat.float(), cmat.float(), chunk=sc.chunk,
             h0=None if ssm_state is None else ssm_state.float())
-    y = y + xh.float() * params["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, di).to(dtv)
-    # gated RMSNorm (Mamba-2)
-    y = y * F.silu(z)
+    y = y + xh.float() * params["d_skip"][heads][None, None, :, None]
+    y = y.reshape(bsz, s, -1).to(dtv)
+    # gated RMSNorm (Mamba-2) over the whole d_inner
+    y = y * F.silu(z[..., cols])
     y32 = y.float()
-    var = torch.mean(y32 * y32, dim=-1, keepdim=True)
-    y = (y32 * torch.rsqrt(var + cfg.norm_eps)).to(dtv) * params["norm_w"].to(dtv)
-    out = y @ params["out_proj"].to(dtv)
+    if y.shape[-1] == di:
+        var = torch.mean(y32 * y32, dim=-1, keepdim=True)
+    else:  # this rank's heads
+        var = C.all_reduce(torch.sum(y32 * y32, dim=-1, keepdim=True),
+                           mesh, ax) / di
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps)).to(dtv) \
+        * params["norm_w"][cols].to(dtv)
+    w_out = params["out_proj"]
+    rl = w_out.shape[0]  # this rank's rows
+    if rl != y.shape[-1]:  # the rows do not line up with the heads
+        if y.shape[-1] != di:
+            y = C.all_gather(y, mesh, ax, dim=-1)
+        y = y[..., _block(rl, di, me)]
+    out = y @ w_out.to(dtv)
+    if rl != di:  # row-parallel: partial products
+        out = C.all_reduce(out, mesh, ax)
     return out, (new_ssm.float(), new_conv)

@@ -53,10 +53,12 @@ def global_norm(tree, shardings=None) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def _clip_scale(tree, max_norm: float, shardings=None):
-    """``(scale, norm)``: the factor that brings ``tree``'s global norm to
-    at most ``max_norm``, and that norm."""
-    norm = global_norm(tree, shardings)
+def _clip_scale(tree, max_norm: float, shardings=None, norm=None):
+    """``(scale, norm)``: the factor that brings ``tree``'s global norm
+    (``norm`` where the caller has it) to at most ``max_norm``, and that
+    norm."""
+    if norm is None:
+        norm = global_norm(tree, shardings)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -98,7 +100,8 @@ def adamw(
 ) -> Optimizer:
     """``lr`` is a number or a function of the (int32 tensor) step, as
     :func:`cosine_schedule` returns; ``max_grad_norm`` clips the gradients
-    by their global norm before the moments see them."""
+    by their global norm before the moments see them (``update``'s
+    ``grad_norm``: that norm, where the caller has computed it)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -109,10 +112,11 @@ def adamw(
             nu=tree_map(lambda x: torch.zeros_like(x, dtype=state_dtype), params),
         )
 
-    def update(grads, state: OptState, params=None, shardings=None):
+    def update(grads, state: OptState, params=None, shardings=None,
+               grad_norm=None):
         scale = None
         if max_grad_norm is not None:  # clip_by_global_norm, leaf by leaf below
-            scale, _ = _clip_scale(grads, max_grad_norm, shardings)
+            scale, _ = _clip_scale(grads, max_grad_norm, shardings, grad_norm)
         step = state.step + 1
         stepf = step.float()
         bc1 = 1 - b1 ** stepf
@@ -153,7 +157,8 @@ def sgd_momentum(lr: Union[float, Callable] = 1e-2,
             step=torch.zeros((), dtype=torch.int32, device=leaf.device),
             mu=tree_map(torch.zeros_like, params))
 
-    def update(grads, state: OptState, params=None, shardings=None):
+    def update(grads, state: OptState, params=None, shardings=None,
+               grad_norm=None):
         step = state.step + 1  # no clip: blocks update as they are
         mu = tree_map(lambda m, g: momentum * m + g.to(m.dtype), state.mu, grads)
         lr_t = lr_fn(step)

@@ -18,6 +18,13 @@ on the device. Here the host decides from what it already knows: the
 prefill runs when ``n_arr > 0`` and the caller's free-slot count (when
 given) is not 0, so no tick waits on a device read to decide.
 
+With a runner on a stage mesh (``PipelineRunner(mesh=)``) the state
+holds this rank's KV ring and is otherwise the same on every rank, as
+the reference replicates it: every rank gets the same logits, so the
+counter-hash sampling gives the same tokens, and no branch of the step
+depends on the rank (the prefill's host decision reads ``n_arr`` and
+``free_slots``, which every rank is handed alike).
+
 Invariant the bit-identity leans on: KV caches only ever hold FINITE
 values. Freed slots are not zeroed - their stale rows are masked out of
 attention by the per-row causal mask, and a masked FINITE value is a

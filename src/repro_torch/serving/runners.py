@@ -86,12 +86,18 @@ class PipelineRunner:
     ``boundaries`` is the split plan's cumulative cut points (the Eq. 10
     decision variable); each stage holds only its own layers' KV ring and
     activations cross stage boundaries in ``pipe.wire`` dtype
-    (:func:`repro_torch.core.pipeline.pipeline_serve_fns`). The reference
-    places the stages on a device mesh; here they run in turn in one
-    process on ``device``, so the runner takes no mesh."""
+    (:func:`repro_torch.core.pipeline.pipeline_serve_fns`). Without a
+    ``mesh`` the stages run in turn in this process on ``device``. On a
+    stage ``mesh`` (``launch.mesh.make_stage_mesh(len(boundaries))``, as
+    the reference places its stages) stage ``t`` runs on the rank at
+    coordinate ``t`` of ``stage_axis``, on the mesh's device unless
+    ``device`` is given: :meth:`init_caches` returns this rank's ring, the
+    passes take this rank's :func:`~repro_torch.core.pipeline.stage_params`
+    share, and every rank gets the same logits."""
 
     def __init__(self, cfg: ModelConfig, boundaries: Sequence[int], *,
-                 pipe=None, device: DeviceLike = None):
+                 pipe=None, device: DeviceLike = None, mesh=None,
+                 stage_axis: str = "stage"):
         from repro_torch.core.pipeline import PipelineConfig, pipeline_serve_fns
 
         check_servable(cfg)
@@ -100,16 +106,20 @@ class PipelineRunner:
         self.cfg = cfg
         self.boundaries = tuple(int(b) for b in boundaries)
         self.pipe = pipe
+        self.mesh = mesh
+        self.stage_axis = stage_axis
         self.compute_dtype = pipe.dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         self._prefill, self._decode = pipeline_serve_fns(
-            cfg, self.boundaries, pipe=pipe)
+            cfg, self.boundaries, pipe=pipe, mesh=mesh, stage_axis=stage_axis)
 
     def init_caches(self, num_slots: int, cache_len: int):
         from repro_torch.core.pipeline import stage_kv_caches
 
         return stage_kv_caches(self.cfg, self.boundaries, num_slots, cache_len,
-                               dtype=self.compute_dtype, device=self.device)
+                               dtype=self.compute_dtype, device=self.device,
+                               mesh=self.mesh, stage_axis=self.stage_axis)
 
     def prefill(self, params, caches, prompts):
         return self._prefill(params, caches, prompts)

@@ -8,6 +8,16 @@ queue and drops queued requests past their deadline, (b) packs at most
 buffers, (c) calls the engine step, and (d) reads the small report back
 and drains completions (pulling ``gen_buf`` rows only for slots that
 finished). Idle ticks (nothing pending, nothing active) skip the step.
+
+On a stage mesh (a split plan served one stage per rank) the host's
+decisions read the wall clock, which each process reads for itself: two
+ranks could admit different requests on one tick and the token ring
+would stall or diverge. So the rank at stage 0 makes every decision
+(arrivals, expiries, the fault clock, stalls) and sends each engine call
+to the other ranks as one small schedule (:data:`STEP`: the packed
+arrival buffers and the free-slot count; :data:`EVICT`: free every slot
+after an outage; :data:`STOP`), and they follow it. The engine state is
+then the same on every rank, as the reference replicates it.
 """
 from __future__ import annotations
 
@@ -132,9 +142,13 @@ class SlotScheduler:
         return reqs, ap, al, ag, ar, len(reqs)
 
 
-def make_runner(cfg: ServeConfig, model_cfg, device: DeviceLike = None):
+def make_runner(cfg: ServeConfig, model_cfg, device: DeviceLike = None,
+                mesh=None, pipe=None):
     """The runner a :class:`ServeConfig` asks for: one device, or the
-    split plan ``cfg.boundaries`` stage by stage."""
+    split plan ``cfg.boundaries`` stage by stage (one stage per rank of a
+    stage ``mesh``). ``pipe``: the plan's ``PipelineConfig`` (by default
+    the config's compute and wire dtypes, the stages on the reference
+    route; ``stage_impl="pallas"`` takes the stage kernel)."""
     from repro_torch.serving.runners import PipelineRunner, SingleDeviceRunner
 
     dtype = getattr(torch, cfg.compute_dtype)
@@ -142,9 +156,33 @@ def make_runner(cfg: ServeConfig, model_cfg, device: DeviceLike = None):
         return SingleDeviceRunner(model_cfg, compute_dtype=dtype, device=device)
     from repro_torch.core.pipeline import PipelineConfig
 
-    pipe = PipelineConfig(compute_dtype=cfg.compute_dtype,
-                          wire_dtype=cfg.wire_dtype)
-    return PipelineRunner(model_cfg, cfg.boundaries, pipe=pipe, device=device)
+    if pipe is None:
+        pipe = PipelineConfig(compute_dtype=cfg.compute_dtype,
+                              wire_dtype=cfg.wire_dtype)
+    return PipelineRunner(model_cfg, cfg.boundaries, pipe=pipe, device=device,
+                          mesh=mesh)
+
+
+def stage_mesh_for(cfg: ServeConfig, device: DeviceLike = None):
+    """The stage mesh a split plan is served on, as the reference builds
+    ``make_stage_mesh(len(boundaries))``: when ``cfg.boundaries`` has more
+    than one stage and the default process group has at least that many
+    ranks (a collective call: every rank makes it); else ``None``, every
+    stage in this process."""
+    import torch.distributed as dist
+
+    if not cfg.boundaries or len(cfg.boundaries) < 2:
+        return None
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() >= len(cfg.boundaries)):
+        return None
+    from repro_torch.launch.mesh import make_stage_mesh
+
+    return make_stage_mesh(len(cfg.boundaries), device=device)
+
+
+# the kinds of the stage-0 rank's schedule messages
+STEP, EVICT, STOP = 0, 1, 2
 
 
 def init_model_params(cfg: ServeConfig, model_cfg, device: DeviceLike = None):
@@ -160,20 +198,42 @@ def init_model_params(cfg: ServeConfig, model_cfg, device: DeviceLike = None):
 class ServingService:
     """The continuous-batching service loop over one engine.
 
-    ``params``: the model's weights, else drawn by
+    ``params``: the model's weights (the whole tree), else drawn by
     :func:`init_model_params`. ``device`` is ``cuda`` unless the caller
-    asks for the CPU."""
+    asks for the CPU.
+
+    ``mesh``: a stage mesh for a split plan (``cfg.boundaries``), stage
+    ``t`` on rank ``t``; each rank keeps its
+    :func:`~repro_torch.core.pipeline.stage_params` share. Without one,
+    a split plan is served on :func:`stage_mesh_for`'s mesh when the
+    default process group has a rank per stage, else in this process;
+    ``mesh=False`` serves every stage in this process whatever the group.
+    ``pipe``: the split plan's ``PipelineConfig`` (see :func:`make_runner`). On
+    a mesh every rank calls :meth:`run` with the same trace; the stage-0
+    rank decides each tick and returns the metrics, the others follow it
+    and return their completions (``{"completions", "num_requests"}``),
+    equal to the stage-0 rank's."""
 
     def __init__(self, cfg: ServeConfig, params=None, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None, pipe=None):
         from repro_torch.serving.engine import init_engine_state, make_engine_step
 
         self.cfg = cfg
         self.model_cfg = cfg.model_config()
-        self.device = resolve_device(device)
-        self.runner = make_runner(cfg, self.model_cfg, self.device)
+        if mesh is None:
+            mesh = stage_mesh_for(cfg, device)
+        mesh = mesh or None  # False: this process
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        self.runner = make_runner(cfg, self.model_cfg, self.device, mesh, pipe)
         if params is None:
             params = init_model_params(cfg, self.model_cfg, self.device)
+        if mesh is not None:
+            from repro_torch.core.pipeline import stage_params
+
+            params = stage_params(params, self.model_cfg, cfg.boundaries,
+                                  mesh.axis_index(self.runner.stage_axis))
         self.params = params
         self.base_key = cfg.seed
         self.step = make_engine_step(
@@ -185,9 +245,85 @@ class ServingService:
             self.runner, cfg.num_slots, cfg.prompt_pad, cfg.max_new)
         self.replanner = None  # attach via attach_replanner()
         # the devices the serving pipeline occupies, as FaultSchedule rows:
-        # one per stage for split serving, device 0 alone
+        # one per stage for split serving (stage t, on a mesh rank t),
+        # device 0 alone
         self.stage_devices = (tuple(range(len(cfg.boundaries)))
                               if cfg.boundaries else (0,))
+
+    @property
+    def leads(self) -> bool:
+        """Whether this rank decides the ticks (always, without a mesh)."""
+        return self.mesh is None or self.mesh.axis_index(self.runner.stage_axis) == 0
+
+    def _schedule(self, kind: int, arrays=(), n_arr: int = 0, free: int = 0):
+        """The stage-0 rank's message of one tick, sent to the other ranks
+        (one broadcast of ``3 + A (P + 3)`` int64s); on a follower, the
+        message received. Returns ``(kind, arrays, n_arr, free)``."""
+        from repro_torch.distribution import collectives as C
+
+        a, p = self.cfg.arrival_slots, self.cfg.prompt_pad
+        msg = torch.zeros((3 + a * (p + 3),), dtype=torch.long)
+        if self.leads:
+            msg[:3] = torch.tensor([kind, n_arr, free])
+            if arrays:
+                msg[3:] = torch.from_numpy(np.concatenate(
+                    [np.asarray(x, np.int64).reshape(-1) for x in arrays]))
+        msg = C.broadcast(msg.to(self.device), self.mesh, self.runner.stage_axis,
+                          0).cpu().numpy()
+        kind, n_arr, free = (int(v) for v in msg[:3])
+        body = msg[3:]
+        arrays = (body[:a * p].reshape(a, p), body[a * p:a * p + a],
+                  body[a * p + a:a * p + 2 * a], body[a * p + 2 * a:])
+        return kind, arrays, n_arr, free
+
+    def _engine(self, ap, al, ag, ar, n_arr, free):
+        """One engine call (sent to the other ranks first, on a mesh)."""
+        if self.mesh is not None:
+            self._schedule(STEP, (ap, al, ag, ar), n_arr, free)
+        self.state, report = self.step(self.params, self.state, ap, al, ag, ar,
+                                       n_arr, free_slots=free)
+        return report
+
+    def _evict_all(self) -> None:
+        from repro_torch.serving.engine import evict_slots
+
+        if self.mesh is not None and self.leads:
+            self._schedule(EVICT)
+        self.state = evict_slots(self.state, self.state.active)
+
+    def _finished(self, report, seen_done):
+        """``(active, rids, n_gen, done)`` from an engine report: ``done``
+        the ``(rid, tokens)`` of the slots that finished since the last
+        report (``seen_done`` is updated); ``gen_buf`` is read only when
+        one did."""
+        rep = torch.stack([report["active"].to(torch.long),
+                           report["req_id"], report["n_gen"]]).cpu().numpy()
+        act, rids, ngen = rep[0].astype(bool), rep[1], rep[2]
+        slots = [s for s in range(len(rids))
+                 if rids[s] >= 0 and not act[s] and int(rids[s]) not in seen_done]
+        done = []
+        if slots:
+            buf = self.state.gen_buf.cpu().numpy()  # only on completions
+            for s in slots:
+                seen_done.add(int(rids[s]))
+                done.append((int(rids[s]), buf[s, :ngen[s]].astype(np.int32)))
+        return act, rids, ngen, done
+
+    def _follow(self) -> Dict:
+        """A follower rank's :meth:`run`: the stage-0 rank's engine calls,
+        in its order."""
+        seen_done, completions = set(), {}
+        while True:
+            kind, arrays, n_arr, free = self._schedule(STOP)
+            if kind == STOP:
+                return {"completions": completions,
+                        "num_requests": len(completions)}
+            if kind == EVICT:
+                self._evict_all()
+                continue
+            self.state, report = self.step(self.params, self.state, *arrays,
+                                           n_arr, free_slots=free)
+            completions.update(self._finished(report, seen_done)[3])
 
     def attach_replanner(self, replanner) -> None:
         self.replanner = replanner
@@ -213,9 +349,21 @@ class ServingService:
         requeues those requests at the head of the queue, re-plans around
         the dead devices (``replan(exclude_devices=...)``) and jumps the
         clock to the outage's end. Sampling is keyed by request id, so
-        every request completes with the tokens of a fault-free run."""
+        every request completes with the tokens of a fault-free run.
+
+        On a stage mesh a follower rank returns its completions only (see
+        the class docstring)."""
+        if not self.leads:
+            return self._follow()
+        try:
+            return self._lead(trace, realtime, max_ticks, faults)
+        finally:
+            if self.mesh is not None:  # the followers return, also on an error
+                self._schedule(STOP)
+
+    def _lead(self, trace, realtime, max_ticks, faults) -> Dict:
+        """:meth:`run` on the rank that decides the ticks."""
         from repro_torch.core.faults import FaultClock
-        from repro_torch.serving.engine import evict_slots
 
         trace = list(trace)
         if self.cfg.deadline_s > 0:
@@ -301,7 +449,7 @@ class ServingService:
                         if victims:
                             evictions += len(victims)
                             queue.requeue_front(victims)
-                            self.state = evict_slots(self.state, self.state.active)
+                            self._evict_all()
                             active_rids = set()
                             free = self.cfg.num_slots
                         if self.replanner is not None:
@@ -324,26 +472,15 @@ class ServingService:
             for r in reqs:
                 admit_t[r.rid] = now
                 inflight[r.rid] = r
-            self.state, report = self.step(self.params, self.state, ap, al,
-                                           ag, ar, n_arr, free_slots=free)
-            rep = torch.stack([report["active"].to(torch.long),
-                               report["req_id"], report["n_gen"]]).cpu().numpy()
-            act, rids, ngen = rep[0].astype(bool), rep[1], rep[2]
+            report = self._engine(ap, al, ag, ar, n_arr, free)
+            act, rids, ngen, done = self._finished(report, seen_done)
             now = time.perf_counter() - t0
             active_rids = {int(r) for r, a in zip(rids, act) if a and r >= 0}
-            done_slots = [s for s in range(len(rids))
-                          if rids[s] >= 0 and not act[s]
-                          and int(rids[s]) not in seen_done]
-            if done_slots:
-                buf = self.state.gen_buf.cpu().numpy()  # only on completions
-                for s in done_slots:
-                    rid = int(rids[s])
-                    seen_done.add(rid)
-                    inflight.pop(rid, None)
-                    completions.append(Completion(
-                        rid=rid, tokens=buf[s, :ngen[s]].astype(np.int32),
-                        arrival_time=arrive_t[rid],
-                        admit_time=admit_t[rid], done_time=now))
+            for rid, tokens in done:
+                inflight.pop(rid, None)
+                completions.append(Completion(
+                    rid=rid, tokens=tokens, arrival_time=arrive_t[rid],
+                    admit_time=admit_t[rid], done_time=now))
             free = int((~act).sum())
             if (self.replanner is not None and self.cfg.replan_every
                     and tick % self.cfg.replan_every == 0):

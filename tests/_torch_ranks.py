@@ -224,10 +224,16 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
                wires, env_axis_case):
     """A 2-stage step on ranks 0-1 for each wire dtype (the other ranks
     idle), then, on 4 ranks, the (2 x 2) ``env_axis`` step; rank 0
-    returns the assembled gradients."""
+    returns the assembled gradients. Then serving on stage ranks: the
+    token ring on 2 and on 4 ranks at each wire dtype (every rank returns
+    the logits and its ring), ``ServingService`` on 4 ranks without and
+    with ``reference_schedule`` faults; and the launcher on 2 stage ranks
+    (``LAUNCH_ARGV`` with a checkpoint directory), then again, resuming
+    from its checkpoint."""
     import torch.distributed as dist
 
     from repro_torch.core import pipeline as P
+    from repro_torch.launch import train_mhsl_rl as LAUNCH
     from repro_torch.launch.mesh import make_stage_env_mesh, make_stage_mesh
 
     cfg, params, tok, lab = _stage_case(params_path, arch, layers)
@@ -244,14 +250,101 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
                                                       bounds, mesh))
     dist.barrier()
     if env_axis_case and world == 4:
-        mesh = make_stage_env_mesh(2, 2, device="cpu")
+        mesh4 = make_stage_env_mesh(2, 2, device="cpu")
         pipe = P.PipelineConfig(compute_dtype="float32")
-        step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe, mesh=mesh,
+        step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe, mesh=mesh4,
                                   env_axis="env")
-        local = P.stage_params(params, cfg, bounds, mesh.axis_index("stage"))
+        local = P.stage_params(params, cfg, bounds, mesh4.axis_index("stage"))
         loss, grads = step(local, tok, lab)
         out["env"] = (float(loss), P.gather_stage_tree(grads, params, cfg,
-                                                       bounds, mesh))
+                                                       bounds, mesh4))
+    if world == 4:
+        ring4 = make_stage_mesh(4, device="cpu")
+        out["serve"] = {}
+        for n, m in ((2, mesh), (4, ring4)):
+            if m.coords is None:
+                continue
+            for wire in wires:
+                out["serve"][(n, wire)] = serve_pass(cfg, params, SERVE_BOUNDS[n],
+                                                     wire, m)
+        out["service"] = service_runs(cfg, params, ring4)
+        ckpt = ["--checkpoint-dir", os.path.join(tmp, "launcher_ckpt")]
+        out["launcher"], out["resumed"] = (
+            _launched(LAUNCH.main(LAUNCH_ARGV + ckpt)) for _ in range(2))
+    return out
+
+
+def _launched(res):
+    """What the launcher tests read of ``train_mhsl_rl.main``'s result."""
+    out = {k: res[k] for k in ("boundaries", "losses", "grad_norms", "eval_loss",
+                               "params") if k in res}
+    out["trained"] = res["train"] is not None
+    return out
+
+
+# serving on stage ranks: the token ring's prefill (B x P prompts) and one
+# decode tick at per-row positions, on 2 and on 4 stages
+SERVE_B, SERVE_P, SERVE_EXTRA = 3, 8, 4
+SERVE_BOUNDS = {2: (1, 4), 4: (1, 2, 3, 4)}
+# the service on 4 stage ranks: tests/test_torch_faults.py's settings
+SERVICE_KW = dict(num_slots=3, arrival_slots=2, prompt_pad=8, max_new=8,
+                  decode_chunk=2, fault_tick_s=0.02, max_retries=2,
+                  retry_backoff_s=0.005)
+# the launcher on 2 stage ranks (a tied config: Qwen2.5-3B reduced)
+LAUNCH_ARGV = ["--reduced", "--device", "cpu", "--episodes", "4", "--num-envs", "2",
+               "--pipeline-steps", "2", "--batch", "4", "--seq", "16",
+               "--eval-batch", "2", "--eval-seq", "16", "--stages", "2"]
+
+
+def serve_inputs(vocab):
+    """The prompts (B, P), the decode tokens (B, 1) and positions (B,)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(0, vocab, (SERVE_B, SERVE_P)))
+    tok = torch.from_numpy(rng.integers(0, vocab, (SERVE_B, 1)))
+    return prompts, tok, torch.tensor([SERVE_P, SERVE_P - 3, SERVE_P - 1])
+
+
+def serve_pass(cfg, params, bounds, wire, mesh=None):
+    """A prefill and one decode tick through ``PipelineRunner`` (on
+    ``mesh``: this rank's stage over its share of ``params``): the logits
+    and the KV rings (on a mesh, this rank's)."""
+    from repro_torch.core import pipeline as P
+    from repro_torch.serving import PipelineRunner
+
+    pipe = P.PipelineConfig(compute_dtype="float32", wire_dtype=wire)
+    runner = PipelineRunner(cfg, bounds, pipe=pipe, device="cpu", mesh=mesh)
+    if mesh is not None:
+        params = P.stage_params(params, cfg, bounds, mesh.axis_index("stage"))
+    prompts, tok, pos = serve_inputs(cfg.vocab_size)
+    caches = runner.init_caches(SERVE_B, SERVE_P + SERVE_EXTRA)
+    lg, caches = runner.prefill(params, caches, prompts)
+    dl, caches = runner.decode(params, tok, caches, pos)
+    return {"prefill": lg, "decode": dl, "k": caches["k"], "v": caches["v"]}
+
+
+def service_runs(cfg, params, mesh=None):
+    """``ServingService`` over a Poisson trace on the 4-stage plan of
+    reduced Qwen2.5-3B at ``cfg``'s depth (``params``: the whole tree), without
+    and with ``reference_schedule(4, 3)`` faults: each run's completions
+    (and on the deciding rank its fault counts)."""
+    from repro_torch.core.faults import reference_schedule
+    from repro_torch.serving import ServeConfig, ServingService, poisson_trace
+
+    scfg = ServeConfig(arch="qwen2_5_3b", num_layers=cfg.num_layers,
+                       boundaries=SERVE_BOUNDS[4], **SERVICE_KW)
+    assert scfg.model_config() == cfg
+    trace = poisson_trace(n_requests=6, rate_per_sec=50.0, vocab_size=cfg.vocab_size,
+                          plen_range=(2, 8), gen_range=(2, 8), seed=3)
+    out = {}
+    for name, faults in (("free", None), ("faulted", reference_schedule(
+            4, 3, tick_seconds=SERVICE_KW["fault_tick_s"], device="cpu"))):
+        res = ServingService(scfg, params, device="cpu", mesh=mesh).run(
+            list(trace), faults=faults)
+        out[name] = {k: res[k] for k in ("completions", "fault_events", "evictions")
+                     if k in res}
     return out
 
 
@@ -355,7 +448,8 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
     gradients from the JAX package's weights; (c) ``moe_apply_a2a`` at the
     default capacity factor (outputs, aux, drops, gradients of the output
     sum) and at ``a2a_cf``; (d) a train step with ``moe_a2a=True``; (e)
-    sharded decode steps (a cache split by length, then by heads); (f)
+    sharded decode steps (a cache split by length, then by heads; Mamba2
+    and Jamba on their SSM heads and conv channels); (f)
     ``load_pytree(shardings=)``; (g) ``launch.train`` with ``--data-par 2
     --model-par 2``. Rank 0 returns the gathered trees."""
     import dataclasses
@@ -470,9 +564,14 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
                             params=gathered(new, psh), mu=gathered(state.mu, psh))
 
     lap("d")
-    # (e) sharded decode steps
+    # (e) sharded decode steps; Mamba2 and the Jamba hybrid on the (2 x 2)
+    # mesh and on a (1 x 4) one
     for name, kv in (("length", 1), ("heads", 2)):
         out["decode"][name] = decode_run(mesh, kv)
+    line = make_host_mesh(1, 4, device="cpu")
+    for arch, grid in SSM_DECODE_CASES:
+        out["decode"][f"{arch}|{grid}"] = decode_run(
+            mesh if grid == (2, 2) else line, None, arch)
 
     lap("e")
     # (f) load_pytree(shardings=): the whole tree saved, each rank its blocks
@@ -497,6 +596,9 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
     return out
 
 
+# the sharded decode of SSM and hybrid configs: (arch, (data, model))
+SSM_DECODE_CASES = [(arch, grid) for arch in ("mamba2-370m", "jamba-v0.1-52b")
+                    for grid in ((2, 2), (1, 4))]
 TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--steps", "3", "--batch", "4", "--seq",
               "32", "--device", "cpu"]
 DECODE_STEPS, DECODE_BATCH, DECODE_CACHE = 6, 2, 8
@@ -510,22 +612,22 @@ def decode_tokens(cfg, seed=3):
     return rng.integers(0, cfg.vocab_size, (DECODE_STEPS, DECODE_BATCH))
 
 
-def decode_case(kv):
+def decode_case(kv, arch="qwen2.5-3b"):
     import torch
 
     from repro_torch.models import model as M
 
-    cfg = tp_config("qwen2.5-3b", num_kv_heads=kv)
+    cfg = tp_config(arch, **({} if kv is None else {"num_kv_heads": kv}))
     params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     return cfg, params
 
 
-def decode_run(mesh, kv):
-    """``DECODE_STEPS`` f32 decode steps of reduced Qwen2.5-3B with ``kv``
-    KV heads from an empty ``DECODE_CACHE``-entry cache, each row at its
-    own position (row b starts at b), on ``mesh`` (``mesh=None``: in one
-    process). Returns the logits of every step (B, V) and whether the
-    steps went through ``flash_decode``."""
+def decode_run(mesh, kv, arch="qwen2.5-3b"):
+    """``DECODE_STEPS`` f32 decode steps of reduced ``arch`` (with ``kv``
+    KV heads, unless None) from an empty ``DECODE_CACHE``-entry cache, each
+    row at its own position (row b starts at b), on ``mesh``
+    (``mesh=None``: in one process). Returns the logits of every step (B,
+    V) and whether the steps went through ``flash_decode``."""
     import torch
 
     from repro_torch.distribution import context as ctx
@@ -533,7 +635,7 @@ def decode_run(mesh, kv):
     from repro_torch.models import flash_decode as FD
     from repro_torch.models import model as M
 
-    cfg, params = decode_case(kv)
+    cfg, params = decode_case(kv, arch)
     caches = M.init_caches(cfg, DECODE_BATCH, DECODE_CACHE, dtype=torch.float32,
                            device="cpu")
     toks = torch.from_numpy(decode_tokens(cfg)).long()
@@ -567,7 +669,9 @@ def decode_run(mesh, kv):
                                    bsh.block(idx0 + t))
                 out.append(SH.gather_tree(lg, SH.batch_sharding(mesh, DECODE_BATCH)))
         return dict(logits=torch.stack(out), flash=len(calls),
-                    spec=csh[0]["k"].spec)
+                    spec=next((c["k"].spec for c in csh if "k" in c), None),
+                    ssm_spec=next(((c["ssm"].spec, c["conv"].spec) for c in csh
+                                   if "ssm" in c), None))
     finally:
         FD.flash_decode = real
 
@@ -733,24 +837,30 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
     """(M3) four gloo ranks sharing the card: ``arch`` at published widths
     and ``depth`` on ``len(bounds)`` stages, bf16 over f32 masters through
     the stage kernel, ``steps`` timed steps, the gradients assembled on
-    rank 0 and held to the in-process step there; then the (2 x 2)
-    stage x env step at ``env_depth`` in f32 against the in-process step
-    (the 1-D stage mesh's result)."""
+    rank 0 and held to the in-process step there; then one step of the
+    launcher (``make_pipeline_train_step(mesh=)``: the pipelined step and
+    AdamW on the shares, clipped by the norm summed over the ranks), its
+    norm and its updated shares (gathered) held to the one-process
+    launcher step's on the same inputs; then the (2 x 2) stage x env step
+    at ``env_depth`` in f32 against the in-process step (the 1-D stage
+    mesh's result)."""
     import numpy as np
     import torch
 
     from repro_torch.core import pipeline as P
     from repro_torch.distribution.collectives import transport
+    from repro_torch.launch import train_mhsl_rl as RUN
     from repro_torch.launch.mesh import make_stage_env_mesh, make_stage_mesh
     from repro_torch.launch.train_mhsl_rl import executed_config
     from repro_torch.models import model as M
+    from repro_torch.optim import adamw
 
     rng = np.random.default_rng(0)
     tok, lab = (torch.from_numpy(rng.integers(0, 151936, (rows, seq))).cuda()
                 for _ in range(2))
     out = {"launches": {}}
 
-    def case(depth, bounds, pipe, mesh, env_axis, n_steps):
+    def case(depth, bounds, pipe, mesh, env_axis, n_steps, update=False):
         cfg = executed_config(arch, depth, reduced=False)
         tk, lb = tok % cfg.vocab_size, lab % cfg.vocab_size
         params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -768,33 +878,142 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
         for _ in range(n_steps):
             (loss, grads), s = _timed(lambda: step(local, tk, lb))
             secs.append(s)
-        launches = _since(before)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         full = P.gather_stage_tree(grads, params, cfg, bounds, mesh)
-        res = dict(seconds=secs, peak_gib=peak, transport=transport(mesh),
-                   loss=float(loss))
+        res = dict(seconds=secs, transport=transport(mesh), loss=float(loss))
+        del grads
+        new = None
+        opt = adamw(RUN.LR, max_grad_norm=1.0)
+        if update:  # the launcher's step, from fresh moments
+            train = RUN.make_pipeline_train_step(cfg, bounds, micro, pipe, opt,
+                                                 mesh=mesh)
+            (upd, _, _, norm), upd_s = _timed(
+                lambda: train(local, opt.init(local), tk, lb))
+            new = P.gather_stage_tree(upd, params, cfg, bounds, mesh)
+            res.update(norm=float(norm), update_seconds=upd_s)
+            del upd
+        launches = _since(before)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         if full is not None and mesh.axis_index(mesh.axis_names[-1]) == 0:
             ref_step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe)
             saved = _launches()
             ref_step(params, tk, lb)  # warm
             (ref_loss, ref), ref_s = _timed(lambda: ref_step(params, tk, lb))
-            from repro_torch.launch import train_mhsl_rl as RUN
-
-            for name, mod in RUN.KERNEL_MODULES.items():  # not the path's
-                mod.launches = saved[name]
             rel, same = tree_rel_diff(full, ref)
+            del ref
             res.update(ref_loss=float(ref_loss), ref_seconds=ref_s, grad_rel=rel,
                        bitwise=same and float(loss) == float(ref_loss))
-        del full, grads, local, params
+            if new is not None:  # the one-process launcher step, same inputs
+                train = RUN.make_pipeline_train_step(cfg, bounds, micro, pipe, opt)
+                ref_new, _, _, ref_norm = train(params, opt.init(params), tk, lb)
+                res.update(ref_norm=float(ref_norm),
+                           update_rel=tree_rel_diff(new, ref_new)[0])
+                del ref_new
+            _restore(saved)  # not the path's
+        del full, local, params, new
         torch.cuda.empty_cache()
         return res, launches
 
     pipe = P.PipelineConfig(stage_impl="pallas", compute_dtype="bfloat16")
     out["stage"], out["launches"]["stage"] = case(
-        depth, tuple(bounds), pipe, make_stage_mesh(len(bounds)), None, steps)
+        depth, tuple(bounds), pipe, make_stage_mesh(len(bounds)), None, steps,
+        update=True)
     pipe = P.PipelineConfig(stage_impl="pallas", compute_dtype="float32")
     out["stage_env"], out["launches"]["stage_env"] = case(
         env_depth, tuple(env_bounds), pipe, make_stage_env_mesh(2, 2), "env", 1)
+    return out
+
+
+def card_serve_stage(rank, world, tmp, arch, bounds, serve, trace, device="cuda",
+                     reduced=None):
+    """(M5a) a split plan served on ``len(bounds)`` gloo stage ranks
+    sharing the card: ``ServingService(mesh=)`` over a Poisson trace,
+    bf16 compute and wire with ``stage_impl="pallas"`` (each rank's dense
+    MLP halves through the stage kernel), against the same service in one
+    process on rank 0 (same weights, same pipe; run first, its launches
+    not counted). Reports every rank's completions, its
+    ``stage_mlp_block`` launches and ring passes, ms per decode step and
+    peak memory. ``reduced`` (by default on the CPU only) takes the arch's
+    reduced widths; ``device="cpu"`` rehearses it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.distribution.collectives import transport
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.serving import ServeConfig, ServingService, poisson_trace
+    from repro_torch.serving.service import init_model_params
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = ServeConfig(arch=arch, reduced=not cuda if reduced is None else reduced,
+                      boundaries=tuple(bounds),
+                      compute_dtype="bfloat16", wire_dtype="bfloat16", **serve)
+    mcfg = cfg.model_config()
+    pipe = PipelineConfig(stage_impl="pallas", compute_dtype="bfloat16",
+                          wire_dtype="bfloat16")
+    reqs = poisson_trace(vocab_size=mcfg.vocab_size, **trace)
+    mesh = make_stage_mesh(len(bounds), device=device)
+    out = {"transport": transport(mesh), "layers": mcfg.num_layers}
+    if rank == 0:
+        saved = _launches()
+        svc = ServingService(cfg, init_model_params(cfg, mcfg, device),
+                             device=device, mesh=False, pipe=pipe)
+        sync()
+        t0 = time.perf_counter()
+        ref = svc.run(list(reqs))
+        sync()
+        out.update(ref_completions=ref["completions"],
+                   ref_seconds=time.perf_counter() - t0,
+                   ref_tokens_per_sec=ref["tokens_per_sec"])
+        del svc
+        _restore(saved)
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+    def build():
+        svc = ServingService(cfg, init_model_params(cfg, mcfg, device),
+                             device=device, mesh=mesh, pipe=pipe)
+        if cuda:
+            torch.cuda.empty_cache()
+        return svc
+
+    svc = _in_turn(rank, world, build)  # one whole model on the card at a time
+    runner, passes, decode_s = svc.runner, {"prefill": 0, "decode": 0}, []
+    prefill, decode = runner.prefill, runner.decode
+
+    def counted_prefill(*a):
+        passes["prefill"] += 1
+        return prefill(*a)
+
+    def timed_decode(*a):
+        passes["decode"] += 1
+        sync()
+        t1 = time.perf_counter()
+        got = decode(*a)
+        sync()
+        decode_s.append(time.perf_counter() - t1)
+        return got
+
+    runner.prefill, runner.decode = counted_prefill, timed_decode
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    t0 = time.perf_counter()
+    res = svc.run(list(reqs))
+    sync()
+    k = mesh.axis_index("stage")
+    out.update(seconds=time.perf_counter() - t0, launches=_since(before),
+               completions=res["completions"], passes=passes,
+               decode_ms=[x * 1e3 for x in decode_s],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0,
+               stage_layers=bounds[k] - ([0] + list(bounds))[k])
+    if rank == 0:
+        out.update(tokens_per_sec=res["tokens_per_sec"], ticks=res["ticks"])
     return out
 
 
@@ -824,15 +1043,17 @@ def _in_turn(rank, world, fn):
 
 
 def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
-                         device="cuda"):
+                         m4c_mamba=None, device="cuda"):
     """(M4) four gloo ranks sharing the card on (data x model) meshes,
     each part against the one-process run on rank 0: (M4a) the zoo
     trainer on a (2 x 2) mesh (``launch.train.main``); (M4b) one (2 x 2)
     train step with ``moe_a2a=True`` (the one-process dropless step first,
     its results kept on the host and freed from the card); (M4c) greedy
     decoding on a (1 x 4) mesh, the cache split by length (every layer
-    through ``flash_decode``). Runs the ``parts`` named, each with its
-    dict of sizes; reports each part's kernel launches (none expected).
+    through ``flash_decode``), and ``M4c_mamba`` the same for an SSM
+    config (its Mamba blocks on their SSM heads and conv channels). Runs
+    the ``parts`` named, each with its dict of sizes; reports each part's
+    kernel launches (none expected).
     ``device="cpu"`` with reduced parts runs it on the CPU."""
     import dataclasses
 
@@ -991,10 +1212,13 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
         out["M4b"] = b
         dist.barrier()
 
-    if "M4c" in parts:
-        # (M4c) greedy decoding on a (1 x 4) mesh, the cache split by length
+    for part, m4c in (("M4c", m4c), ("M4c_mamba", m4c_mamba)):
+        if part not in parts:
+            continue
+        # (M4c) greedy decoding on a (1 x 4) mesh: Qwen2.5-3B's cache split
+        # by length; Mamba2-370m's SSM heads and conv channels over model
         cfg = executed_config(m4c["arch"], None, reduced=not cuda)
-        if not cuda:  # a head count the 4-rank model axis does not divide
+        if not cuda and cfg.num_kv_heads:  # a head count 4 ranks do not divide
             cfg = dataclasses.replace(cfg, num_kv_heads=2)
         mesh = make_host_mesh(1, 4, device=device)
         starts = torch.tensor(m4c["starts"], device=device)
@@ -1030,7 +1254,7 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
             _restore(saved)
             reset()
         dist.barrier()
-        lap("M4c one process")
+        lap(f"{part} one process")
         caches = M.init_caches(cfg, len(m4c["starts"]), m4c["cache"], dtype=torch.float32,
                                device=device)
         csh = SH.cache_shardings(caches, cfg, mesh, len(m4c["starts"]))
@@ -1050,7 +1274,7 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
         cblocks = SH.blocks(caches, csh)
         del caches
         reset()
-        lap("M4c blocks")
+        lap(f"{part} blocks")
         step = M.make_decode_step(cfg, compute_dtype=torch.float32,
                                   param_shardings_tree=psh, cache_shardings_tree=csh)
         calls = []
@@ -1067,12 +1291,11 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
                 c["tokens"], c["logits"], c["seconds"] = decode(step, blocks, cblocks)
         finally:
             FD.flash_decode = real
-        out["launches"]["M4c"] = _since(before)
-        c.update(flash_calls=len(calls), cache_spec=csh[0]["k"].spec,
-                 peak_gib=peak(),
-                 layers=cfg.num_layers)
-        out["M4c"] = c
-        lap("M4c mesh decode")
+        out["launches"][part] = _since(before)
+        c.update(flash_calls=len(calls), peak_gib=peak(), layers=cfg.num_layers,
+                 cache_spec={k: v.spec for k, v in csh[0].items()})
+        out[part] = c
+        lap(f"{part} mesh decode")
     return out
 
 
@@ -1164,7 +1387,8 @@ def _restore(saved):
 WORKERS = {f.__name__: f for f in (population_runs, sac_runs, stage_runs,
                                    tensor_parallel_runs, card_one_rank,
                                    card_two_ranks, card_stage,
-                                   card_tensor_parallel, card_tp_step)}
+                                   card_tensor_parallel, card_tp_step,
+                                   card_serve_stage)}
 
 
 def _main(argv):

@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -75,16 +77,6 @@ def _close_tree(got, want, rtol, atol=1e-6, what=""):
         g = g.detach().cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
         np.testing.assert_allclose(g, np.asarray(w), rtol=rtol, atol=atol,
                                    err_msg=f"{what}{jax.tree_util.keystr(path)}")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """torch on one thread: these ops are tiny, and a worker's threads
-    contend with the other test workers' for the cores."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.core.env import MHSLEnv  # noqa: E402
 from repro_torch.core.profiles import resnet101_profile  # noqa: E402
 from repro_torch.figures import band as B  # noqa: E402
@@ -32,14 +34,6 @@ def env():
 @pytest.fixture(scope="module")
 def reference():
     return B.load_reference()["cpu"]["arms"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _runs(env, arm, warmup=None):

@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.launch import chaos  # noqa: E402
 
 ARGS = ["--seed", "5", "--episodes", "8", "--warmup", "4", "--num-envs", "2",

@@ -1079,3 +1079,50 @@ def test_tensor_parallel_step_on_four_gloo_ranks(tmp_path):
     assert lead["param_rel"] <= 1e-4 and lead["mu_rel"] <= 1e-4, lead
     assert all(not any(r["launches"].values()) for r in [lead, *rest])
 
+
+
+@pytest.mark.gpu
+def test_serving_ring_on_two_gloo_ranks(tmp_path):
+    """A 2-stage plan served on two gloo ranks sharing the card
+    (``ServingService(mesh=)``, Qwen2.5-3B at published widths, depth 2,
+    bf16 through the stage kernel): every completion on both ranks bit for
+    bit the one-process service's; each rank launches ``stage_mlp_block``
+    once per ring pass for its one layer (the counterpart of
+    ``chip_smoke.py``'s (M5a))."""
+    _card()
+    import _torch_ranks as TR
+
+    ranks = TR.spawn("card_serve_stage", 2, tmp_path, timeout=400,
+                     arch="qwen2_5_3b", bounds=[1, 2],
+                     serve=dict(num_layers=2, num_slots=4, arrival_slots=2,
+                                prompt_pad=16, max_new=8, decode_chunk=4),
+                     trace=dict(n_requests=4, rate_per_sec=64.0, plen_range=(4, 16),
+                                gen_range=(4, 8), seed=0))
+    ref = ranks[0]["ref_completions"]
+    assert len(ref) == 4
+    for r in ranks:
+        assert r["completions"].keys() == ref.keys()
+        assert all(np.array_equal(r["completions"][k], v) for k, v in ref.items())
+        passes = r["passes"]["prefill"] + r["passes"]["decode"]
+        assert passes and r["launches"]["stage_mlp_block"] == passes * r["stage_layers"]
+
+
+@pytest.mark.gpu
+def test_sharded_mamba_decode_on_four_gloo_ranks(tmp_path):
+    """Mamba2-370m at published widths and full depth, f32, decoding on a
+    (1 x 4) mesh (each rank its SSM heads and conv channels): the greedy
+    tokens equal one process's, logits within ``chip_smoke.M4C_LOGIT_ATOL``
+    (1e-3); no kernel route."""
+    _card()
+    import _torch_ranks as TR
+
+    ranks = TR.spawn("card_tensor_parallel", 4, tmp_path, timeout=600,
+                     parts=["M4c_mamba"],
+                     m4c_mamba=dict(arch="mamba2-370m", cache=32, starts=[0, 1, 2, 3],
+                                    prompt=1, steps=4))
+    c = ranks[0]["M4c_mamba"]
+    assert torch.equal(c["tokens"], c["ref_tokens"])
+    assert float((c["logits"] - c["ref_logits"]).abs().max()) <= 1e-3
+    assert c["cache_spec"]["ssm"][2] == "model" and c["cache_spec"]["conv"][3] == "model"
+    assert all(not any(v for part in r["launches"].values() for v in part.values())
+               for r in ranks)

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import stage_block as SB  # noqa: E402
 from repro_torch.kernels._tma import check_tma  # noqa: E402

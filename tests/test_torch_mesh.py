@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from jax.sharding import AbstractMesh  # noqa: E402
 
 import _torch_ranks as TR  # noqa: E402
@@ -232,9 +234,11 @@ def test_stage_env_mesh_population_bit_identical(runs):
 
 def test_launcher_shard_envs(runs):
     """``--shard-envs`` parses and runs on 2 ranks: both train the same
-    controller, rank 0 goes on to the plan, the pipeline and the eval."""
+    controller and run a stage each of the plan's pipeline; rank 0 goes
+    on to the eval."""
     assert LAUNCH.parse_args(["--shard-envs"]).shard_envs
     lead, other = (r["launcher"] for r in runs["two"])
     assert lead["rewards"] == other["rewards"] and len(lead["rewards"]) == 4
     assert {"losses", "eval_loss", "boundaries"} <= set(lead["keys"])
-    assert set(other["keys"]) == {"env", "mesh", "train"}
+    assert {"losses", "boundaries", "stage_mesh"} <= set(other["keys"])
+    assert "eval_loss" not in other["keys"]

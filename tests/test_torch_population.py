@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro.core import channel as JCH  # noqa: E402
 from repro.core import scenario as JSC  # noqa: E402
 from repro_torch.core import channel as TCH  # noqa: E402

@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from repro_torch.figures import band as B  # noqa: E402
 
 BAND = B.POP_CPU_BAND
@@ -36,14 +38,6 @@ def env():
 @pytest.fixture(scope="module")
 def reference():
     return B.load_reference(B.POP_REFERENCE)["cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _runs(env, warmup=None):

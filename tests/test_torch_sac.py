@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from repro.core.agents import action_space as JA  # noqa: E402

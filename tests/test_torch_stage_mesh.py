@@ -11,6 +11,24 @@ and a bf16 wire) and against the JAX package's ``pipeline_step_fn`` on a
 the 1-D step, at the JAX package's own gate for that pair
 (``tests/test_population_mesh.py``: loss 1e-6 relative, gradients
 ``rtol 1e-5``). Weights are the JAX package's, carried.
+
+Serving on stage ranks, in the same group: the token ring
+(``PipelineRunner(mesh=)``, ``pipeline_serve_fns(mesh=)``) on 2 and on 4
+ranks, f32 and bf16 wire, a prefill and one decode tick, bit for bit the
+in-process ring (the logits on every rank, each rank's KV ring), and the
+2-rank ring against JAX's ``pipeline_serve_fns`` on ``make_stage_mesh(2)``
+(in the same JAX subprocess) at ``tests/test_torch_serving_pipeline.py``'s
+gates (f32 ``rtol 2e-5`` of max|ref|; the bf16 wire 1e-3 relative
+Frobenius norm); ``ServingService(mesh=)`` on 4 ranks over a Poisson
+trace, without and with ``reference_schedule(4, 3)`` faults, every
+completion on every rank bit for bit the one-process service's. The
+launcher (``launch.train_mhsl_rl``) on 2 stage ranks of the group against
+one process: the plan, the losses (``rtol 1e-6``), the clip's norm of
+the whole gradient with the tied embedding counted once (``rtol 1e-6``,
+measured 7e-8: per-rank partial sums), the updated parameters (1e-6 of
+max|ref| per leaf, measured 1.2e-7 absolute) and the held-out loss (bf16
+compute: ``rtol 1e-3``); with a checkpoint directory, rank 0 alone
+trains the controller and writes it, and a second launch resumes.
 """
 import dataclasses
 import os
@@ -22,6 +40,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 import _torch_ranks as TR  # noqa: E402
@@ -30,6 +50,8 @@ from repro.models import model as JM  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch import weights as W  # noqa: E402
 from repro_torch.core import pipeline as TPIPE  # noqa: E402
+from repro_torch.distribution.sharding import stage_shardings  # noqa: E402
+from repro_torch.launch import train_mhsl_rl as LAUNCH  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.train_mhsl_rl import executed_config  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -43,7 +65,11 @@ WIRE_GRAD_RTOL = 1e-3
 # the JAX package's gate for the (stage x env) step against the 1-D one
 ENV_LOSS_RTOL = 1e-6
 ENV_GRAD_RTOL = 1e-5
-# the rank group's and the JAX subprocess's limit: ~10-15 s when run
+# the serving gates (tests/test_torch_serving_pipeline.py's) and the
+# launcher's
+SERVE_RTOL, SERVE_WIRE_REL = 2e-5, 1e-3
+LAUNCH_RTOL, LAUNCH_EVAL_RTOL = 1e-6, 1e-3
+# the rank group's and the JAX subprocess's limit: ~20-30 s when run
 # alone, several times that beside five busy test workers
 GROUP_TIMEOUT_S = 240
 
@@ -54,7 +80,8 @@ import jax, jax.numpy as jnp, numpy as np
 from dataclasses import replace
 import _torch_ranks as TR
 from repro.configs import get_config
-from repro.core.pipeline import PipelineConfig, make_stage_mesh, pipeline_step_fn
+from repro.core.pipeline import (PipelineConfig, make_stage_mesh, pipeline_serve_fns,
+                                 pipeline_step_fn, stage_kv_caches)
 cfg = replace(get_config({arch!r}).reduced(), num_layers={layers})
 with np.load({params!r}) as z:
     flat = {{k: z[k] for k in z.files}}
@@ -69,6 +96,18 @@ for wire in {wires!r}:
     out.update({{wire + '|' + k: v for k, v in TR.flatten(
         jax.tree.map(np.asarray, grads)).items()}})
     out[wire + '|__loss__'] = np.asarray(loss)
+    prompts, s_tok, s_pos = (jnp.asarray(np.asarray(x), jnp.int32)
+                             for x in TR.serve_inputs(cfg.vocab_size))
+    prefill, decode = pipeline_serve_fns(cfg, make_stage_mesh(2), TR.SERVE_BOUNDS[2],
+                                         pipe=PipelineConfig(compute_dtype='float32',
+                                                             wire_dtype=wire))
+    caches = stage_kv_caches(cfg, TR.SERVE_BOUNDS[2], TR.SERVE_B,
+                             TR.SERVE_P + TR.SERVE_EXTRA)
+    lg, caches = jax.jit(prefill)(params, caches, prompts)
+    dl, caches = jax.jit(decode)(params, s_tok, caches, s_pos)
+    for k, v in (('prefill', lg), ('decode', dl), ('k', caches['k']),
+                 ('v', caches['v'])):
+        out['serve|' + wire + '|' + k] = np.asarray(v)
 np.savez({out!r}, **out)
 print('JAX_STAGE_OK')
 """
@@ -115,6 +154,11 @@ def runs(tmp_path_factory):
                                               compute_dtype="float32",
                                               wire_dtype=wire))
             local[wire] = step(params, tok, lab)
+        cfg = _cfg()
+        serve = {(n, wire): TR.serve_pass(cfg, params, TR.SERVE_BOUNDS[n], wire)
+                 for n in (2, 4) for wire in WIRES}
+        service = TR.service_runs(cfg, params)
+        launched = LAUNCH.main(TR.LAUNCH_ARGV)
         ranks = TR.finish(group, GROUP_TIMEOUT_S)
         out, _ = jproc.communicate(timeout=GROUP_TIMEOUT_S)
     finally:
@@ -124,7 +168,9 @@ def runs(tmp_path_factory):
     assert jproc.returncode == 0 and "JAX_STAGE_OK" in out, out[-4000:]
     with np.load(jax_out) as z:
         jax_res = {k: z[k] for k in z.files}
-    return dict(ranks=ranks, jax=jax_res, local=local, params=params)
+    return dict(ranks=ranks, jax=jax_res, local=local, params=params, serve=serve,
+                service=service, launched=launched,
+                ckpt=os.fspath(tmp / "ranks" / "launcher_ckpt"))
 
 
 def _flat_np(grads):
@@ -184,6 +230,118 @@ def test_stage_env_step_matches_stage_mesh(runs):
     assert loss1 == loss
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads),
                                                  tree_leaves(grads1)))
+
+
+@pytest.mark.parametrize("n,wire", [(n, w) for n in (2, 4) for w in WIRES])
+def test_stage_rank_serving_bitwise_in_process(runs, n, wire):
+    """The token ring with stage t on rank t: every rank holds the
+    in-process ring's logits bit for bit, and each rank's KV ring is the
+    in-process ring's row of its stage."""
+    ref = runs["serve"][(n, wire)]
+    for rank, r in enumerate(runs["ranks"]):
+        if rank >= n:
+            assert (n, wire) not in r["serve"]  # outside the 2-rank mesh
+            continue
+        got = r["serve"][(n, wire)]
+        for k in ("prefill", "decode"):
+            assert got[k].dtype == torch.float32 and torch.equal(got[k], ref[k]), k
+        for k in ("k", "v"):
+            assert got[k].shape == (1,) + ref[k].shape[1:]
+            assert torch.equal(got[k][0], ref[k][rank]), k
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_stage_rank_serving_matches_jax_stage_mesh(runs, wire):
+    """The 2-rank ring against JAX's ``pipeline_serve_fns`` on
+    ``make_stage_mesh(2)``: prefill and decode logits (rank 0's) and the
+    rings (stacked from both ranks), at the serving pipeline's gates."""
+    got = dict(runs["ranks"][0]["serve"][(2, wire)])
+    for k in ("k", "v"):
+        got[k] = torch.cat([r["serve"][(2, wire)][k] for r in runs["ranks"][:2]])
+    for k in ("prefill", "decode", "k", "v"):
+        ref = np.asarray(runs["jax"][f"serve|{wire}|{k}"], np.float64)
+        a = got[k].double().numpy()
+        assert a.shape == ref.shape, k
+        if wire == "float32":
+            np.testing.assert_allclose(a, ref, rtol=SERVE_RTOL,
+                                       atol=SERVE_RTOL * np.abs(ref).max(), err_msg=k)
+        else:
+            assert np.linalg.norm(a - ref) / np.linalg.norm(ref) <= SERVE_WIRE_REL, k
+
+
+@pytest.mark.parametrize("run", ["free", "faulted"])
+def test_service_on_stage_ranks_matches_one_process(runs, run):
+    """``ServingService(mesh=)`` on 4 stage ranks, rank 0 deciding every
+    tick: each rank's completions bit for bit the one-process service's;
+    under the reference schedule the outage evicts and requeues."""
+    ref = runs["service"][run]
+    lead = runs["ranks"][0]["service"][run]
+    assert len(ref["completions"]) == 6
+    for r in runs["ranks"]:
+        got = r["service"][run]["completions"]
+        assert got.keys() == ref["completions"].keys()
+        assert all(np.array_equal(got[k], v) for k, v in ref["completions"].items())
+    assert lead["fault_events"] == ref["fault_events"]
+    assert lead["evictions"] == ref["evictions"]
+    assert (ref["fault_events"] > 0 and ref["evictions"] > 0) == (run == "faulted")
+
+
+def test_launcher_on_stage_ranks_matches_one_process(runs):
+    """``launch.train_mhsl_rl`` on 2 stage ranks (``--stages 2``; ranks
+    2-3 sit out after the plan): the plan, the losses, the clip's global
+    norm, the updated parameters (gathered on rank 0) and the held-out
+    loss against one process."""
+    ref = runs["launched"]
+    lead, other = runs["ranks"][0]["launcher"], runs["ranks"][1]["launcher"]
+    assert lead["boundaries"] == other["boundaries"] == ref["boundaries"]
+    assert len(ref["boundaries"]) == 2
+    assert set(runs["ranks"][2]["launcher"]) == {"boundaries", "trained"}
+    for got in (lead, other):
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LAUNCH_RTOL)
+        np.testing.assert_allclose(got["grad_norms"], ref["grad_norms"],
+                                   rtol=LAUNCH_RTOL)
+    assert "eval_loss" not in other
+    assert lead["eval_loss"] == pytest.approx(ref["eval_loss"], rel=LAUNCH_EVAL_RTOL)
+    for a, b in zip(tree_leaves(lead["params"]), tree_leaves(ref["params"])):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= LAUNCH_RTOL * float(b.abs().max())
+
+
+def test_launcher_on_stage_ranks_checkpoints_on_rank_0(runs):
+    """With ``--checkpoint-dir`` on ranks, only rank 0 trains the
+    controller and writes its checkpoint (the others take its plan); run
+    again, it resumes from that checkpoint and executes the same plan with
+    the same losses."""
+    from repro_torch.checkpoint import train_state as TS
+
+    ranks = runs["ranks"]
+    assert [r["launcher"]["trained"] for r in ranks] == [True, False, False, False]
+    episodes = LAUNCH.parse_args(TR.LAUNCH_ARGV).episodes
+    assert TS.latest_checkpoint_step(runs["ckpt"]) == episodes
+    first, again = ranks[0]["launcher"], ranks[0]["resumed"]
+    assert again["trained"] and not ranks[1]["resumed"]["trained"]
+    assert again["boundaries"] == first["boundaries"] == runs["launched"]["boundaries"]
+    assert again["losses"] == first["losses"]
+    assert again["grad_norms"] == first["grad_norms"]
+
+
+def test_stage_shardings_count_each_leaf_once():
+    """The shares' squared norms, each leaf's over its holders, sum to
+    the whole tree's (tied embeddings: the first and the last stage hold
+    the one gradient; a frontend's on the first stage only)."""
+    for arch, bounds in (("qwen2.5-3b", (1, 3, 4)), ("stablelm-1.6b", (3, 4)),
+                         ("pixtral-12b", (2, 4))):
+        cfg = executed_config(arch, 4, reduced=True)
+        tree = TPIPE.M.init_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+        total = 0.0
+        for k in range(len(bounds)):
+            share = TPIPE.stage_params(tree, cfg, bounds, k)
+            rec = stage_shardings(share, cfg, bounds,
+                                  Mesh(("stage",), (len(bounds),), (k,)))
+            total += sum(float(torch.sum(x.double() ** 2)) / sh.replicas
+                         for x, sh in zip(tree_leaves(share), tree_leaves(rec)))
+        whole = sum(float(torch.sum(x.double() ** 2)) for x in tree_leaves(tree))
+        assert total == pytest.approx(whole, rel=1e-12), arch
 
 
 @pytest.mark.parametrize("arch,bounds", [

@@ -3,7 +3,8 @@
 One group of 4 ranks on a (2 x 2) host mesh (``tests/_torch_ranks.py``'s
 ``tensor_parallel_runs``) runs every sharded case below; a JAX
 subprocess with 4 forced host devices runs beside it and gives the
-``moe_apply_a2a`` reference on the JAX package's own (2 x 2) mesh; the
+``moe_apply_a2a`` reference on the JAX package's own (2 x 2) mesh and
+the SSM and hybrid decodes under GSPMD; the
 one-process references run in this process meanwhile. Inputs are numpy
 draws (or the port's seeded CPU init, the same in every process);
 weights of the JAX comparisons are carried by ``repro_torch.weights``.
@@ -34,7 +35,13 @@ weights of the JAX comparisons are carried by ``repro_torch.weights``.
   reduced Qwen2.5-3B, each row at its own position: with one KV head the
   cache is split by length and every step goes through ``flash_decode``
   (``tests/test_flash_decode.py::test_decode_step_uses_flash_decode_under_context``);
-  with two, by KV heads.
+  with two, by KV heads. Reduced Mamba2-370m and Jamba on the (2 x 2)
+  mesh and on a (1 x 4) one: each Mamba block on its SSM heads and conv
+  channels (``in_proj`` columns, ``out_proj`` rows), the hybrid's
+  attention by KV heads or by length, its MoE over experts; against the
+  one-process port decode and against the JAX package's decode step under
+  ``param_shardings(mode="serve")`` / ``cache_shardings`` on the same
+  grid (the port's weights and tokens carried).
 * (f) ``load_pytree(shardings=)``: each rank's blocks, bit for bit.
 * (g) ``launch.train.main`` with ``--data-par 2 --model-par 2`` against
   ``--data-par 1`` on the same seed.
@@ -57,7 +64,11 @@ Tolerances:
 - (c): outputs ``atol 1e-5``, aux ``rtol 1e-6``, gradients 1e-5
   relative Frobenius norm; the no-drop check at 1e-4, as the reference's.
 - (e): logits ``atol 1e-3``, as the reference's (measured 1e-6); the
-  greedy tokens equal.
+  greedy tokens equal. The SSM and hybrid decodes: logits ``atol 1e-5``
+  (measured at most 6.0e-6, Jamba on (2 x 2): the gated RMSNorm's sum
+  of squares and ``out_proj``'s partial products summed over the model
+  axis) and the greedy tokens equal; against JAX's sharded decode the
+  same gates (measured at most 5.6e-06, Jamba on (1 x 4)).
 - (g): the trainer computes in bf16, as the reference's: losses
   ``rtol 1e-3`` (measured at most 1.9e-4).
 """
@@ -69,6 +80,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -93,13 +106,19 @@ BF16_LOSS_RTOL, BF16_NORM_RTOL, BF16_PARAM_REL, BF16_MOMENT_REL = 1e-3, 1e-2, 1e
 JAX_LOSS_RTOL, JAX_GRAD_REL, BIG_LEAF = 1e-3, 0.04, 10_000
 A2A_ATOL, A2A_AUX_RTOL, A2A_GRAD_REL, NO_DROP_ATOL = 1e-5, 1e-6, 1e-5, 1e-4
 DECODE_ATOL = 1e-3
+SSM_DECODE_ATOL = 1e-5
 LAUNCH_RTOL = 1e-3
 
-JAX_A2A = """
+JAX_MESH = """
+import sys
+sys.path.insert(0, {tests!r})
 import jax, jax.numpy as jnp, numpy as np
+import _torch_ranks as TR
 from repro.configs import get_config
 from repro.distribution.context import activation_sharding
+from repro.distribution.sharding import batch_axes, cache_shardings, param_shardings
 from repro.launch.mesh import make_host_mesh
+from repro.models import init_caches, make_decode_step
 from repro.models.moe_a2a import moe_apply_a2a
 cfg = get_config('qwen3-moe-30b-a3b').reduced()
 with np.load({moe!r}) as z:
@@ -108,9 +127,34 @@ with np.load({moe!r}) as z:
 with activation_sharding(make_host_mesh(2, 2), ('data',), moe_a2a=True):
     y, aux = jax.jit(lambda p, x: moe_apply_a2a(p, x, cfg))(params, x)
     g = jax.jit(jax.grad(lambda p: moe_apply_a2a(p, x, cfg)[0].astype(jnp.float32).sum()))(params)
-np.savez({out!r}, y=np.asarray(y), aux=np.asarray(aux),
-         **{{'g_' + k: np.asarray(v) for k, v in g.items()}})
-print('JAX_A2A_OK')
+out = dict(y=np.asarray(y), aux=np.asarray(aux),
+           **{{'g_' + k: np.asarray(v) for k, v in g.items()}})
+# the SSM and hybrid decodes under GSPMD: param_shardings (serve) and
+# cache_shardings on each grid, the port's weights and tokens
+for arch, path in {ssm!r}.items():
+    cfg = get_config(arch).reduced()
+    with np.load(path) as z:
+        flat = {{k: z[k] for k in z.files}}
+    params = jax.tree.map(jnp.asarray, TR.unflatten(flat))
+    toks = jnp.asarray(flat['__tokens__'], jnp.int32)
+    b = toks.shape[1]
+    caches = init_caches(cfg, b, TR.DECODE_CACHE, dtype=jnp.float32)
+    idx0 = jnp.arange(b, dtype=jnp.int32)
+    for grid in {grids!r}:
+        mesh = make_host_mesh(*grid)
+        psh = param_shardings(jax.eval_shape(lambda: params), cfg, mesh, mode='serve')
+        csh = cache_shardings(jax.eval_shape(lambda: caches), cfg, mesh, b)
+        p = jax.tree.map(jax.device_put, params, psh)
+        c = jax.tree.map(jax.device_put, caches, csh)
+        dec = jax.jit(make_decode_step(cfg, compute_dtype=jnp.float32))
+        logits = []
+        with activation_sharding(mesh, batch_axes(mesh, b)):
+            for t in range(toks.shape[0]):
+                lg, c = dec(p, toks[t][:, None], c, idx0 + t)
+                logits.append(np.asarray(lg))
+        out['decode|%s|%s' % (arch, tuple(grid))] = np.stack(logits)
+np.savez({out!r}, **out)
+print('JAX_MESH_OK')
 """
 
 
@@ -147,6 +191,8 @@ def _one_process():
                             mu=state.mu)
     ref["decode"] = {name: TR.decode_run(None, kv) for name, kv in (("length", 1),
                                                                     ("heads", 2))}
+    ref["decode"].update({arch: TR.decode_run(None, None, arch)
+                          for arch in {a for a, _ in TR.SSM_DECODE_CASES}})
     ref["launcher"] = TRAIN.main(TR.TRAIN_ARGV)["losses"]
     return ref
 
@@ -166,10 +212,19 @@ def runs(tmp_path_factory):
     np.savez(stablelm, **flat)
     moe = os.fspath(tmp / "moe.npz")
     moe_in = _moe_inputs(moe)
-    jax_out = os.fspath(tmp / "jax_a2a.npz")
+    jax_out = os.fspath(tmp / "jax_mesh.npz")
+    ssm = {}  # the SSM decodes' weights and tokens, for the JAX side
+    for arch in {a for a, _ in TR.SSM_DECODE_CASES}:
+        cfg, params = TR.decode_case(None, arch)
+        dflat = TR.flatten(W.model_params_to_numpy(params))
+        dflat["__tokens__"] = TR.decode_tokens(cfg)
+        ssm[arch] = os.fspath(tmp / f"ssm_{arch}.npz")
+        np.savez(ssm[arch], **dflat)
     env = dict(os.environ, PYTHONPATH=TR.SRC,
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    jproc = subprocess.Popen([sys.executable, "-c", JAX_A2A.format(moe=moe, out=jax_out)],
+    jproc = subprocess.Popen([sys.executable, "-c", JAX_MESH.format(
+        tests=TR.HERE, moe=moe, ssm=ssm, out=jax_out,
+        grids=sorted({g for _, g in TR.SSM_DECODE_CASES}))],
                              env=env, cwd=TR.REPO, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
     try:
@@ -195,10 +250,10 @@ def runs(tmp_path_factory):
         if jproc.poll() is None:
             jproc.kill()
             jproc.communicate()
-    assert jproc.returncode == 0 and "JAX_A2A_OK" in out, out[-4000:]
+    assert jproc.returncode == 0 and "JAX_MESH_OK" in out, out[-4000:]
     with np.load(jax_out) as z:
-        jax_a2a = {k: z[k] for k in z.files}
-    return dict(ranks=ranks, lead=ranks[0], ref=ref, jax_a2a=jax_a2a,
+        jax_mesh = {k: z[k] for k in z.files}
+    return dict(ranks=ranks, lead=ranks[0], ref=ref, jax_mesh=jax_mesh,
                 jax_step=(float(jm["loss"]), jax.tree.map(np.asarray, jgrads)))
 
 
@@ -257,7 +312,7 @@ def test_sharded_step_matches_jax(runs):
 
 
 def test_moe_a2a_matches_jax_where_copies_drop(runs):
-    got, ref = runs["lead"]["a2a"]["default"], runs["jax_a2a"]
+    got, ref = runs["lead"]["a2a"]["default"], runs["jax_mesh"]
     assert got["dropped"] >= 1
     np.testing.assert_allclose(got["y"].numpy(), ref["y"], atol=A2A_ATOL)
     assert got["aux"] == pytest.approx(float(ref["aux"]), rel=A2A_AUX_RTOL)
@@ -292,6 +347,34 @@ def test_sharded_decode_matches_one_process(runs, cache):
     np.testing.assert_allclose(got["logits"].numpy(), ref["logits"].numpy(),
                                atol=DECODE_ATOL)
     assert torch.equal(got["logits"].argmax(-1), ref["logits"].argmax(-1))
+
+
+@pytest.mark.parametrize("arch,grid", TR.SSM_DECODE_CASES)
+def test_sharded_ssm_decode_matches_one_process(runs, arch, grid):
+    """A Mamba block decodes on a model axis above 1: this rank's SSM
+    heads and conv channels, as ``cache_shardings`` places them."""
+    got, ref = runs["lead"]["decode"][f"{arch}|{grid}"], runs["ref"]["decode"][arch]
+    assert got["ssm_spec"] == ((None, "data", "model", None, None),
+                               (None, "data", None, "model"))
+    if arch.startswith("jamba"):  # 2 KV heads: by heads on 2 ranks, by length on 4
+        assert got["spec"][2:4] == ((None, "model") if grid == (2, 2) else ("model", None))
+        assert got["flash"] == (0 if grid == (2, 2) else TR.DECODE_STEPS)
+    np.testing.assert_allclose(got["logits"].numpy(), ref["logits"].numpy(),
+                               atol=SSM_DECODE_ATOL)
+    assert torch.equal(got["logits"].argmax(-1), ref["logits"].argmax(-1))
+
+
+@pytest.mark.parametrize("arch,grid", TR.SSM_DECODE_CASES)
+def test_sharded_ssm_decode_matches_jax(runs, arch, grid):
+    """The same sharded decode against the JAX package's decode step under
+    ``param_shardings(mode="serve")`` and ``cache_shardings`` on the same
+    grid of forced host devices (GSPMD), from the same weights and
+    tokens."""
+    got = runs["lead"]["decode"][f"{arch}|{grid}"]["logits"].numpy()
+    ref = runs["jax_mesh"][f"decode|{arch}|{tuple(grid)}"]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=SSM_DECODE_ATOL)
+    assert np.array_equal(got.argmax(-1), ref.argmax(-1))
 
 
 def test_load_pytree_keeps_each_ranks_blocks(runs):
