@@ -117,7 +117,9 @@ Phases (each raises on failure; any failure exits non-zero):
    equal to static batching's (``run_static``) and the 4 longest to
    ``generate_reference``'s; the decode logits of those 4 against a
    teacher-forced full forward; greedy static batching serving the same
-   tokens; a traced decode tick (kernels, device-busy share, beside the
+   tokens; the serve example (``repro_torch.examples.serve``) on the same
+   weights, each row's greedy tokens equal to ``generate_reference``'s,
+   its tokens/s; a traced decode tick (kernels, device-busy share, beside the
    weight-read bound). (S2) the same model on the pipelined runner, 4
    stages (the plan of 4b when it has 4 stages, else 9/18/27/36): f32
    tokens equal to S1's; bf16 with ``stage_impl="pallas"`` and a bf16
@@ -159,7 +161,8 @@ Phases (each raises on failure; any failure exits non-zero):
    process) and checked here: Qwen2.5-3B at published widths, depth 8 on 4 stages, M =
    4, 8 x 256 tokens, bf16 through ``stage_mlp_block`` with host-staged
    hops, the gradients assembled on rank 0 and held to the in-process
-   step (seconds per step beside it, peak memory per rank), one step of
+   step (seconds per step beside it, peak memory per rank; each timed
+   step's collectives recorded, every step the same), one step of
    the launcher's ``make_pipeline_train_step(mesh=)`` (AdamW on the
    shares, the clip's norm summed over the ranks, the tied embedding
    once) against the one-process launcher step's norm and updated
@@ -174,9 +177,11 @@ Phases (each raises on failure; any failure exits non-zero):
    memory per rank); (M4b) one (2 x 2) f32 step of Qwen3-MoE-30B-A3B at
    published widths, depth 2, through ``moe_a2a``, against the
    one-process dropless step (no copy dropped); (M4c) a (1 x 4) f32
-   decode of Qwen2.5-3B at full depth on a cache split by length, every
-   layer through ``flash_decode``, its greedy tokens equal to one
-   process's; and Mamba2-370m at full depth on the same (1 x 4) mesh,
+   32-token prefill and greedy decode of Qwen2.5-3B at full depth on a
+   cache split by length (the prefill through the gathered cache, every
+   decode step's layers through ``flash_decode``), its greedy tokens
+   equal to one process's, each pass's collectives recorded (every decode
+   step the same counts); and Mamba2-370m at full depth on the same (1 x 4) mesh,
    each Mamba block on its SSM heads and conv channels, its greedy tokens
    equal to one process's. No kernel route: the children launch none;
 4l. (M5a, beside 4f's band) serving on four gloo stage ranks sharing the
@@ -186,6 +191,8 @@ Phases (each raises on failure; any failure exits non-zero):
    one-process service's, each rank launching ``stage_mlp_block`` for its
    own 9 layers once per ring pass (added to the kernels line), ms per
    decode step and peak memory per rank;
+4m. the power-allocation example (``repro_torch.examples.power_allocation``)
+   on the card, every value equal to the CPU run's (``rtol 1e-6``);
 5. timings: seconds per training chunk and env-steps/s; a
    ``torch.profiler`` trace of single SAC gradient steps (device busy
    share, kernels per step); seconds per pipelined step and tokens/s and
@@ -1693,7 +1700,7 @@ def phase_attack_band(torch, card):
 
     from repro_torch.attack import AttackConfig, tiny_attack_model_cfg
     from repro_torch.attack.population import (count_ops_per_step,
-                                               profile_kernels_per_step)
+                                               profile_kernel_names)
     from repro_torch.figures import band as B
     from repro_torch.figures import fig10_leakage_attack as FIG10
 
@@ -1720,8 +1727,17 @@ def phase_attack_band(torch, card):
         raise AssertionError(f"fig 10: the high-capture MSE does not fall: {q}")
     acfg = AttackConfig(d_data=mcfg.d_model, d_smash=mcfg.d_model)
     ops1, ops_n = count_ops_per_step(acfg, 1), fig["ops_per_step"]
-    k1, k2, kn = (profile_kernels_per_step(acfg, 1), profile_kernels_per_step(acfg, 2),
-                  fig["kernels_per_step"])
+    names = {m: profile_kernel_names(acfg, m) for m in (1, 2, n)}
+    k1, k2, kn = (sum(names[m].values()) / 10 for m in (1, 2, n))
+    out_dir = ROOT / "chiprun_out"
+    if out_dir.is_dir():
+        (out_dir / "t1_names.json").write_text(json.dumps(
+            {str(m): v for m, v in names.items()}, indent=1))
+    moved = {k[:100]: (names[2].get(k, 0), names[n].get(k, 0))
+             for k in set(names[2]) | set(names[n]) if names[2].get(k) != names[n].get(k)}
+    log(f"[attack T1] CUDA events per 10-step chunk by name: {len(names[2])} names at "
+        f"2, {len(names[n])} at {n}; fig 10's own count {fig['kernels_per_step']:.1f} "
+        f"a step; names whose counts differ between 2 and {n}: {moved}")
     if ops1 != ops_n or k2 != kn:
         raise AssertionError(f"per step: ops {ops1} at population 1, {ops_n} at {n}; "
                              f"CUDA kernels {k2} at 2, {kn} at {n}")
@@ -2101,6 +2117,11 @@ def phase_mesh(torch, card, m3):
         f"{[round(r['stage']['peak_gib'], 2) for r in r3]} GiB; stage_mlp_block per "
         f"rank {stage} [{card}]")
     _mesh_step_check("M3 4-stage mesh", first, MESH_LOSS_RTOL, MESH_GRAD_REL, card)
+    for r in r3:
+        _steady_records("M3 timed steps", r["stage"]["collectives"])
+    log(f"[mesh M3] recorded collectives a timed step (count, wire bytes), by rank: "
+        f"{[_collective_line(r['stage']['collectives'][0]) for r in r3]} (every timed "
+        f"step alike) [{card}]")
     log(f"[mesh M3] the launcher's step (make_pipeline_train_step(mesh=), "
         f"{first['update_seconds']:.3f} s) on the 4 stage ranks: clip norm "
         f"{first['norm']:.9g} summed over the ranks vs {first['ref_norm']:.9g} in "
@@ -2152,19 +2173,24 @@ MESH_M4B = dict(arch="qwen3-moe-30b-a3b", depth=2, rows=8, seq=128,
                 capacity_factor=16.0, remat=False)
 # (M4c) Qwen2.5-3B at published widths and full depth (36 layers), f32, on a
 # (1 x 4) mesh: 2 KV heads do not split over 4 ranks, so the 1 024-entry
-# cache is split by length and every layer decodes through flash_decode;
-# batch 4, each row at its own position (200, 250, 500, 900: row 1 crosses
-# a shard boundary), one prompt token, then 16 greedy steps
-MESH_M4C = dict(arch="qwen2.5-3b", cache=1024, starts=[200, 250, 500, 900],
-                prompt=1, steps=16)
+# cache is split by length (256 entries a rank); batch 4, a 32-token prefill
+# from position 0 (on rank 0: each layer gathers the cache, updates and
+# attends to it whole, and keeps its entries), then 8 greedy steps, every
+# layer through flash_decode, each row from its own position (32, 250, 506,
+# 900: row 1 crosses into rank 1, row 2 into rank 2, row 3 decodes on rank
+# 3, so every rank holds live entries and the rows' positions differ);
+# every step runs the same path and records the same collectives, so
+# more steps would add time, not coverage
+MESH_M4C = dict(arch="qwen2.5-3b", cache=1024, starts=[32, 250, 506, 900], prefill=32,
+                steps=8)
 # (M4c, its SSM part) Mamba2-370m at published widths and full depth (48
 # layers), f32, on the same (1 x 4) mesh: each Mamba block on its 8 of 32
 # SSM heads and 576 of 2 304 conv channels (1 096 of in_proj's 4 384
 # columns, 512 of out_proj's 2 048 rows); batch 4, one prompt token, then
-# 16 greedy steps (the state carries no positions; the cache length is
+# 8 greedy steps (the state carries no positions; the cache length is
 # unused)
 MESH_M4C_MAMBA = dict(arch="mamba2-370m", cache=32, starts=[0, 1, 2, 3], prompt=1,
-                      steps=16)
+                      steps=8)
 # gates: (M4a) bf16 partial sums round on each rank, so the losses are held
 # at rtol 2e-3 and the updated params at 1e-2 relative Frobenius norm per
 # leaf (the CPU test's bf16 gates measured at most 1.7e-4 and 5.2e-3);
@@ -2329,9 +2355,25 @@ def phase_tensor_parallel(torch, card, started):
         f"rank 0's parts (s) {laps} [{card}]")
 
 
+def _collective_line(rec):
+    """One pass's recorded collectives: count and wire bytes per kind."""
+    return {k: (rec["counts"][k], round(rec["wire_bytes"][k])) for k in sorted(rec["counts"])}
+
+
+def _steady_records(what, records):
+    """Hold every record of ``records`` (one a step) to the first's counts
+    and wire bytes."""
+    for i, rec in enumerate(records):
+        if (rec["counts"], rec["wire_bytes"]) != (records[0]["counts"],
+                                                   records[0]["wire_bytes"]):
+            raise AssertionError(f"{what}: step {i} recorded {_collective_line(rec)}, "
+                                 f"step 0 {_collective_line(records[0])}")
+
+
 def _log_m4c(torch, card, ranks, wall):
     """(M4c) and its SSM part, run beside (M1) and (M2): log and hold each
-    to one process."""
+    to one process; log each rank's recorded collectives of the prompt's
+    pass and of a decode step, every decode step holding the same."""
     _tp_launches(ranks, "M4c")
     laps = {k: round(v, 1) for k, v in ranks[0]["laps"].items()}
     for part, m in (("M4c", MESH_M4C), ("M4c_mamba", MESH_M4C_MAMBA)):
@@ -2339,16 +2381,27 @@ def _log_m4c(torch, card, ranks, wall):
         err = float((c["logits"] - c["ref_logits"]).abs().max())
         same = bool(torch.equal(c["tokens"], c["ref_tokens"]))
         calls = [r[part]["flash_calls"] for r in ranks]
-        want = c["layers"] * (m["prompt"] + m["steps"]) if part == "M4c" else 0
+        prompt = m.get("prefill") or m["prompt"]
+        passes = (1 if m.get("prefill") else prompt) + m["steps"]
+        want = c["layers"] * (passes - 1 if m.get("prefill") else passes) \
+            if part == "M4c" else 0
         log(f"[mesh {part}] {m['arch']} at published widths, {c['layers']} layers, "
-            f"f32, (1 x 4) mesh, caches placed {c['cache_spec']}: {m['steps']} "
-            f"greedy tokens {'equal' if same else 'NOT equal'} to one process; "
-            f"logits max|diff| {err:.3e}; flash_decode calls per rank {calls} (want "
-            f"{want}); {c['seconds']:.3f} s for {m['prompt'] + m['steps']} decode "
-            f"steps vs {c['ref_seconds']:.3f} s in one process; peak "
+            f"f32, (1 x 4) mesh, caches placed {c['cache_spec']}: a {prompt}-token "
+            f"prompt ({'one prefill pass' if m.get('prefill') else 'teacher-forced'}), "
+            f"{m['steps']} greedy tokens {'equal' if same else 'NOT equal'} to one "
+            f"process; logits max|diff| {err:.3e}; flash_decode calls per rank {calls} "
+            f"(want {want}); {c['seconds']:.3f} s for {passes} passes vs "
+            f"{c['ref_seconds']:.3f} s in one process; peak "
             f"{[round(r[part]['peak_gib'], 2) for r in ranks]} GiB a rank [{card}]")
         if not same or err > M4C_LOGIT_ATOL or calls != [want] * 4:
             raise AssertionError(f"{part}: the sharded decode is off the one-process decode")
+        first = 1 if m.get("prefill") else prompt
+        for r in ranks:
+            _steady_records(f"{part} decode", r[part]["collectives"][first:])
+        log(f"[mesh {part}] recorded collectives a rank (count, wire bytes) of the "
+            f"prompt's first pass {_collective_line(c['collectives'][0])}, of each "
+            f"decode step {_collective_line(c['collectives'][first])} (every step "
+            f"alike on every rank) [{card}]")
     log(f"[mesh M4c] {wall:.1f} s wall beside M1 and M2; rank 0's parts (s) {laps} "
         f"[{card}]")
 
@@ -3990,6 +4043,9 @@ SERVE_S1 = dict(arch="qwen2_5_3b", reduced=False, num_layers=18, num_slots=16,
 SERVE_TRACE = dict(n_requests=32, rate_per_sec=64.0, plen_range=(4, 128),
                    gen_range=(4, 64), seed=0)
 SERVE_TEMPERATURE = 0.7
+# the serve example (repro_torch.examples.serve) on S1's weights: the JAX
+# example's batch, a 32-token prompt and 16 new tokens
+SERVE_EXAMPLE = dict(batch=4, prompt_len=32, gen=16)
 SERVE_DEVICE = "cuda"
 SERVE_TF_REQUESTS = 4  # requests whose decode logits meet a teacher-forced forward
 # decode logits (engine, through the KV cache) against a teacher-forced
@@ -4225,6 +4281,25 @@ def _serve_s1(torch, card, out):
         f"p99 {st['p99_latency_s']:.3f} s, slot occupancy "
         f"{st['slot_occupancy']:.4f} [{card}]")
     out["s1_static"] = st
+
+    # the serve example (repro_torch.examples.serve) on S1's weights and
+    # depth: its greedy tokens against generate_reference's, row by row
+    from repro_torch.examples import serve as SERVE_EX
+
+    b, plen, gen = SERVE_EXAMPLE["batch"], SERVE_EXAMPLE["prompt_len"], SERVE_EXAMPLE["gen"]
+    prompts = SERVE_EX.example_prompts(mcfg, b, plen)
+    ex = SERVE_EX.serve(mcfg, params, prompts=prompts, gen=gen, device=SERVE_DEVICE)
+    for row in range(b):
+        ref = generate_reference(svc.runner, params, prompts[row], gen_target=gen,
+                                 max_new=gen, prompt_pad=plen, slots=b, req_id=row)
+        if not np.array_equal(ref.cpu().numpy(), ex["tokens"][row].numpy()):
+            raise AssertionError(f"serve example row {row}: {ex['tokens'][row].tolist()} "
+                                 f"!= generate_reference {ref.tolist()}")
+    log(f"[serve example] repro_torch.examples.serve on S1's weights ({mcfg.num_layers} "
+        f"layers, f32): {b} x {plen} + {gen} in {ex['seconds']:.3f} s, "
+        f"{ex['tokens_per_s']:.1f} tokens/s (prefill included) on {ex['device']}; "
+        f"every row's greedy tokens equal to generate_reference's [{card}]")
+    out["serve_example"] = ex
 
     # one decode tick with every slot busy, traced
     svc.state = init_engine_state(svc.runner, cfg.num_slots, cfg.prompt_pad,
@@ -4622,6 +4697,34 @@ def _serve_faulted(torch, card, out, cfg, params, trace, res, res_p, bounds):
     del svc
 
 
+def phase_power_allocation(torch, card):
+    """The power-allocation example (``repro_torch.examples.power_allocation``)
+    on the card, every value equal to the CPU run's at ``rtol 1e-6``."""
+    from repro_torch.examples import power_allocation as PA
+
+    t0 = time.perf_counter()
+    got = PA.power_allocation("cuda")
+    secs = time.perf_counter() - t0
+    want = PA.power_allocation("cpu")
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in flat(v)]
+        return [float(tree)]
+
+    g, w = flat(got), flat(want)
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(g, w))
+    c1 = got["corollary1"]
+    log(f"[examples] power_allocation on the card: {len(g)} values, largest relative "
+        f"difference from the CPU run {worst:.3e}; Corollary 1 p_s* {c1['p_s']:.4f} W, "
+        f"p_d* {c1['p_d']:.4f} W, hop {c1['hop_time']:.4f} s; {secs:.3f} s [{card}]")
+    if len(g) != len(w) or worst > 1e-6:
+        raise AssertionError(f"power_allocation on the card is off the CPU run: {got} "
+                             f"vs {want}")
+
+
 def phase_serving(torch, card, plan_full):
     """4h. serving: (S1) Qwen2.5-3B at depth 18 on the engine, (S2) on
     the pipelined runner, (S3) Mamba2-370m's cached decode, (S4)
@@ -4717,6 +4820,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch, card, m3)
     serve = phase_serving(torch, card, plan_full)
+    phase_power_allocation(torch, card)
     torch.cuda.empty_cache()
     timing = phase_ca_timing(torch, card)
     t = timing[(128, 4, (28, 52, 64))]

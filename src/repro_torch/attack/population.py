@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Any, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -452,12 +452,23 @@ def count_ops_per_step(acfg: AttackConfig, n: int, *, steps: int = 3,
     return (counts[1] - counts[0]) / (steps - 1)
 
 
-def profile_kernels_per_step(acfg: AttackConfig, n: int, *, steps: int = 10,
-                             pool: int = 256, seed: int = 0,
-                             device: DeviceLike = None) -> float:
-    """CUDA kernels (and device copies and fills) per training step of an
-    N-attacker population: one ``steps``-step chunk on random pools under
-    ``torch.profiler``, after an untraced warm-up step. Needs the card."""
+# the marker kernel between a profile's primer and its chunk
+# (``torch.cuda._sleep``'s spin kernel, ~0.1 ms)
+MARKER_CYCLES = 200_000
+
+
+def profile_kernel_names(acfg: AttackConfig, n: int, *, steps: int = 10,
+                         pool: int = 256, seed: int = 0,
+                         device: DeviceLike = None) -> Dict[str, int]:
+    """CUDA events (kernels, device copies and fills) by name over one
+    ``steps``-step chunk of an N-attacker population on random pools
+    under ``torch.profiler``, after an untraced warm-up step. Needs the
+    card.
+
+    A long-lived process's profiler can miss the first records of a
+    window (tens of a 10-step chunk's 3 608 on an H100, always the
+    chunk's first), so the window opens with a primer step and a marker
+    kernel, and only the events that start after the marker count."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device(device)
@@ -467,8 +478,27 @@ def profile_kernels_per_step(acfg: AttackConfig, n: int, *, steps: int = 10,
     run(1)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(1)
+        torch.cuda._sleep(MARKER_CYCLES)
         run(steps)
         torch.cuda.synchronize(dev)
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return kernels / steps
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        raise RuntimeError("the profile holds no marker kernel")
+    names: Dict[str, int] = {}
+    for e in events:
+        if e.time_range.start >= max(marks):
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def profile_kernels_per_step(acfg: AttackConfig, n: int, *, steps: int = 10,
+                             pool: int = 256, seed: int = 0,
+                             device: DeviceLike = None) -> float:
+    """CUDA kernels (and device copies and fills) per training step of an
+    N-attacker population (:func:`profile_kernel_names` over ``steps``)."""
+    names = profile_kernel_names(acfg, n, steps=steps, pool=pool, seed=seed,
+                                 device=device)
+    return sum(names.values()) / steps

@@ -29,7 +29,7 @@ chunk become plain ``if``s on host integers.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -135,7 +135,8 @@ def sac_policy(action_dims: Dict[str, int], cfg) -> Policy:
 
 @torch.no_grad()
 def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
-                    gen: torch.Generator, hist_len: int, scenario=None
+                    gen: torch.Generator, hist_len: int, scenario=None,
+                    extra_record: Optional[Callable] = None
                     ) -> Tuple[EnvState, Dict[str, Any]]:
     """One full ``2S-1``-step episode of the whole population ``st0``.
 
@@ -144,6 +145,10 @@ def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
     masks / reward / done plus ``leak``/``viol`` diagnostics and the
     policy's ``extras``. Each step draws the policy's noise, then the
     env's leakage draw, from ``gen``.
+
+    ``extra_record(st, action, st2, info) -> dict`` appends fields that
+    need the post-step state, called on the batched ``(num_envs, ...)``
+    tensors of each step and stacked like the others.
     """
     sp = env.scenario() if scenario is None else scenario
     adims = env.action_dims
@@ -160,12 +165,16 @@ def rollout_episode(env: MHSLEnv, policy: Policy, params, st0: EnvState,
         st2, reward, done, info = env.step(st, action, env.draw(gen, n_env), sp)
         obs2 = env.observe(st2, sp)
         pair = torch.cat([obs, A.onehot(action, adims)], dim=-1)
-        steps.append(dict(
+        trans = dict(
             obs=obs, obs_next=obs2, hist=hist, hist_mask=hmask,
             action=action, masks=masks, reward=reward,
             done=done.float(), leak=info["leak"],
-            viol=((st2.e_r <= 0) | (st2.t_r <= 0)).float(), **extras,
-        ))
+            viol=((st2.e_r <= 0) | (st2.t_r <= 0)).float(),
+        )
+        if extra_record is not None:
+            trans.update(extra_record(st, action, st2, info))
+        trans.update(extras)
+        steps.append(trans)
         hist = torch.cat([hist[:, 1:], pair[:, None]], dim=1)
         hmask = torch.cat([hmask[:, 1:], torch.ones_like(hmask[:, :1])], dim=1)
         st, obs = st2, obs2

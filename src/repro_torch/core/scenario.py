@@ -188,21 +188,15 @@ def unstack_scenarios(stacked: ScenarioParams) -> List[ScenarioParams]:
 # ---------------------------------------------------------------------------
 
 
-def _check_population(extra_record=None):
-    if extra_record is not None:
-        raise NotImplementedError(
-            "the port's rollout records no extra fields (extra_record)")
-
-
 def _rollouts(env, policy, hist_len, params, seed, num_envs, scenarios,
-              share_params=True):
+              share_params=True, extra_record=None):
     """Each scenario's ``(num_envs, T, ...)`` trajectory, in turn, all from
     the same draws: a generator on the env's device re-seeded with
     ``seed`` per scenario draws the positions of ``num_envs`` fresh
     geometries, then every step's policy and leakage noise, as
     ``loops.evaluate_sac`` does. Without ``share_params``, scenario ``s``
     runs slice ``s`` of the stacked ``params`` (the reference's
-    ``in_axes=0``)."""
+    ``in_axes=0``); ``extra_record`` goes to ``rollout_episode``."""
     from repro_torch.core.agents import rollout as R
     from repro_torch.tree import tree_index
 
@@ -210,7 +204,8 @@ def _rollouts(env, policy, hist_len, params, seed, num_envs, scenarios,
         gen = torch.Generator(device=env.device).manual_seed(seed)
         st0 = env.reset(env.sample_positions(gen, num_envs, sp), sp)
         p = params if share_params else tree_index(params, s)
-        yield R.rollout_episode(env, policy, p, st0, gen, hist_len, sp)[1]
+        yield R.rollout_episode(env, policy, p, st0, gen, hist_len, sp,
+                                extra_record)[1]
 
 
 def make_population_rollout(env, policy, hist_len: int, *,
@@ -222,15 +217,16 @@ def make_population_rollout(env, policy, hist_len: int, *,
     come back ``(N, num_envs, T, ...)``. Every scenario replays the same
     episode draws (a controlled comparison). ``share_params=False`` takes
     one agent per scenario, stacked on a leading N axis (as
-    :func:`train_population` makes them).
+    :func:`train_population` makes them). ``extra_record(st, action, st2,
+    info) -> dict`` appends fields to every step's record
+    (``rollout.rollout_episode``), stacked ``(N, num_envs, T, ...)``.
     """
     from repro_torch.tree import tree_stack
 
-    _check_population(extra_record)
-
     def run(params, seed: int, num_envs: int, scenarios: ScenarioParams):
         return tree_stack(list(_rollouts(env, policy, hist_len, params, seed,
-                                         num_envs, scenarios, share_params)))
+                                         num_envs, scenarios, share_params,
+                                         extra_record)))
 
     return run
 

@@ -33,18 +33,52 @@ as its 16 bits (a float16 view) where a transfer only moves data, and is
 summed in f32 and rounded once where it is reduced. :func:`transport`
 names which of the two a mesh uses. A CPU tensor on an NCCL group
 raises; nothing falls back silently.
+
+:func:`record_collectives` counts what a run issues: inside it every
+collective adds one count, its per-rank result bytes and its group size
+to a :class:`repro_torch.distribution.records.CollectiveStats` under the
+reference's kind names (each axis of a collective over several axes is
+one collective; each send of :func:`exchange` one
+``collective-permute``). The differentiable forms record the transfers
+of their forward and backward as these run. An axis of one rank records
+nothing, as XLA emits no collective on one device. The bytes come from
+shapes and dtypes alone (the buffer a transfer carries: bf16 reduced in
+f32 counts 4 bytes an element), so a recorded run is the same run. Off
+by default; then nothing is kept.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.distribution.records import CollectiveStats
 from repro_torch.distribution.sharding import Axes, axes_tuple
 from repro_torch.launch.mesh import Mesh
 
 Tensor = torch.Tensor
+
+_RECORDER: Optional[CollectiveStats] = None
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[CollectiveStats]:
+    """Count every collective issued inside the context into the
+    :class:`CollectiveStats` it yields (an enclosing recorder is set
+    aside meanwhile and counts none of them)."""
+    global _RECORDER
+    outer, _RECORDER = _RECORDER, CollectiveStats()
+    try:
+        yield _RECORDER
+    finally:
+        _RECORDER = outer
+
+
+def _record(kind: str, numel: int, dtype: torch.dtype, n: int) -> None:
+    if _RECORDER is not None:
+        _RECORDER.add(kind, numel * dtype.itemsize, n)
 
 
 def _axes(mesh: Mesh, axes: Axes) -> List[str]:
@@ -97,6 +131,7 @@ def all_gather(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
         wire = _wire(src)
         parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, wire, group=group)
+        _record("all-gather", wire.numel() * len(parts), wire.dtype, len(parts))
         if src.dtype == torch.bfloat16:
             parts = [p.view(torch.bfloat16) for p in parts]
         out = torch.cat(parts).movedim(0, dim)
@@ -121,6 +156,7 @@ def all_reduce(x: Tensor, mesh: Mesh, axes: Axes, op: str = "sum") -> Tensor:
         buf = x.detach().cpu() if staged else x.detach()
         buf = buf.float() if dt == torch.bfloat16 else buf.clone()
         dist.all_reduce(buf, op=_OPS[op], group=group)
+        _record("all-reduce", buf.numel(), buf.dtype, mesh.shape[axis])
         if op == "mean":
             buf = buf / mesh.shape[axis]
         buf = buf.to(dt)
@@ -142,6 +178,7 @@ def reduce_scatter(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
         src = src.float() if dt == torch.bfloat16 else src
         out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
+        _record("reduce-scatter", out.numel(), out.dtype, n)
         out = out.to(dt).movedim(0, dim)
         x = out.to(x.device) if staged else out
     return x
@@ -162,6 +199,7 @@ def all_to_all(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
     wire = _wire(src)
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=group)
+    _record("all-to-all", out.numel(), out.dtype, mesh.shape[axis[0]])
     if src.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     out = out.movedim(0, dim)
@@ -300,6 +338,7 @@ def exchange(mesh: Mesh, axis: str,
         keep.append(wire)  # alive until the send completes
         tag = sent[off] = sent.get(off, -1) + 1
         works.append(dist.isend(wire, dst=peers[me + off], tag=tag))
+        _record("collective-permute", wire.numel(), wire.dtype, len(peers))
     for shape, dtype, off in recvs:
         wdtype = torch.float16 if dtype == torch.bfloat16 else dtype
         dev = "cpu" if staged else device
@@ -326,6 +365,7 @@ def broadcast(x: Tensor, mesh: Mesh, axis: str, src: int = 0) -> Tensor:
     buf = x.detach().cpu() if staged else x.detach()
     wire = _wire(buf).clone()
     dist.broadcast(wire, src=mesh.axis_ranks(axis)[src], group=group)
+    _record("broadcast", wire.numel(), wire.dtype, mesh.shape[axis])
     out = wire.view(torch.bfloat16) if x.dtype == torch.bfloat16 else wire
     return out.to(x.device) if staged else out
 

@@ -48,10 +48,11 @@ gathered over ``model`` where its block would not be whole:
 A leaf that no batch axis shards (a norm, a bias, the router along
 ``data`` when it does not divide) has its gradient summed over the batch
 axes after the backward (:func:`sync_grads`). Decoding on a cache whose
-KV heads the axis does not divide (split by length,
-``models.flash_decode``) computes the query, key and value columns of
-its block and gathers them, so every rank attends with every head over
-its part of the cache.
+KV heads the axis does not divide (split by length) computes the query,
+key and value columns of its block and gathers them, so every rank
+attends with every head: over its part of the cache for a one-token step
+(``models.flash_decode``), over the cache gathered along ``model`` for a
+prefill or a step on the window's ring.
 """
 from __future__ import annotations
 

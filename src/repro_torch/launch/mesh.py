@@ -22,8 +22,9 @@ as ``device="cpu"``. On a host with one card every rank shares
 ``cuda:0``; such ranks talk over gloo, which carries host tensors only
 (:mod:`repro_torch.distribution.collectives` stages through the host).
 
-``make_production_mesh`` (the reference's 512-device TPU mesh for its XLA
-dry runs) is not ported: it waits for ``launch/dryrun.py``.
+:func:`make_production_mesh` is the reference's 512-device production
+mesh as a shape record only: ``launch.dryrun`` sizes each rank's blocks
+on it under the sharding rules, and no rank is started.
 """
 from __future__ import annotations
 
@@ -147,6 +148,19 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
         if need < world:
             group = dist.new_group(list(range(need)))
     return Mesh(names, sizes, coords, _rank_device(rank, device), groups, group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh's shape, ``(16, 16)`` over ``("data",
+    "model")`` or ``(2, 16, 16)`` over ``("pod", "data", "model")``, seen
+    from rank 0, with no process group and on no device: a record for the
+    sharding rules (``spec_for_param``, ``param_shardings``,
+    ``cache_shardings``, ``batch_axes``), which give rank 0's block of
+    each leaf (every rank's has the same shape). Nothing collective may
+    run on it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, coords=(0,) * len(shape), device=torch.device("meta"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1,

@@ -390,8 +390,14 @@ def _sharded_attention(params, x: Tensor, cfg: ModelConfig, *, positions,
       the partial outputs summed over the model axis.
     * ``"cols"`` (decoding on a cache split by length, or replicated):
       the query, key and value columns of this rank's blocks, gathered
-      into whole heads; every head attends (through ``flash_decode`` on a
-      length split); this rank's rows of ``wo``, summed.
+      into whole heads; every head attends; this rank's rows of ``wo``,
+      summed. On a length split a one-token step off the window's ring
+      goes through ``flash_decode`` on this rank's entries; a multi-token
+      step (a prefill) and a one-token step on a ring-sized cache gather
+      the cache's entries over the model axis, take the one-process
+      update and attention, and keep this rank's entries (2 L KH hd B
+      elements gathered a layer), as the reference's masked dense and
+      ring branches run under GSPMD.
     """
     mesh, ax = split.mesh, split.axis
     b, s, d = x.shape
@@ -444,17 +450,26 @@ def _sharded_attention(params, x: Tensor, cfg: ModelConfig, *, positions,
 
     new_cache = None
     if kv_cache is not None and split.kv_len is not None:
-        from repro_torch.models.flash_decode import flash_decode
-
         window = cfg.attention_window
-        if s != 1 or (window is not None and split.kv_len == window):
-            raise NotImplementedError(
-                "a cache split by length takes one-token decode steps off the "
-                "sliding-window ring; prefill it in one process")
-        start = split.index * kv_cache["k"].shape[1]
-        ck = _length_shard_update(kv_cache["k"], k, plan.rows, start)
-        cv = _length_shard_update(kv_cache["v"], v, plan.rows, start)
-        out = flash_decode(q, ck, cv, cache_index, window=window)
+        l_loc = kv_cache["k"].shape[1]
+        start = split.index * l_loc
+        if s == 1 and (window is None or split.kv_len != window):
+            from repro_torch.models.flash_decode import flash_decode
+
+            ck = _length_shard_update(kv_cache["k"], k, plan.rows, start)
+            cv = _length_shard_update(kv_cache["v"], v, plan.rows, start)
+            out = flash_decode(q, ck, cv, cache_index, window=window)
+        else:
+            # a multi-token step, or a one-token step on the window's ring:
+            # the one-process path on the gathered cache, of which this
+            # rank keeps its entries
+            ck = _row_cache_update(C.all_gather(kv_cache["k"], mesh, ax, dim=1),
+                                   k, plan.rows)
+            cv = _row_cache_update(C.all_gather(kv_cache["v"], mesh, ax, dim=1),
+                                   v, plan.rows)
+            out = _cached_attention(q, ck, cv, plan.bias, v.dtype)
+            ck = ck[:, start:start + l_loc].contiguous()
+            cv = cv[:, start:start + l_loc].contiguous()
         new_cache = {"k": ck, "v": cv}
     elif kv_cache is not None:
         ck = _row_cache_update(kv_cache["k"], k, plan.rows)

@@ -520,19 +520,39 @@ def make_train_step(cfg: ModelConfig, optimizer, *, impl="auto", remat=True,
     return train_step
 
 
+def _whole_last_logits(logits, cfg: ModelConfig, psh, caches, csh):
+    """The last position's logits, gathered over the model axis where a
+    sharded step's vocabulary is split over it."""
+    logits = logits[:, -1]
+    if psh is not None:
+        split = model_split(cfg, psh, caches, csh)
+        if split.vocab:
+            logits = C.all_gather(logits, split.mesh, split.axis, dim=-1)
+    return logits
+
+
 def make_prefill_step(cfg: ModelConfig, *, impl="auto",
-                      compute_dtype=torch.bfloat16):
+                      compute_dtype=torch.bfloat16, param_shardings_tree=None,
+                      cache_shardings_tree=None):
     """``prefill(params, tokens, caches, frontend_feats=None) -> (last
     logits (B, V), caches)``: a fresh-sequence pass (scalar cache index 0)
     through ``caches``; frontend features, when given, are the prompt's
-    prefix and take the cache's first ``F`` entries."""
+    prefix and take the cache's first ``F`` entries.
+
+    ``param_shardings_tree`` and ``cache_shardings_tree``: the sharded
+    prefill, as :func:`make_decode_step` takes them (a cache split by
+    length is gathered a layer, updated and attended to whole, and each
+    rank keeps its entries)."""
+    psh, csh = param_shardings_tree, cache_shardings_tree
+    if psh is not None and csh is None:
+        raise ValueError("a sharded prefill step needs cache_shardings_tree")
 
     def prefill(params, tokens, caches, frontend_feats=None):
         logits, new_caches, _ = forward(
             params, tokens, cfg, caches=caches, cache_index=0,
             frontend_feats=frontend_feats, impl=impl,
-            compute_dtype=compute_dtype)
-        return logits[:, -1], new_caches
+            compute_dtype=compute_dtype, shardings=psh, cache_shardings=csh)
+        return _whole_last_logits(logits, cfg, psh, caches, csh), new_caches
 
     return prefill
 
@@ -551,7 +571,8 @@ def make_decode_step(cfg: ModelConfig, *, impl="auto",
     ``caches`` are this rank's blocks, ``tokens`` and ``cache_index`` its
     rows, and the logits of its rows come back whole. A cache whose KV
     heads the model axis does not divide is split by length and every
-    layer decodes through ``models.flash_decode``. A Mamba block decodes
+    layer decodes through ``models.flash_decode`` (off the window's ring;
+    on it, through the gathered cache). A Mamba block decodes
     on this rank's SSM heads and conv channels (``models.ssm``), as the
     reference decodes under ``cache_shardings``."""
     psh, csh = param_shardings_tree, cache_shardings_tree
@@ -563,11 +584,6 @@ def make_decode_step(cfg: ModelConfig, *, impl="auto",
             params, tokens, cfg, caches=caches, cache_index=cache_index,
             impl=impl, compute_dtype=compute_dtype, shardings=psh,
             cache_shardings=csh)
-        logits = logits[:, -1]
-        if psh is not None:
-            split = model_split(cfg, psh, caches, csh)
-            if split.vocab:
-                logits = C.all_gather(logits, split.mesh, split.axis, dim=-1)
-        return logits, new_caches
+        return _whole_last_logits(logits, cfg, psh, caches, csh), new_caches
 
     return decode

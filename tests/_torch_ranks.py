@@ -10,6 +10,7 @@ saves what it returns with ``torch.save`` and destroys its group in
 that has not finished within ``timeout`` seconds is killed and the test
 fails. This module imports no JAX: the ranks run the port only.
 """
+import contextlib
 import datetime
 import json
 import os
@@ -229,7 +230,9 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
     the logits and its ring), ``ServingService`` on 4 ranks without and
     with ``reference_schedule`` faults; and the launcher on 2 stage ranks
     (``LAUNCH_ARGV`` with a checkpoint directory), then again, resuming
-    from its checkpoint."""
+    from its checkpoint. Then the collective recorder: the 1F1B step on
+    3 stage ranks under each transport, recorded and not, and two plain
+    transfers of known size."""
     import torch.distributed as dist
 
     from repro_torch.core import pipeline as P
@@ -271,7 +274,55 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
         ckpt = ["--checkpoint-dir", os.path.join(tmp, "launcher_ckpt")]
         out["launcher"], out["resumed"] = (
             _launched(LAUNCH.main(LAUNCH_ARGV + ckpt)) for _ in range(2))
+        out["recorded"] = recorded_runs(cfg, params, tok, lab, micro, mesh, ring4)
     return out
+
+
+RECORD_BOUNDS = (1, 3, 4)
+
+
+def recorded_runs(cfg, params, tok, lab, micro, mesh2, mesh4):
+    """Under ``record_collectives``: the 1F1B step on a 3-stage mesh
+    (ranks 0-2) under ``transport="sync"`` and ``"overlap"``, each
+    recorded and then run again unrecorded (its per-tick counts, and
+    whether the two runs' loss and this rank's gradients are bit for bit
+    equal); an all-gather of a (4, 8) f32 block over the 2-rank mesh and
+    an all-reduce of a (4, 4) f32 tensor over the 4-rank one."""
+    import torch
+
+    from repro_torch.core import pipeline as P
+    from repro_torch.distribution import collectives as C
+    from repro_torch.launch.hlo_analysis import pipeline_collective_counts
+    from repro_torch.launch.mesh import make_stage_mesh
+
+    mesh3 = make_stage_mesh(3, device="cpu")
+    out = {}
+    if mesh3.coords is not None:
+        local = P.stage_params(params, cfg, RECORD_BOUNDS, mesh3.axis_index("stage"))
+        ticks = micro + 2 * (len(RECORD_BOUNDS) - 1)
+        for tr in ("sync", "overlap"):
+            step = P.pipeline_step_fn(cfg, RECORD_BOUNDS, micro, mesh=mesh3,
+                                      pipe=P.PipelineConfig(transport=tr,
+                                                            compute_dtype="float32"))
+            with C.record_collectives() as st:
+                loss, grads = step(local, tok, lab)
+            loss0, grads0 = step(local, tok, lab)
+            same = bool(torch.equal(loss, loss0)) and all(
+                torch.equal(a, b) for a, b in zip(_leaves(grads), _leaves(grads0)))
+            out[tr] = dict(per_tick=pipeline_collective_counts(st, ticks),
+                           counts=dict(st.counts), bitwise=same)
+    with C.record_collectives() as st:
+        if mesh2.coords is not None:
+            C.all_gather(torch.ones(4, 8), mesh2, "stage", dim=0)
+        C.all_reduce(torch.ones(4, 4), mesh4, "stage")
+    out["plain"] = st.as_dict()
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
 
 
 def _launched(res):
@@ -503,7 +554,8 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
             grads=gathered(grads, psh), params=gathered(new, psh),
             mu=gathered(state.mu, psh), nu=gathered(state.nu, psh),
             block_shapes={"embed": tuple(new["embed"].shape),
-                          "mu_slot0": tuple(tree_leaves(state.mu["slots"][0])[-1].shape)})
+                          "mu_slot0": tuple(tree_leaves(state.mu["slots"][0])[-1].shape)},
+            held_bytes={"params": _nbytes(new), "moments": _nbytes(state)})
 
     lap("a")
     # (b) StableLM from the JAX package's weights, bf16 as the reference
@@ -572,6 +624,9 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
     for arch, grid in SSM_DECODE_CASES:
         out["decode"][f"{arch}|{grid}"] = decode_run(
             mesh if grid == (2, 2) else line, None, arch)
+    # a prefill, then greedy steps, on a cache split by length; the ring
+    for case in PREFILL_CASES:
+        out["decode"][f"prefill|{case}"] = prefill_run(line, case)
 
     lap("e")
     # (f) load_pytree(shardings=): the whole tree saved, each rank its blocks
@@ -602,6 +657,112 @@ SSM_DECODE_CASES = [(arch, grid) for arch in ("mamba2-370m", "jamba-v0.1-52b")
 TRAIN_ARGV = ["--arch", "stablelm-1.6b", "--steps", "3", "--batch", "4", "--seq",
               "32", "--device", "cpu"]
 DECODE_STEPS, DECODE_BATCH, DECODE_CACHE = 6, 2, 8
+
+
+def _nbytes(tree):
+    from repro_torch.tree import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+# a prefill of PREFILL_LEN tokens and PREFILL_STEPS greedy steps on the
+# (1 x 4) mesh, one KV head (so the cache is split by length): "length"
+# on a PREFILL_CACHE-entry cache (8 entries a rank), each row's steps from
+# its own PREFILL_STARTS position (the prefill on ranks 0 and 1; row 0 on
+# rank 2, row 1 crossing from rank 2 into 3);
+# "ring" under a RING_WINDOW-entry window whose cache is the window (the
+# decode steps, from the prompt's end, wrap around it)
+PREFILL_CASES = ("length", "ring")
+PREFILL_LEN, PREFILL_STEPS, PREFILL_CACHE = 16, 4, 32
+PREFILL_STARTS = (16, 22)
+RING_WINDOW, RING_PROMPT, RING_STEPS = 8, 6, 8
+
+
+def prefill_config(case):
+    cfg = tp_config("qwen2.5-3b", num_kv_heads=1)
+    return cfg.with_window(RING_WINDOW) if case == "ring" else cfg
+
+
+def prefill_inputs(case):
+    """(config, prompts (B, P), cache length, steps) of a prefill case."""
+    import numpy as np
+
+    cfg = prefill_config(case)
+    plen, cache, steps = ((RING_PROMPT, RING_WINDOW, RING_STEPS) if case == "ring"
+                          else (PREFILL_LEN, PREFILL_CACHE, PREFILL_STEPS))
+    rng = np.random.default_rng(5)
+    return cfg, rng.integers(0, cfg.vocab_size, (DECODE_BATCH, plen)), cache, steps
+
+
+def prefill_starts(case):
+    """Each row's first decode position (B,) of a prefill case."""
+    import numpy as np
+
+    if case == "ring":
+        return np.full(DECODE_BATCH, RING_PROMPT)
+    return np.asarray(PREFILL_STARTS)
+
+
+def prefill_run(mesh, case, tokens=None):
+    """An f32 prefill of a case's prompts, then its greedy decode steps
+    (or the given ``tokens`` (steps, B), teacher-forced), on ``mesh``
+    (``None``: in one process). Returns the logits (steps + 1, B, V), the
+    fed tokens (steps, B) and the ``flash_decode`` calls."""
+    import torch
+
+    from repro_torch.distribution import context as ctx
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.models import flash_decode as FD
+    from repro_torch.models import model as M
+
+    cfg, prompts, cache_len, steps = prefill_inputs(case)
+    starts = torch.from_numpy(prefill_starts(case)).long()
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    caches = M.init_caches(cfg, DECODE_BATCH, cache_len, dtype=torch.float32,
+                           device="cpu")
+    prompts = torch.from_numpy(prompts).long()
+    kw = dict(compute_dtype=torch.float32)
+    calls = []
+    real = FD.flash_decode
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    FD.flash_decode = counted
+    try:
+        if mesh is None:
+            prefill, decode = M.make_prefill_step(cfg, **kw), M.make_decode_step(cfg, **kw)
+            rows = prows = lambda t: t  # noqa: E731
+            whole = lambda lg: lg  # noqa: E731
+            spec, run = None, contextlib.nullcontext
+        else:
+            psh = SH.param_shardings(params, cfg, mesh, mode="serve")
+            csh = SH.cache_shardings(caches, cfg, mesh, DECODE_BATCH)
+            bsh = SH.batch_sharding(mesh, DECODE_BATCH, extra_dims=0)
+            kw.update(param_shardings_tree=psh, cache_shardings_tree=csh)
+            prefill, decode = M.make_prefill_step(cfg, **kw), M.make_decode_step(cfg, **kw)
+            params, caches = SH.blocks(params, psh), SH.blocks(caches, csh)
+            rows = bsh.block
+            prows = SH.batch_sharding(mesh, DECODE_BATCH).block
+            whole = lambda lg: SH.gather_tree(  # noqa: E731
+                lg, SH.batch_sharding(mesh, DECODE_BATCH))
+            spec = csh[0]["k"].spec
+            run = lambda: ctx.activation_sharding(  # noqa: E731
+                mesh, SH.batch_axes(mesh, DECODE_BATCH))
+        with run():
+            lg, caches = prefill(params, prows(prompts), caches)
+            logits, fed = [whole(lg)], []
+            for t in range(steps):
+                tok = logits[-1].argmax(-1) if tokens is None else tokens[t]
+                fed.append(tok)
+                lg, caches = decode(params, rows(tok)[:, None], caches,
+                                    rows(starts + t))
+                logits.append(whole(lg))
+        return dict(logits=torch.stack(logits), tokens=torch.stack(fed),
+                    flash=len(calls), spec=spec)
+    finally:
+        FD.flash_decode = real
 
 
 def decode_tokens(cfg, seed=3):
@@ -843,12 +1004,13 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
     norm and its updated shares (gathered) held to the one-process
     launcher step's on the same inputs; then the (2 x 2) stage x env step
     at ``env_depth`` in f32 against the in-process step (the 1-D stage
-    mesh's result)."""
+    mesh's result). Each timed step runs under ``record_collectives``
+    (``collectives``: one record a step)."""
     import numpy as np
     import torch
 
     from repro_torch.core import pipeline as P
-    from repro_torch.distribution.collectives import transport
+    from repro_torch.distribution.collectives import record_collectives, transport
     from repro_torch.launch import train_mhsl_rl as RUN
     from repro_torch.launch.mesh import make_stage_env_mesh, make_stage_mesh
     from repro_torch.launch.train_mhsl_rl import executed_config
@@ -874,12 +1036,15 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
         step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe, mesh=mesh,
                                   env_axis=env_axis)
         before = _launches()
-        secs = []
-        for _ in range(n_steps):
-            (loss, grads), s = _timed(lambda: step(local, tk, lb))
+        secs, stats = [], []
+        for _ in range(n_steps):  # each step's collectives recorded
+            with record_collectives() as st:
+                (loss, grads), s = _timed(lambda: step(local, tk, lb))
             secs.append(s)
+            stats.append(st.as_dict())
         full = P.gather_stage_tree(grads, params, cfg, bounds, mesh)
-        res = dict(seconds=secs, transport=transport(mesh), loss=float(loss))
+        res = dict(seconds=secs, transport=transport(mesh), loss=float(loss),
+                   collectives=stats)
         del grads
         new = None
         opt = adamw(RUN.LR, max_grad_norm=1.0)
@@ -1048,10 +1213,12 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
     each part against the one-process run on rank 0: (M4a) the zoo
     trainer on a (2 x 2) mesh (``launch.train.main``); (M4b) one (2 x 2)
     train step with ``moe_a2a=True`` (the one-process dropless step first,
-    its results kept on the host and freed from the card); (M4c) greedy
-    decoding on a (1 x 4) mesh, the cache split by length (every layer
-    through ``flash_decode``), and ``M4c_mamba`` the same for an SSM
-    config (its Mamba blocks on their SSM heads and conv channels). Runs
+    its results kept on the host and freed from the card); (M4c) a
+    prefill and greedy decoding on a (1 x 4) mesh, the cache split by
+    length (the prefill through the gathered cache, every decode step's
+    layers through ``flash_decode``), each pass's collectives recorded,
+    and ``M4c_mamba`` a teacher-forced prompt and greedy decoding for an
+    SSM config (its Mamba blocks on their SSM heads and conv channels). Runs
     the ``parts`` named, each with its dict of sizes; reports each part's
     kernel launches (none expected).
     ``device="cpu"`` with reduced parts runs it on the CPU."""
@@ -1063,7 +1230,7 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
 
     from repro_torch.distribution import context as ctx
     from repro_torch.distribution import sharding as SH
-    from repro_torch.distribution.collectives import transport
+    from repro_torch.distribution.collectives import record_collectives, transport
     from repro_torch.launch import train as TRAIN
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train_mhsl_rl import executed_config
@@ -1222,24 +1389,44 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
             cfg = dataclasses.replace(cfg, num_kv_heads=2)
         mesh = make_host_mesh(1, 4, device=device)
         starts = torch.tensor(m4c["starts"], device=device)
+        n_prompt = m4c.get("prefill") or m4c["prompt"]
+        if m4c.get("prefill") and min(m4c["starts"]) < n_prompt:
+            raise ValueError("a row's decode starts inside its prefill")
         prompt = torch.from_numpy(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (m4c["prompt"], len(m4c["starts"])))).to(device)
+            0, cfg.vocab_size, (n_prompt, len(m4c["starts"])))).to(device)
 
-        def decode(step, params, caches):
-            """The prompt teacher-forced, then greedy steps; the logits and
-            tokens from the last prompt step on (every row on every rank: the
-            mesh has one data rank)."""
-            toks, logits, tok = [], [], None
+        def decode(prefill, step, params, caches, record=False):
+            """The prompt in one ``prefill`` pass from position 0, then
+            greedy steps from each row's start (or, with no prefill, the
+            prompt teacher-forced a token a step from each row's start,
+            then greedy steps after it). Returns the greedy tokens and the
+            logits from the last prompt position on (every row on every
+            rank: the mesh has one data rank), the seconds, and with
+            ``record`` each pass's collectives (the prompt's first)."""
+            rec = record_collectives if record else contextlib.nullcontext
+            toks, logits, stats = [], [], []
             t1 = time.perf_counter()
-            for t in range(m4c["prompt"] + m4c["steps"]):
-                feed = prompt[t] if t < m4c["prompt"] else tok
-                lg, caches = step(params, feed[:, None], caches, starts + t)
+            if prefill is not None:
+                with rec() as st:
+                    lg, caches = prefill(params, prompt.T.contiguous(), caches)
+                stats.append(st)
+                base = starts
+            else:
+                for t in range(n_prompt):
+                    with rec() as st:
+                        lg, caches = step(params, prompt[t][:, None], caches, starts + t)
+                    stats.append(st)
+                base = starts + n_prompt
+            for t in range(m4c["steps"]):
                 tok = lg.argmax(-1)
-                if t >= m4c["prompt"] - 1:
-                    logits.append(lg.float().cpu())
-                    toks.append(tok.cpu())
+                logits.append(lg.float().cpu())
+                toks.append(tok.cpu())
+                with rec() as st:
+                    lg, caches = step(params, tok[:, None], caches, base + t)
+                stats.append(st)
             sync()
-            return torch.stack(toks[:-1]), torch.stack(logits[:-1]), time.perf_counter() - t1
+            return (torch.stack(toks), torch.stack(logits), time.perf_counter() - t1,
+                    [x.as_dict() for x in stats if x is not None])
 
         c = {}
         if lead:
@@ -1249,8 +1436,11 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
             caches = M.init_caches(cfg, len(m4c["starts"]), m4c["cache"],
                                    dtype=torch.float32, device=device)
             step = M.make_decode_step(cfg, compute_dtype=torch.float32)
-            c["ref_tokens"], c["ref_logits"], c["ref_seconds"] = decode(step, params, caches)
-            del params, caches, step
+            prefill = (M.make_prefill_step(cfg, compute_dtype=torch.float32)
+                       if m4c.get("prefill") else None)
+            c["ref_tokens"], c["ref_logits"], c["ref_seconds"], _ = decode(
+                prefill, step, params, caches)
+            del params, caches, step, prefill
             _restore(saved)
             reset()
         dist.barrier()
@@ -1275,8 +1465,10 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
         del caches
         reset()
         lap(f"{part} blocks")
-        step = M.make_decode_step(cfg, compute_dtype=torch.float32,
-                                  param_shardings_tree=psh, cache_shardings_tree=csh)
+        kw = dict(compute_dtype=torch.float32, param_shardings_tree=psh,
+                  cache_shardings_tree=csh)
+        step = M.make_decode_step(cfg, **kw)
+        prefill = M.make_prefill_step(cfg, **kw) if m4c.get("prefill") else None
         calls = []
         real = FD.flash_decode
 
@@ -1288,7 +1480,8 @@ def card_tensor_parallel(rank, world, tmp, parts, m4a=None, m4b=None, m4c=None,
         before = _launches()
         try:
             with ctx.activation_sharding(mesh, SH.batch_axes(mesh, len(m4c["starts"]))):
-                c["tokens"], c["logits"], c["seconds"] = decode(step, blocks, cblocks)
+                c["tokens"], c["logits"], c["seconds"], c["collectives"] = decode(
+                    prefill, step, blocks, cblocks, record=True)
         finally:
             FD.flash_decode = real
         out["launches"][part] = _since(before)

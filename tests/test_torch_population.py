@@ -140,7 +140,8 @@ def test_leakage_model_override_and_refusals(env, agent):
     """``leakage_model=`` prices the evaluation with another model (halved
     layer values halve the leak exactly); per-scenario agents
     (``share_params=False``) that are copies of one agent give the shared
-    agent's numbers; extra records raise."""
+    agent's numbers; ``extra_record`` fields come back stacked with the
+    others."""
     cfg, params = agent
     policy = R.sac_policy(env.action_dims, cfg)
     scenarios = TSC.stack_scenarios(TSC.scenario_grid(env.scenario(),
@@ -161,5 +162,78 @@ def test_leakage_model_override_and_refusals(env, agent):
                                   share_params=False, **kw)
     for k in base:
         np.testing.assert_array_equal(per[k], base[k])
-    with pytest.raises(NotImplementedError):
-        TSC.make_population_rollout(env, policy, 1, extra_record=lambda *a: {})
+    run = TSC.make_population_rollout(
+        env, policy, cfg.hist_len,
+        extra_record=lambda st, a, st2, info: {"next_n": st2.n})
+    traj = run(params, 11, EPISODES, scenarios)
+    assert traj["next_n"].shape == traj["reward"].shape == (2, EPISODES,
+                                                             env.episode_len)
+    want = torch.arange(2, env.episode_len + 2, dtype=torch.int32)
+    assert torch.equal(traj["next_n"], want.expand_as(traj["next_n"]))
+
+
+def _extra(st, action, st2, info):
+    """One callable for both packages: what a step spent, where its stages
+    went, and a field of the action and of the post-step state together."""
+    return {"spent_e": st.e_r - st2.e_r, "spent_t": st.t_r - st2.t_r,
+            "stage_dev": st2.stage_dev, "u_at_n": action["u"] + st2.n}
+
+
+def test_extra_record_matches_jax():
+    """``extra_record`` through ``make_population_rollout`` against the JAX
+    package's on shared draws: the env positions are the JAX reset's, and
+    the policy takes the first allowed device and size and fixed powers,
+    so no draw of either side reaches the recorded fields (the leakage
+    draws move only ``leak`` and the reward). Two scenarios of a q sweep,
+    4 envs each: every field ``(N, num_envs, T)``, integers equal, the
+    spent energy and time at rtol 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.agents import rollout as JR
+    from repro.core.env import MHSLEnv as JEnv
+    from repro.core.profiles import resnet101_profile as jresnet
+
+    n_env = 4
+    jenv = JEnv(profile=jresnet(batch=1))
+
+    def jpolicy(params, key, obs, hist, hist_mask, masks):
+        return {"u": jnp.argmax(masks["u"]).astype(jnp.int32),
+                "size": jnp.argmax(masks["size"]).astype(jnp.int32),
+                "decoys": jnp.zeros(jenv.action_dims["decoys"], jnp.int32),
+                "p_tx": jnp.int32(1), "p_d": jnp.int32(0)}, {}
+
+    def tpolicy(params, gen, obs, hist, hist_mask, masks):
+        n = obs.shape[0]
+        i32 = torch.int32
+        return {"u": masks["u"].int().argmax(-1).to(i32),
+                "size": masks["size"].int().argmax(-1).to(i32),
+                "decoys": torch.zeros(masks["decoys"].shape, dtype=i32),
+                "p_tx": torch.ones(n, dtype=i32), "p_d": torch.zeros(n, dtype=i32)}, {}
+
+    qs = [0.3, 0.9]
+    jsc = JSC.stack_scenarios(JSC.scenario_grid(jenv.scenario(), monitor_prob=qs))
+    rkeys = jax.random.split(jax.random.PRNGKey(7), n_env)
+    akeys = jax.random.split(jax.random.PRNGKey(8), n_env)
+    _, jtraj = JSC.make_population_rollout(jenv, jpolicy, 1, extra_record=_extra)(
+        None, rkeys, akeys, jsc)
+    st0 = jax.vmap(jenv.reset, in_axes=(0, None))(rkeys, jenv.scenario())
+    pos = (torch.from_numpy(np.asarray(st0.dev_pos)[:, :-1].copy()),
+           torch.from_numpy(np.asarray(st0.eav_pos).copy()))
+
+    class SharedPositions(MHSLEnv):
+        def sample_positions(self, gen, num_envs, params=None):
+            return pos
+
+    env = SharedPositions(profile=resnet101_profile(batch=1), device="cpu")
+    tsc = TSC.stack_scenarios(TSC.scenario_grid(env.scenario(), monitor_prob=qs))
+    traj = TSC.make_population_rollout(env, tpolicy, 1, extra_record=_extra)(
+        None, 0, n_env, tsc)
+    for k in ("spent_e", "spent_t", "stage_dev", "u_at_n"):
+        got, want = traj[k].numpy(), np.asarray(jtraj[k])
+        assert got.shape == want.shape == (2, n_env, env.episode_len) + want.shape[3:], k
+        if k.startswith("spent"):
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=k)
+    assert np.asarray(jtraj["spent_e"]).max() > 0

@@ -29,6 +29,15 @@ measured 7e-8: per-rank partial sums), the updated parameters (1e-6 of
 max|ref| per leaf, measured 1.2e-7 absolute) and the held-out loss (bf16
 compute: ``rtol 1e-3``); with a checkpoint directory, rank 0 alone
 trains the controller and writes it, and a second launch resumes.
+
+The collective recorder (``distribution.collectives.record_collectives``)
+in the same group, the counterpart of ``tests/test_hlo_analysis.py``'s
+``test_overlap_issues_no_more_collectives_than_sync``: the 1F1B step of
+reduced Qwen2.5-3B on 3 stage ranks issues no more collectives per tick
+under ``transport="overlap"`` than under ``"sync"``, some of them
+``collective-permute`` hops, and the recorded run is bit for bit the
+unrecorded one; an all-gather of a 256 B result over 2 ranks records
+128 wire bytes and an all-reduce of 64 B over 4 records 96.
 """
 import dataclasses
 import os
@@ -394,3 +403,31 @@ def test_mesh_refusals():
         make_stage_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="ranks"):
         make_stage_env_mesh(2, 2, device="cpu")
+
+
+def test_overlap_issues_no_more_collectives_than_sync(runs):
+    for rank in (0, 1, 2):
+        rec = runs["ranks"][rank]["recorded"]
+        sync, over = rec["sync"]["per_tick"], rec["overlap"]["per_tick"]
+        assert any("permute" in k for k in sync), sync
+        assert set(over) <= set(sync), (over, sync)
+        for kind, n in sync.items():
+            assert over.get(kind, 0.0) <= n + 1e-9, (kind, over, sync)
+        assert rec["sync"]["bitwise"] and rec["overlap"]["bitwise"]
+    # a permute on its sender for each microbatch's hop across each of the
+    # 2 stage boundaries, forward and backward, and the tied embedding's
+    # two gradient exchanges between the first and the last stage
+    sends = [runs["ranks"][r]["recorded"]["sync"]["counts"]["collective-permute"]
+             for r in (0, 1, 2)]
+    assert _cfg().tie_embeddings
+    assert sends == [MICRO + 1, 2 * MICRO, MICRO + 1]
+    assert "sync" not in runs["ranks"][3]["recorded"]  # outside the 3-rank mesh
+
+
+def test_recorded_transfers_carry_the_reference_wire_bytes(runs):
+    """The reference's HLO example's two collectives as real transfers."""
+    lead = runs["ranks"][0]["recorded"]["plain"]
+    assert lead["result_bytes"] == {"all-gather": 256, "all-reduce": 64}
+    assert lead["wire_bytes"] == {"all-gather": 128.0, "all-reduce": 96.0}
+    assert lead["group_sizes"] == {"all-gather": {2: 1}, "all-reduce": {4: 1}}
+    assert runs["ranks"][3]["recorded"]["plain"]["counts"] == {"all-reduce": 1}

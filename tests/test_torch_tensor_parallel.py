@@ -42,9 +42,23 @@ weights of the JAX comparisons are carried by ``repro_torch.weights``.
   one-process port decode and against the JAX package's decode step under
   ``param_shardings(mode="serve")`` / ``cache_shardings`` on the same
   grid (the port's weights and tokens carried).
+  A cache split by length also takes a multi-token step and a step on
+  the window's ring: reduced Qwen2.5-3B with one KV head on the (1 x 4)
+  mesh prefills 16 tokens into a 32-entry cache (each rank gathers the
+  cache's entries, updates and attends to them whole, keeps its own),
+  then decodes 4 greedy steps through ``flash_decode``, each row from its
+  own position (one row crossing a shard boundary), against one
+  process and against the JAX package's prefill and decode under GSPMD
+  on the same grid (the port's weights, prompts and greedy tokens
+  carried); under an 8-entry window whose cache is the window, a 6-token
+  prefill and 8 greedy steps that wrap the ring, against one process.
 * (f) ``load_pytree(shardings=)``: each rank's blocks, bit for bit.
 * (g) ``launch.train.main`` with ``--data-par 2 --model-par 2`` against
   ``--data-par 1`` on the same seed.
+* The dry run's counts (``launch.dryrun.resident_bytes``) on a (2 x 2)
+  shape record of the mesh: the per-rank bytes of reduced
+  Qwen3-MoE-30B-A3B's parameters and AdamW state equal the bytes of the
+  blocks each rank holds after (a)'s sharded step.
 
 Tolerances:
 - f32 steps (a), (d): loss ``rtol 1e-5`` (measured at most 8e-8); updated
@@ -64,7 +78,7 @@ Tolerances:
 - (c): outputs ``atol 1e-5``, aux ``rtol 1e-6``, gradients 1e-5
   relative Frobenius norm; the no-drop check at 1e-4, as the reference's.
 - (e): logits ``atol 1e-3``, as the reference's (measured 1e-6); the
-  greedy tokens equal. The SSM and hybrid decodes: logits ``atol 1e-5``
+  greedy tokens equal. The prefills at the same gate. The SSM and hybrid decodes: logits ``atol 1e-5``
   (measured at most 6.0e-6, Jamba on (2 x 2): the gated RMSNorm's sum
   of squares and ``out_proj``'s partial products summed over the model
   axis) and the greedy tokens equal; against JAX's sharded decode the
@@ -153,6 +167,33 @@ for arch, path in {ssm!r}.items():
                 lg, c = dec(p, toks[t][:, None], c, idx0 + t)
                 logits.append(np.asarray(lg))
         out['decode|%s|%s' % (arch, tuple(grid))] = np.stack(logits)
+# a prefill and teacher-forced greedy steps on the (1 x 4) length split,
+# the port's weights, prompts and greedy tokens
+from dataclasses import replace
+from repro.models import make_prefill_step
+cfg = replace(get_config('qwen2.5-3b').reduced(), num_kv_heads=1)
+with np.load({prefill!r}) as z:
+    flat = {{k: z[k] for k in z.files}}
+params = jax.tree.map(jnp.asarray, TR.unflatten(flat))
+prompts = jnp.asarray(flat['__prompts__'], jnp.int32)
+fed = jnp.asarray(flat['__fed__'], jnp.int32)
+starts = jnp.asarray(TR.prefill_starts('length'), jnp.int32)
+b, plen = prompts.shape
+caches = init_caches(cfg, b, TR.PREFILL_CACHE, dtype=jnp.float32)
+mesh = make_host_mesh(1, 4)
+psh = param_shardings(jax.eval_shape(lambda: params), cfg, mesh, mode='serve')
+csh = cache_shardings(jax.eval_shape(lambda: caches), cfg, mesh, b)
+p = jax.tree.map(jax.device_put, params, psh)
+c = jax.tree.map(jax.device_put, caches, csh)
+pre = jax.jit(make_prefill_step(cfg, compute_dtype=jnp.float32))
+dec = jax.jit(make_decode_step(cfg, compute_dtype=jnp.float32))
+with activation_sharding(mesh, batch_axes(mesh, b)):
+    lg, c = pre(p, prompts, c)
+    logits = [np.asarray(lg)]
+    for t in range(fed.shape[0]):
+        lg, c = dec(p, fed[t][:, None], c, starts + t)
+        logits.append(np.asarray(lg))
+out['prefill|length'] = np.stack(logits)
 np.savez({out!r}, **out)
 print('JAX_MESH_OK')
 """
@@ -193,6 +234,7 @@ def _one_process():
                                                                     ("heads", 2))}
     ref["decode"].update({arch: TR.decode_run(None, None, arch)
                           for arch in {a for a, _ in TR.SSM_DECODE_CASES}})
+    ref["decode"]["prefill|ring"] = TR.prefill_run(None, "ring")
     ref["launcher"] = TRAIN.main(TR.TRAIN_ARGV)["losses"]
     return ref
 
@@ -220,10 +262,19 @@ def runs(tmp_path_factory):
         dflat["__tokens__"] = TR.decode_tokens(cfg)
         ssm[arch] = os.fspath(tmp / f"ssm_{arch}.npz")
         np.savez(ssm[arch], **dflat)
+    # the length-split prefill's one-process run first: its greedy tokens
+    # are fed to the JAX side
+    length = TR.prefill_run(None, "length")
+    cfg, prompts, _, _ = TR.prefill_inputs("length")
+    pflat = TR.flatten(W.model_params_to_numpy(
+        TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")))
+    pflat["__prompts__"], pflat["__fed__"] = prompts, length["tokens"].numpy()
+    prefill = os.fspath(tmp / "prefill.npz")
+    np.savez(prefill, **pflat)
     env = dict(os.environ, PYTHONPATH=TR.SRC,
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     jproc = subprocess.Popen([sys.executable, "-c", JAX_MESH.format(
-        tests=TR.HERE, moe=moe, ssm=ssm, out=jax_out,
+        tests=TR.HERE, moe=moe, ssm=ssm, out=jax_out, prefill=prefill,
         grids=sorted({g for _, g in TR.SSM_DECODE_CASES}))],
                              env=env, cwd=TR.REPO, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
@@ -240,6 +291,7 @@ def runs(tmp_path_factory):
         _, jgrads, jm = jax.jit(JM.make_train_step(jcfg, Capture()))(
             jax.tree.map(jnp.asarray, jp), None, batch)
         ref = _one_process()
+        ref["decode"]["prefill|length"] = length
         cfg4 = TR.tp_config("qwen3-moe-30b-a3b", moe={"capacity_factor": A2A_CF})
         ref["moe_apply"] = TL.moe_apply({k: v for k, v in moe_in.items()
                                          if not k.startswith("__")},
@@ -385,3 +437,52 @@ def test_launcher_trains_on_the_mesh(runs):
     losses = runs["lead"]["launcher"]["losses"]
     assert len(losses) == 3 and all(np.isfinite(losses))
     np.testing.assert_allclose(losses, runs["ref"]["launcher"], rtol=LAUNCH_RTOL)
+
+
+@pytest.mark.parametrize("case", TR.PREFILL_CASES)
+def test_length_split_prefill_matches_one_process(runs, case):
+    """A multi-token step and a step on the ring on a cache split by
+    length: the prefill's logits and every greedy step's at
+    ``DECODE_ATOL``, the greedy tokens equal; ``flash_decode`` only on the
+    one-token steps off the ring."""
+    got, ref = runs["lead"]["decode"][f"prefill|{case}"], runs["ref"]["decode"][f"prefill|{case}"]
+    cfg, prompts, cache, steps = TR.prefill_inputs(case)
+    assert got["spec"][2:4] == ("model", None)  # split by length
+    assert got["logits"].shape == (steps + 1, TR.DECODE_BATCH, cfg.vocab_size)
+    np.testing.assert_allclose(got["logits"].numpy(), ref["logits"].numpy(),
+                               atol=DECODE_ATOL)
+    assert torch.equal(got["tokens"], ref["tokens"])
+    attn = cfg.num_attn_layers
+    assert got["flash"] == (0 if case == "ring" else steps * attn) and ref["flash"] == 0
+    if case == "ring":
+        assert prompts.shape[1] + steps > cfg.attention_window == cache  # it wraps
+
+
+def test_length_split_prefill_matches_jax(runs):
+    got = runs["lead"]["decode"]["prefill|length"]["logits"].numpy()
+    ref = runs["jax_mesh"]["prefill|length"]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=DECODE_ATOL)
+    assert np.array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_dryrun_bytes_equal_the_blocks_each_rank_holds(runs):
+    """The counterpart of ``tests/test_flash_decode.py``'s
+    ``test_dryrun_builder_on_host_mesh``: the dry run's per-rank parameter
+    and moment bytes on a (2 x 2) shape record (no ranks, no storage) equal
+    what each rank holds after a sharded train step, whose loss is
+    finite."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+
+    name, arch, over, _ = next(c for c in TR.tp_train_cases()
+                               if c[0] == "qwen3-moe-float32")
+    cfg = TR.tp_config(arch, **over)
+    record = Mesh(("data", "model"), (2, 2), coords=(0, 0), device=torch.device("meta"))
+    want = DR.resident_bytes(cfg, ShapeConfig("tp", TR.TP_SEQ, TR.TP_ROWS, "train"),
+                             record)
+    for r in runs["ranks"]:
+        held = r["train"][name]["held_bytes"]
+        assert np.isfinite(r["train"][name]["loss"])
+        assert held == {"params": want["params_bytes"], "moments": want["moments_bytes"]}
