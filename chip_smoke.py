@@ -161,13 +161,16 @@ Phases (each raises on failure; any failure exits non-zero):
    process) and checked here: Qwen2.5-3B at published widths, depth 8 on 4 stages, M =
    4, 8 x 256 tokens, bf16 through ``stage_mlp_block`` with host-staged
    hops, the gradients assembled on rank 0 and held to the in-process
-   step (seconds per step beside it, peak memory per rank; each timed
-   step's collectives recorded, every step the same), one step of
+   step (seconds of one timed step beside it, peak memory per rank; its
+   collectives recorded), one step of
    the launcher's ``make_pipeline_train_step(mesh=)`` (AdamW on the
    shares, the clip's norm summed over the ranks, the tied embedding
    once) against the one-process launcher step's norm and updated
    parameters on the same inputs, then a (2 x 2) stage x env step at depth
-   4 in f32 against the in-process step at the JAX package's gate; the
+   4 in f32 against the in-process step at the JAX package's gate, and
+   the (2 x 2) fill-drain step there through ``stage_mlp_block`` (M x
+   the stage's layers a rank) against the in-process fill-drain and
+   against that 1F1B step at the reference's gate for the pair; the
    children's launches join the kernels line;
 4k. the (data x model) mesh, four gloo ranks sharing the card (children
    that launch no kernel: (M4a) and (M4b) beside the kernels' build,
@@ -1971,10 +1974,11 @@ MESH_M2 = dict(sac_kw=dict(episodes=16, warmup_episodes=4, seed=5, num_envs=4),
                qs=[0.3, 0.5, 0.7, 0.9], small=dict(batch=16, buffer_size=2000))
 # (M3) four gloo ranks sharing the card: the Split cell (Qwen2.5-3B at
 # published widths, depth 8 on 4 stages, M = 4, 8 x 256 tokens, bf16 over
-# f32 masters through the stage kernel), then the (2 x 2) stage x env
-# step at depth 4 in f32
+# f32 masters through the stage kernel; one timed step, then the
+# launcher's), then the (2 x 2) stage x env step at depth 4 in f32 under
+# 1F1B and under fill-drain
 MESH_M3 = dict(arch="qwen2.5-3b", depth=8, bounds=[2, 4, 6, 8], micro=4, rows=8,
-               seq=256, steps=2, env_depth=4, env_bounds=[2, 4])
+               seq=256, steps=1, env_depth=4, env_bounds=[2, 4])
 MESH_TIMEOUT_S = 420
 # a stage-mesh step against the in-process step on the same weights and
 # tokens (the same kernels on the same shapes; the embedding gradient's
@@ -1991,6 +1995,10 @@ MESH_GRAD_REL = 1e-4
 MESH_NORM_RTOL = 1e-6
 ENV_LOSS_RTOL = 1e-6
 ENV_GRAD_REL = 1e-5
+# (M3)'s fill-drain step against its 1F1B step on the same (2 x 2) ranks:
+# the reference's gate for the pair (loss 2e-5 relative, gradients rtol
+# 2e-5 and atol 2e-5 max|ref|; tests/_torch_ranks.py's FD_RTOL)
+FD_RTOL = 2e-5
 
 
 def _mesh_stage_launches(micro, bounds, steps):
@@ -2000,6 +2008,14 @@ def _mesh_stage_launches(micro, bounds, steps):
     lens = [b - a for a, b in zip([0] + list(bounds[:-1]), bounds)]
     return [steps * micro * (n if k == len(lens) - 1 else 2 * n)
             for k, n in enumerate(lens)]
+
+
+def _mesh_fill_drain_launches(micro, bounds, steps):
+    """``stage_mlp_block`` launches per stage of ``steps`` fill-drain
+    steps: one forward of each microbatch under autograd, whose backward
+    (autograd of the plain block) launches none."""
+    lens = [b - a for a, b in zip([0] + list(bounds[:-1]), bounds)]
+    return [steps * micro * n for n in lens]
 
 
 def _mesh_step_check(what, res, loss_rtol, grad_rel, card):
@@ -2028,11 +2044,15 @@ def start_stage_mesh():
 
 
 def finish_stage_mesh(started):
-    """(M3)'s ranks' results under ``MESH_TIMEOUT_S`` and its wall time."""
+    """(M3)'s ranks' results under ``MESH_TIMEOUT_S``, its wall time and
+    how long the caller waited for it here."""
     import _torch_ranks as TR
 
     t0, handle = started
-    return TR.finish(handle, MESH_TIMEOUT_S), time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = TR.finish(handle, MESH_TIMEOUT_S)
+    now = time.perf_counter()
+    return ranks, now - t0, now - t1
 
 
 def phase_mesh(torch, card, m3):
@@ -2100,19 +2120,23 @@ def phase_mesh(torch, card, m3):
     log(f"[mesh] M1 and M2 side by side: {t12:.1f} s wall [{card}]")
     _log_m4c(torch, card, TR.finish(m4c, MESH_TIMEOUT_S), time.perf_counter() - t0)
 
-    r3, m3_wall = m3
+    r3, m3_wall, m3_wait = m3
     stage = [r["launches"]["stage"]["stage_mlp_block"] for r in r3]
     env = [r["launches"]["stage_env"]["stage_mlp_block"] for r in r3]
     # the timed steps and the launcher's step
     want = _mesh_stage_launches(MESH_M3["micro"], MESH_M3["bounds"], MESH_M3["steps"] + 1)
     want_env = [n for n in _mesh_stage_launches(MESH_M3["micro"], MESH_M3["env_bounds"], 1)
                 for _ in range(2)]
+    fd = [r["launches"]["fill_drain"]["stage_mlp_block"] for r in r3]
+    want_fd = [n for n in _mesh_fill_drain_launches(MESH_M3["micro"],
+                                                    MESH_M3["env_bounds"], 1)
+               for _ in range(2)]
     first = r3[0]["stage"]
     log(f"[mesh M3] {MESH_M3['arch']} at published widths, depth {MESH_M3['depth']} "
         f"on {len(MESH_M3['bounds'])} ranks {tuple(MESH_M3['bounds'])}, M = "
         f"{MESH_M3['micro']}, {MESH_M3['rows']} x {MESH_M3['seq']} tokens, bf16 over f32 "
         f"masters, stage_impl 'pallas', hops host-staged ({first['transport']}): "
-        f"seconds per step {[round(x, 3) for x in first['seconds']]} (the first warms) "
+        f"seconds of the timed step {[round(x, 3) for x in first['seconds']]} "
         f"against {first['ref_seconds']:.3f} s in one process; peak memory per rank "
         f"{[round(r['stage']['peak_gib'], 2) for r in r3]} GiB; stage_mlp_block per "
         f"rank {stage} [{card}]")
@@ -2139,11 +2163,30 @@ def phase_mesh(torch, card, m3):
     _mesh_step_check("M3 (2 x 2) stage x env, f32, depth "
                      f"{MESH_M3['env_depth']}", r3[0]["stage_env"], ENV_LOSS_RTOL,
                      ENV_GRAD_REL, card)
-    log(f"[mesh] M3 {m3_wall:.1f} s wall beside the population band [{card}]")
+    fill = r3[0]["fill_drain"]
+    log(f"[mesh M3] (2 x 2) fill-drain, f32, depth {MESH_M3['env_depth']} on "
+        f"{tuple(MESH_M3['env_bounds'])}, stage_impl 'pallas': "
+        f"{fill['seconds'][0]:.3f} s (1F1B {r3[0]['stage_env']['seconds'][0]:.3f} s; "
+        f"in-process fill-drain {fill['ref_seconds']:.3f} s), host-staged hops; "
+        f"against the (2 x 2) 1F1B step: loss {fill['vs_1f1b']['loss_rel']:.3e} "
+        f"relative, gradients {fill['vs_1f1b']['excess']:.3e} of max|ref| past "
+        f"rtol {FD_RTOL:g}; stage_mlp_block per rank {fd} (1F1B {env}); recorded "
+        f"{[_collective_line(r['fill_drain']['collectives'][0]) for r in r3]} "
+        f"[{card}]")
+    _mesh_step_check("M3 (2 x 2) fill-drain vs the in-process fill-drain",
+                     fill, ENV_LOSS_RTOL, ENV_GRAD_REL, card)
+    if fill["vs_1f1b"]["loss_rel"] > FD_RTOL or fill["vs_1f1b"]["excess"] > FD_RTOL:
+        raise AssertionError(f"M3: fill-drain is off 1F1B on the same ranks: "
+                             f"{fill['vs_1f1b']}")
+    if fd != want_fd:
+        raise AssertionError(f"M3 fill-drain stage_mlp_block launches {fd}, want "
+                             f"{want_fd}")
+    log(f"[mesh] M3 {m3_wall:.1f} s wall beside the population band, "
+        f"{m3_wait:.1f} s of it waited for after the band [{card}]")
     shutil.rmtree(base, ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_m3", ignore_errors=True)
     return {"ca_attention": ca,
-            "stage_mlp_block": m1_stage + sum(stage) + sum(env)}
+            "stage_mlp_block": m1_stage + sum(stage) + sum(env) + sum(fd)}
 
 
 # ---------------------------------------------------------------------------

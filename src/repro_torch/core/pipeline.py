@@ -14,7 +14,11 @@ tick for tick the same schedule. The schedules:
 * ``fill_drain`` (the reference, :func:`pipeline_loss_fn`): a forward of
   ``M + S - 1`` ticks, stage ``i`` taking microbatch ``t - i`` at tick
   ``t``; the last stage's final norm, LM head and cross-entropy give the
-  loss, and the backward is autograd of the whole forward.
+  loss. In one process the backward is autograd of the whole forward; on
+  a stage mesh each rank keeps every microbatch's graph of its stage
+  (GPipe's stash, no rematerialization) and pulls the cotangents through
+  them in reverse microbatch order over ``M + S - 1`` more ticks, the
+  ``2(M + S - 1)`` ticks of the schedule.
 * ``1f1b`` (:func:`pipeline_step_fn`): ``M + 2(S-1)`` ticks; at tick
   ``t`` stage ``i`` forwards microbatch ``t - i`` and backwards
   microbatch ``t - 2(S-1) + i``. A forward slot stashes only the stage
@@ -45,13 +49,13 @@ mesh, each tick's transfers are posted together and waited on before its
 compute).
 Pipelined serving (:func:`pipeline_serve_fns`) runs the reference's
 serial token ring over per-stage KV rings (:func:`stage_kv_caches`), in
-one process or one stage per rank. ``fill_drain`` runs in one process
-only: its backward is autograd of the whole forward, which does not
-cross processes.
+one process or one stage per rank. Both train schedules run in one
+process or one stage per rank.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from functools import partial
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -291,31 +295,39 @@ def _logits_loss(cfg, y, final_norm, head, labels):
     return M.softmax_xent(xh @ head.to(y.dtype), labels)
 
 
-def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
-                     n_microbatches: int, pipe: Optional[PipelineConfig] = None,
-                     env_axis: Optional[str] = None, *, mesh=None):
-    """The fill-drain (GPipe) pipelined LM loss, the REFERENCE path:
-    ``(params, tokens, labels) -> loss``, differentiable by autograd.
-    tokens: ``(M * mb, T)``. No wire cast on the hops (as the reference's
-    fill-drain hops in the compute dtype). It runs in one process: its
-    backward is autograd of the whole forward, which torch does not carry
-    across processes, so ``mesh`` (and with it ``env_axis``) raises."""
-    sig = M.signature(cfg)
+def _fill_drain_period(cfg: ModelConfig, sig) -> None:
+    """Fill-drain runs period-1 configs, as the reference's."""
     period = M.find_period(sig)
     if period > 1:
         raise ValueError(
             f"{cfg.name}: the fill-drain reference runs period-1 configs, got "
             f"period {period}; mixed block periods run through the '1f1b' "
             "schedule")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fill_drain runs in one process (its backward is autograd of the "
-            "whole forward, which does not cross processes); the '1f1b' "
-            "schedule runs on a mesh")
+
+
+def pipeline_loss_fn(cfg: ModelConfig, boundaries: Sequence[int],
+                     n_microbatches: int, pipe: Optional[PipelineConfig] = None,
+                     env_axis: Optional[str] = None, *, mesh=None,
+                     stage_axis: str = "stage"):
+    """The fill-drain (GPipe) pipelined LM loss, the REFERENCE path:
+    ``(params, tokens, labels) -> loss``. tokens: ``(M * mb, T)``. No wire
+    cast on the hops (as the reference's fill-drain hops in the compute
+    dtype). In one process the loss is differentiable by autograd. On a
+    stage ``mesh`` (``env_axis`` as :func:`pipeline_step_fn` takes it)
+    each rank passes its :func:`stage_params` share and runs its stage's
+    forward ticks, and every rank gets the loss; its gradient is
+    ``pipeline_step_fn(schedule="fill_drain", mesh=)``'s."""
+    sig = M.signature(cfg)
+    _fill_drain_period(cfg, sig)
     ranges = _stage_ranges(cfg, boundaries)
-    _check_mesh(None, len(ranges), "stage", env_axis)
-    s_stages = len(ranges)
+    _check_mesh(mesh, len(ranges), stage_axis, env_axis)
     pipe = pipe or PipelineConfig()
+    if mesh is not None:
+        step = _rank_step(cfg, ranges, 1, [sig[lo:hi] for lo, hi in ranges],
+                          n_microbatches, pipe, mesh, stage_axis, env_axis,
+                          "fill_drain", grads=False)
+        return lambda params, tokens, labels: step(params, tokens, labels)[0]
+    s_stages = len(ranges)
     blk_impl, act_dtype = pipe.block_impl, pipe.dtype
 
     def fn(params, tokens, labels):
@@ -373,13 +385,16 @@ def _accumulate(acc, grads):
 
 
 class _Stage:
-    """Stage ``i`` of one 1F1B step: its two slots per tick and its
-    gradients. The forward slot stashes its input and, except on the last
+    """Stage ``i`` of one step: its two slots per tick and its gradients.
+    Under 1F1B the forward slot stashes its input and, except on the last
     stage, runs the stage without autograd; the backward slot recomputes
     the stage under autograd and pulls the cotangent through it (on the
-    last stage, through the loss). Stage 0 scatters its input cotangent
-    into the embedding gradient. In one process every stage is a
-    ``_Stage``; on a stage mesh each rank runs one."""
+    last stage, through the loss). Under fill-drain (on a stage mesh) the
+    forward slot runs the stage (and the loss) under autograd and stashes
+    the graph, which the backward slot pulls the cotangent through. Stage
+    0 scatters its input cotangent into the embedding gradient. In one
+    process every 1F1B stage is a ``_Stage``; on a stage mesh each rank
+    runs one."""
 
     def __init__(self, i, n_stages, layers, sigs, step):
         self.i, self.last = i, i == n_stages - 1
@@ -388,54 +403,92 @@ class _Stage:
         self.stash = [None] * step.depth
         self.grads = None  # accumulated gradients of self.leaves
 
-    def _forward(self, x):
+    def _input(self, mb: int, x_in: Optional[Tensor]) -> Tensor:
         s = self.step
-        return _stage_forward(s.cfg, self.sigs, self.blocks, x, s.positions,
-                              s.blk_impl)
+        return s.embed[s.tok_mb[mb]].to(s.cdtype) if self.i == 0 else x_in
+
+    def _run(self, x: Tensor, mb: int, grad: bool = True) -> Tensor:
+        """The stage's forward of microbatch ``mb`` from ``x`` (under
+        autograd when ``grad``): its output, or on the last stage its
+        loss, which is added to the step's."""
+        s = self.step
+        with torch.set_grad_enabled(grad):
+            y = _stage_forward(s.cfg, self.sigs, self.blocks, x, s.positions,
+                               s.blk_impl)
+            if not self.last:
+                return y
+            head = s.head_leaf.T if s.cfg.tie_embeddings else s.head_leaf
+            li = _logits_loss(s.cfg, y, s.norm_leaf, head, s.lab_mb[mb])
+        s.loss_acc = s.loss_acc + li.detach()
+        return li
+
+    def _pull(self, mb: int, x: Tensor, out: Tensor,
+              g_in: Optional[Tensor]) -> Optional[Tensor]:
+        """The cotangent of microbatch ``mb`` through ``out`` (the stage's
+        output, or the last stage's loss, seeded with ``1/M``) back to the
+        stage's leaves and its input ``x``; returns the hop to the
+        previous stage in the wire dtype (``None`` if there is none)."""
+        s = self.step
+        if self.last:
+            res = torch.autograd.grad(
+                out, self.leaves + [s.norm_leaf, s.head_leaf, x], s.seed)
+            dbl, (dfn, dhd, dx) = res[:-3], res[-3:]
+            s.gnorm = s.gnorm + dfn
+            s.ghead = s.ghead + dhd
+        else:
+            res = torch.autograd.grad(out, self.leaves + [x], g_in)
+            dbl, dx = res[:-1], res[-1]
+        self.grads = _accumulate(self.grads, list(dbl))
+        if self.i > 0:
+            return dx.to(s.wdtype)
+        # the cotangent of the embedding lookup
+        s.gembed.index_add_(0, s.tok_mb[mb].reshape(-1),
+                            dx.reshape(-1, dx.shape[-1]).to(s.gembed.dtype))
+        return None
 
     def forward(self, mf: int, x_in: Optional[Tensor]) -> Optional[Tensor]:
-        """Microbatch ``mf``'s forward slot; returns the hop to the next
-        stage in the wire dtype (``None`` if there is none)."""
+        """Microbatch ``mf``'s 1F1B forward slot; returns the hop to the
+        next stage in the wire dtype (``None`` if there is none)."""
         s = self.step
         if not 0 <= mf < s.m_micro:
             return None
-        x0 = s.embed[s.tok_mb[mf]].to(s.cdtype) if self.i == 0 else x_in
+        x0 = self._input(mf, x_in)
         self.stash[mf % s.depth] = x0
         if self.last:
             return None
-        with torch.no_grad():
-            y = self._forward(x0)
-        return y.to(s.wdtype)
+        return self._run(x0, mf, grad=False).to(s.wdtype)
 
     def backward(self, mbk: int, g_in: Optional[Tensor]) -> Optional[Tensor]:
-        """Microbatch ``mbk``'s backward slot; returns the hop to the
+        """Microbatch ``mbk``'s 1F1B backward slot; returns the hop to the
         previous stage in the wire dtype (``None`` if there is none)."""
         s = self.step
         if not 0 <= mbk < s.m_micro:
             return None
         x_sv = self.stash[mbk % s.depth].detach().requires_grad_(True)
         self.stash[mbk % s.depth] = None
-        with torch.enable_grad():
-            y = self._forward(x_sv)
-            if self.last:
-                head = s.head_leaf.T if s.cfg.tie_embeddings else s.head_leaf
-                li = _logits_loss(s.cfg, y, s.norm_leaf, head, s.lab_mb[mbk])
-                out = torch.autograd.grad(
-                    li, self.leaves + [s.norm_leaf, s.head_leaf, x_sv], s.seed)
-                dbl, (dfn, dhd, dx) = out[:-3], out[-3:]
-                s.gnorm = s.gnorm + dfn
-                s.ghead = s.ghead + dhd
-                s.loss_acc = s.loss_acc + li.detach()
-            else:
-                out = torch.autograd.grad(y, self.leaves + [x_sv], g_in)
-                dbl, dx = out[:-1], out[-1]
-        self.grads = _accumulate(self.grads, list(dbl))
-        if self.i > 0:
-            return dx.to(s.wdtype)
-        # the cotangent of the embedding lookup
-        s.gembed.index_add_(0, s.tok_mb[mbk].reshape(-1),
-                            dx.reshape(-1, dx.shape[-1]).to(s.gembed.dtype))
-        return None
+        return self._pull(mbk, x_sv, self._run(x_sv, mbk), g_in)
+
+    def fd_forward(self, mf: int, x_in: Optional[Tensor],
+                   grad: bool = True) -> Optional[Tensor]:
+        """Microbatch ``mf``'s fill-drain forward slot: its graph is kept
+        for :meth:`fd_backward` (none without ``grad``); returns the hop
+        to the next stage (``None`` if there is none)."""
+        s = self.step
+        if not 0 <= mf < s.m_micro:
+            return None
+        x0 = self._input(mf, x_in).detach().requires_grad_(grad)
+        out = self._run(x0, mf, grad)
+        if grad:
+            self.stash[mf] = (x0, out)
+        return None if self.last else out.detach().to(s.wdtype)
+
+    def fd_backward(self, mbk: int, g_in: Optional[Tensor]) -> Optional[Tensor]:
+        """Microbatch ``mbk``'s fill-drain backward slot, through the graph
+        its forward slot kept."""
+        if not 0 <= mbk < self.step.m_micro:
+            return None
+        (x0, out), self.stash[mbk] = self.stash[mbk], None
+        return self._pull(mbk, x0, out, g_in)
 
 
 class _Step:
@@ -488,31 +541,38 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
 
     ``pipe.schedule == "1f1b"`` runs the interleaved schedule of the
     module docstring; ``"fill_drain"`` is autograd of
-    :func:`pipeline_loss_fn`. Stage compute runs in ``pipe.dtype``; hops
-    cast to ``pipe.wire`` and back.
+    :func:`pipeline_loss_fn` in one process. Stage compute runs in
+    ``pipe.dtype``; 1F1B hops cast to ``pipe.wire`` and back, fill-drain
+    hops travel in the compute dtype.
 
     ``mesh`` (``launch.mesh.make_stage_mesh`` or ``make_stage_env_mesh``)
     runs stage ``k`` on the rank at coordinate ``k`` of ``stage_axis``,
-    tick for tick as in one process: each tick's hops are wire-dtype
-    point-to-point transfers to and from the neighbouring stages. Each
-    rank then passes its own share of the parameters,
-    :func:`stage_params`, and gets the gradients in that share's layout
+    tick for tick as in one process: each tick's hops are point-to-point
+    transfers to and from the neighbouring stages, posted together. Under
+    fill-drain each rank keeps its stage's graph of every microbatch from
+    its ``M + S - 1`` forward ticks and pulls the cotangents through them
+    in reverse microbatch order over ``M + S - 1`` backward ticks. Each
+    rank passes its own share of the parameters, :func:`stage_params`,
+    and gets the gradients in that share's layout
     (:func:`gather_stage_tree` assembles the whole tree); the loss, on
     every rank, is the last stage's. With tied embeddings the first
     stage's embedding gradient and the last stage's head gradient are
     summed across the two ranks. ``env_axis`` (a ``(stage x env)`` mesh)
     splits each microbatch's rows over the env axis and averages the loss
     and every gradient over it after the stage reductions. Every rank
-    takes the whole ``tokens`` and ``labels``. The fill-drain schedule
-    runs in one process only (:func:`pipeline_loss_fn`).
+    takes the whole ``tokens`` and ``labels``.
     """
     sig = M.signature(cfg)
     period = M.find_period(sig)
     ranges = _stage_ranges(cfg, boundaries)
     _check_mesh(mesh, len(ranges), stage_axis, env_axis)
+    stage_sigs = [sig[lo:hi] for lo, hi in ranges]
     if pipe.schedule == "fill_drain":
-        loss_fn = pipeline_loss_fn(cfg, boundaries, n_microbatches, pipe=pipe,
-                                   mesh=mesh)
+        _fill_drain_period(cfg, sig)
+        if mesh is not None:
+            return _rank_step(cfg, ranges, period, stage_sigs, n_microbatches,
+                              pipe, mesh, stage_axis, env_axis, "fill_drain")
+        loss_fn = pipeline_loss_fn(cfg, boundaries, n_microbatches, pipe=pipe)
 
         def fd_step(params, tokens, labels):
             leaves, p = _grad_leaves(params)
@@ -525,7 +585,9 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
 
         return fd_step
 
-    stage_sigs = [sig[lo:hi] for lo, hi in ranges]
+    if mesh is not None:
+        return _rank_step(cfg, ranges, period, stage_sigs, n_microbatches,
+                          pipe, mesh, stage_axis, env_axis, "1f1b")
     s_stages = len(ranges)
     m_micro = n_microbatches
     n_ticks = m_micro + 2 * (s_stages - 1)
@@ -566,15 +628,31 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
             grads["lm_head"] = step.ghead
         return step.loss_acc / m_micro, {k: grads[k] for k in params}
 
-    if mesh is None:
-        return fn
-    return _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth,
-                      pipe, mesh, stage_axis, env_axis)
+    return fn
 
 
-def _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth, pipe,
-               mesh, stage_axis, env_axis):
-    """:func:`pipeline_step_fn` on a stage mesh: this rank's stage."""
+def _slot_ticks(i: int, s_stages: int, m_micro: int, schedule: str):
+    """Stage ``i``'s ``(forward microbatch, backward microbatch)`` at each
+    tick of a step (out of ``[0, M)``: no slot). 1F1B: ``t - i`` and
+    ``t - 2(S-1) + i`` over ``M + 2(S-1)`` ticks. Fill-drain: ``t - i``
+    over ``M + S - 1`` forward ticks, then microbatch ``M - 1 - u + (S - 1
+    - i)`` at backward tick ``u`` over as many."""
+    if schedule == "1f1b":
+        for t in range(m_micro + 2 * (s_stages - 1)):
+            yield t - i, t - 2 * (s_stages - 1) + i
+        return
+    n_fwd = m_micro + s_stages - 1
+    for t in range(n_fwd):
+        yield t - i, -1
+    for u in range(n_fwd):
+        yield -1, m_micro - 1 - u + (s_stages - 1 - i)
+
+
+def _rank_step(cfg, ranges, period, stage_sigs, m_micro, pipe, mesh,
+               stage_axis, env_axis, schedule, grads=True):
+    """:func:`pipeline_step_fn` on a stage mesh under ``schedule``: this
+    rank's stage. Without ``grads``, fill-drain's forward ticks only, and
+    ``(loss, None)``."""
     from repro_torch.distribution import collectives as C
     from repro_torch.distribution.sharding import microbatch_sharding
 
@@ -583,6 +661,10 @@ def _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth, pipe,
     lo, hi = ranges[i]
     first, last = i == 0, i == s_stages - 1
     rows = _slot_rows(lo, hi, period)
+    fill_drain = schedule == "fill_drain"
+    if fill_drain:  # the reference's fill-drain hops in the compute dtype
+        pipe = replace(pipe, wire_dtype=None)
+    depth = m_micro if fill_drain else 2 * (s_stages - 1) + 1
 
     def fn(params, tokens, labels):
         tok_mb, lab_mb = _microbatches(tokens, labels, m_micro)
@@ -595,10 +677,15 @@ def _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth, pipe,
                                  r // period - rows[r % period][0])
                   for r in range(lo, hi)]
         st = _Stage(i, s_stages, layers, stage_sigs[i], step)
+        if fill_drain:
+            fwd, bwd = partial(st.fd_forward, grad=grads), st.fd_backward
+        else:
+            fwd, bwd = st.forward, st.backward
         hop = (tok_mb.shape[1], tok_mb.shape[2], cfg.d_model)
         y = dx = None  # this rank's hops of the last tick
-        for t in range(n_ticks):
-            mf, mbk = t - i, t - 2 * (s_stages - 1) + i
+        for mf, mbk in _slot_ticks(i, s_stages, m_micro, schedule):
+            if not grads and mbk >= 0:
+                break
             recvs = []
             if not first and 0 <= mf < m_micro:
                 recvs.append((hop, step.wdtype, -1))
@@ -610,51 +697,68 @@ def _rank_step(cfg, ranges, period, stage_sigs, m_micro, n_ticks, depth, pipe,
             got = [g.to(step.cdtype) for g in got]
             x_in = got.pop(0) if recvs and recvs[0][2] == -1 else None
             g_in = got.pop(0) if got else None
-            y = st.forward(mf, x_in)
-            dx = st.backward(mbk, g_in)
+            y = fwd(mf, x_in)
+            dx = bwd(mbk, g_in)
 
         loss = C.all_reduce(step.loss_acc / m_micro if last
                             else torch.zeros_like(step.loss_acc), mesh, stage_axis)
-        slots = []
-        for j, (a0, a1) in enumerate(rows):
-            mine = [g for r, g in zip(range(lo, hi),
-                                      tree_unflatten(st.blocks, st.grads))
-                    if r % period == j]
-            slots.append(tree_stack(mine) if mine else
-                         tree_map(torch.zeros_like, params["slots"][j]))
-        grads = {"slots": tuple(slots)}
-        if first and "frontend" in params:
-            grads["frontend"] = tree_map(torch.zeros_like, params["frontend"])
-        if last:
-            grads["final_norm"] = step.gnorm
-            if not cfg.tie_embeddings:
-                grads["lm_head"] = step.ghead
-        if cfg.tie_embeddings:
-            # the first stage's lookup and the last stage's head gradients
-            # meet: the sum, on both ranks
-            if first and last:
-                grads["embed"] = step.gembed + step.ghead
-            elif last:
-                grads["embed"] = C.exchange(
-                    mesh, stage_axis, [(step.ghead, -i)],
-                    [(tuple(step.ghead.shape), step.ghead.dtype, -i)],
-                    device=step.ghead.device)[0]
-            elif first:
-                ghead = C.exchange(
-                    mesh, stage_axis, [],
-                    [(tuple(step.gembed.shape), step.gembed.dtype, s_stages - 1)],
-                    device=step.gembed.device)[0]
-                grads["embed"] = step.gembed + ghead
-                C.exchange(mesh, stage_axis, [(grads["embed"], s_stages - 1)], [])
-        elif first:
-            grads["embed"] = step.gembed
-        if env_axis is not None:  # the mean of the env shards' means
-            loss = C.all_reduce(loss, mesh, env_axis, "mean")
-            grads = tree_map(lambda g: C.all_reduce(g, mesh, env_axis, "mean"),
-                             grads)
-        return loss, {k: grads[k] for k in params}
+        if not grads:
+            if env_axis is not None:
+                loss = C.all_reduce(loss, mesh, env_axis, "mean")
+            return loss, None
+        return _rank_grads(cfg, params, st, step, lo, hi, period, mesh,
+                           stage_axis, env_axis, loss)
 
     return fn
+
+
+def _rank_grads(cfg, params, st, step, lo, hi, period, mesh, stage_axis,
+                env_axis, loss):
+    """A rank's ``(loss, grads)`` after its stage's ticks, in its share's
+    layout: its layers' rows of each slot, the final norm and head on
+    the last stage, the tied embedding's two gradients summed on the
+    first and the last stage, then the mean over the env shards."""
+    from repro_torch.distribution import collectives as C
+
+    i, s_stages = st.i, mesh.shape[stage_axis]
+    first, last = i == 0, st.last
+    layer_grads = list(zip(range(lo, hi), tree_unflatten(st.blocks, st.grads)))
+    slots = []
+    for j in range(period):
+        mine = [g for r, g in layer_grads if r % period == j]
+        slots.append(tree_stack(mine) if mine else
+                     tree_map(torch.zeros_like, params["slots"][j]))
+    grads = {"slots": tuple(slots)}
+    if first and "frontend" in params:
+        grads["frontend"] = tree_map(torch.zeros_like, params["frontend"])
+    if last:
+        grads["final_norm"] = step.gnorm
+        if not cfg.tie_embeddings:
+            grads["lm_head"] = step.ghead
+    if cfg.tie_embeddings:
+        # the first stage's lookup and the last stage's head gradients
+        # meet: the sum, on both ranks
+        if first and last:
+            grads["embed"] = step.gembed + step.ghead
+        elif last:
+            grads["embed"] = C.exchange(
+                mesh, stage_axis, [(step.ghead, -i)],
+                [(tuple(step.ghead.shape), step.ghead.dtype, -i)],
+                device=step.ghead.device)[0]
+        elif first:
+            ghead = C.exchange(
+                mesh, stage_axis, [],
+                [(tuple(step.gembed.shape), step.gembed.dtype, s_stages - 1)],
+                device=step.gembed.device)[0]
+            grads["embed"] = step.gembed + ghead
+            C.exchange(mesh, stage_axis, [(grads["embed"], s_stages - 1)], [])
+    elif first:
+        grads["embed"] = step.gembed
+    if env_axis is not None:  # the mean of the env shards' means
+        loss = C.all_reduce(loss, mesh, env_axis, "mean")
+        grads = tree_map(lambda g: C.all_reduce(g, mesh, env_axis, "mean"),
+                         grads)
+    return loss, {k: grads[k] for k in params}
 
 
 # ---------------------------------------------------------------------------

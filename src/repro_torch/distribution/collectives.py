@@ -45,10 +45,19 @@ nothing, as XLA emits no collective on one device. The bytes come from
 shapes and dtypes alone (the buffer a transfer carries: bf16 reduced in
 f32 counts 4 bytes an element), so a recorded run is the same run. Off
 by default; then nothing is kept.
+
+On a shape record (a :class:`~repro_torch.launch.mesh.Mesh` on the
+``meta`` device with no process groups, as
+``launch.mesh.make_production_mesh`` makes) no rank runs and no group
+is touched: each collective records itself exactly as on ranks (kind,
+result bytes, group size) and returns an uninitialised meta tensor of
+the shape and dtype it would return (:func:`exchange` its receive
+buffers). ``launch.dryrun`` counts a production step's collectives so.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -79,6 +88,21 @@ def record_collectives() -> Iterator[CollectiveStats]:
 def _record(kind: str, numel: int, dtype: torch.dtype, n: int) -> None:
     if _RECORDER is not None:
         _RECORDER.add(kind, numel * dtype.itemsize, n)
+
+
+def _record_only(mesh: Mesh) -> bool:
+    """Whether ``mesh`` is a shape record: collectives on it record
+    themselves and return meta tensors."""
+    return mesh.device.type == "meta" and not mesh.groups
+
+
+def _meta(shape, dtype: torch.dtype) -> Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype :func:`_wire` carries ``dtype`` as."""
+    return torch.float16 if dtype == torch.bfloat16 else dtype
 
 
 def _axes(mesh: Mesh, axes: Axes) -> List[str]:
@@ -126,6 +150,13 @@ def all_gather(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
     concatenated along ``dim`` in axis order (row-major over several
     axes, the first outermost)."""
     for axis in reversed(_axes(mesh, axes)):
+        if _record_only(mesh):
+            n = mesh.shape[axis]
+            _record("all-gather", x.numel() * n, _wire_dtype(x.dtype), n)
+            shape = list(x.shape)
+            shape[dim] *= n
+            x = _meta(shape, x.dtype)
+            continue
         group = mesh.groups[axis]
         src, staged = _moved(x, dim, group)
         wire = _wire(src)
@@ -143,6 +174,11 @@ _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
         "max": dist.ReduceOp.MAX}
 
 
+def _reduced_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a reduction carries ``dtype`` in: bf16 in f32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def all_reduce(x: Tensor, mesh: Mesh, axes: Axes, op: str = "sum") -> Tensor:
     """The sum (``op="sum"``), mean (``"mean"``) or max (``"max"``) of
     ``x`` over this rank's line along ``axes`` (over the sub-grid they
@@ -150,6 +186,11 @@ def all_reduce(x: Tensor, mesh: Mesh, axes: Axes, op: str = "sum") -> Tensor:
     if op not in _OPS:
         raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
     for axis in _axes(mesh, axes):
+        if _record_only(mesh):
+            _record("all-reduce", x.numel(), _reduced_dtype(x.dtype),
+                    mesh.shape[axis])
+            x = _meta(x.shape, x.dtype)
+            continue
         group = mesh.groups[axis]
         staged = _staged(x, group)
         dt = x.dtype
@@ -169,10 +210,16 @@ def reduce_scatter(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
     rank keeps its block of ``dim`` (the block :func:`all_gather` would
     put at its place)."""
     for axis in _axes(mesh, axes):
-        group = mesh.groups[axis]
         n = mesh.shape[axis]
         if x.shape[dim] % n:
             raise ValueError(f"{x.shape[dim]} rows do not split over {axis} ({n})")
+        if _record_only(mesh):
+            shape = list(x.shape)
+            shape[dim] //= n
+            _record("reduce-scatter", math.prod(shape), _reduced_dtype(x.dtype), n)
+            x = _meta(shape, x.dtype)
+            continue
+        group = mesh.groups[axis]
         dt = x.dtype
         src, staged = _moved(x, dim, group)
         src = src.float() if dt == torch.bfloat16 else src
@@ -194,6 +241,9 @@ def all_to_all(x: Tensor, mesh: Mesh, axes: Axes, dim: int = 0) -> Tensor:
         raise NotImplementedError(f"an all-to-all over several axes {axis}")
     if not axis:
         return x
+    if _record_only(mesh):
+        _record("all-to-all", x.numel(), _wire_dtype(x.dtype), mesh.shape[axis[0]])
+        return _meta(x.shape, x.dtype)
     group = mesh.groups[axis[0]]
     src, staged = _moved(x, dim, group)
     wire = _wire(src)
@@ -326,6 +376,11 @@ def exchange(mesh: Mesh, axis: str,
     if not sends and not recvs:
         return []
     peers = mesh.axis_ranks(axis)
+    if _record_only(mesh):
+        for x, _ in sends:
+            _record("collective-permute", x.numel(), _wire_dtype(x.dtype),
+                    len(peers))
+        return [_meta(shape, dtype) for shape, dtype, _ in recvs]
     me = mesh.axis_index(axis)
     staged = dist.get_backend(mesh.group) != dist.Backend.NCCL
     works, keep, out = [], [], []
@@ -360,6 +415,9 @@ def broadcast(x: Tensor, mesh: Mesh, axis: str, src: int = 0) -> Tensor:
     the source's, bit for bit, on its own tensor's device."""
     if not _axes(mesh, axis):
         return x
+    if _record_only(mesh):
+        _record("broadcast", x.numel(), _wire_dtype(x.dtype), mesh.shape[axis])
+        return _meta(x.shape, x.dtype)
     group = mesh.groups[axis]
     staged = _staged(x, group)
     buf = x.detach().cpu() if staged else x.detach()
@@ -372,5 +430,5 @@ def broadcast(x: Tensor, mesh: Mesh, axis: str, src: int = 0) -> Tensor:
 
 def barrier(mesh: Mesh) -> None:
     """Wait until every rank of the mesh arrives (no-op on one rank)."""
-    if mesh.size > 1:
+    if mesh.size > 1 and not _record_only(mesh):
         dist.barrier(group=mesh.group)

@@ -15,7 +15,14 @@ dtypes, no storage), places them on the production mesh's shape record
 under the port's sharding rules, and sums the bytes of each leaf's block
 on one rank: the counterpart of XLA's ``argument_size_in_bytes`` (every
 rank's blocks have the same shape, as the rules shard only where an axis
-divides). Per variant:
+divides). Then it runs rank 0's step on those meta blocks
+(:func:`step_collectives`) under
+``distribution.collectives.record_collectives``: on a shape record each
+collective records what it would issue on ranks and returns an empty
+meta tensor, so the record's ``collectives`` (``result_bytes``,
+``wire_bytes``, ``counts``, the reference's keys) are exactly what a rank
+of the production mesh issues in one step, and no rank is started. Per
+variant:
 
 * ``baseline``: f32 parameters, FSDP + tensor parallel (``mode="train"``);
   a train shape adds AdamW's two moments (and its step), a prefill or
@@ -26,22 +33,26 @@ divides). Per variant:
 * ``bf16cast``: a train shape's bf16 compute copy, counted beside the
   arguments as ``compute_copy_bytes``;
 * ``moe_a2a``: the MoE blocks' all-to-all dispatch, which moves
-  activations, not resident bytes. The dry run counts no activations, so
-  its counts are the baseline's, and its record says so under ``"note"``.
-  The variant is kept because the reference's ``--variant`` takes it.
+  activations, not resident bytes: its resident counts are the
+  baseline's, its collectives its own (all-to-alls where the baseline
+  has none).
 
 A prefill's cache is made inside the reference's step (an output, not an
 argument); the port counts it with the arguments, as what a rank holds.
 
 The roofline (``launch.hlo_analysis``, at an H100's rates) takes the
-analytic FLOPs as its compute term (the reference's too) and the resident
-bytes read once as its memory term: a lower bound on what a step moves
-(the reference scales XLA's bytes accessed, which has no counterpart
-here). Per-step collectives at production size cannot be counted without
-running 512 ranks, so a record has ``"collectives": null`` and its
-``dominant`` term is picked from compute and memory only.
-``distribution.collectives.record_collectives`` counts them on a run of
-ranks instead.
+analytic FLOPs as its compute term (the reference's too), the resident
+bytes read once as its memory term (a lower bound on what a step moves:
+the reference scales XLA's bytes accessed, which has no counterpart
+here), and the recorded wire bytes as its collective term; ``dominant``
+is the largest of the three. The port has no scan, so its counts are per
+step and the record has no ``collectives_scan_body``. They are the
+collectives the port issues, not those XLA would issue: XLA combines and
+reorders collectives, so the two are not held equal. A step that reads
+a meta tensor's values on the host cannot run on the shape record; its
+record keeps ``"collectives": null`` with the operation under
+``collectives_error``, and its ``dominant`` term is picked from compute
+and memory.
 """
 from __future__ import annotations
 
@@ -168,17 +179,11 @@ def resident_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
     ``batch_bytes``, their sum ``argument_bytes``, and
     ``compute_copy_bytes`` (``bf16cast``'s bf16 copy, train). Built on the
     meta device: nothing is allocated."""
-    from repro_torch.models.model import compute_copy, init_caches, init_params
+    from repro_torch.models.model import compute_copy
     from repro_torch.optim import adamw
 
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     train = shape.kind == "train"
-    serve = variant.startswith("serve_resident") and not train
-    dtype = torch.bfloat16 if variant == "serve_resident_bf16" and not train \
-        else torch.float32
-    params = init_params(torch.Generator(), cfg, dtype=dtype, device=META)
-    psh = SH.param_shardings(params, cfg, mesh, mode="serve" if serve else "train")
+    params, psh = _param_tree(cfg, shape, mesh, variant, torch.Generator(), META)
     out = dict(params_bytes=_block_bytes(params, psh), moments_bytes=0,
                cache_bytes=0, compute_copy_bytes=0)
     if train:
@@ -192,19 +197,138 @@ def resident_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                     tree_leaves(copy), tree_leaves(params), tree_leaves(psh))
                 if c is not p)
     else:
-        caches = init_caches(cfg, shape.global_batch, shape.seq_len, device=META)
-        out["cache_bytes"] = _block_bytes(
-            caches, SH.cache_shardings(caches, cfg, mesh, shape.global_batch))
+        out["cache_bytes"] = _block_bytes(*_cache_tree(cfg, shape, mesh, META))
     baxes = SH.batch_axes(mesh, shape.global_batch)
     batch = 0
     for dims, dt in input_specs(cfg, shape).values():
-        spec = (SH._entry(baxes),) + (None,) * (len(dims) - 1) if dims else ()
-        block = SH.Sharding(mesh, spec).block_shape(dims)
-        batch += int(torch.Size(block).numel()) * dt.itemsize
+        batch += int(torch.Size(_input_block(mesh, baxes, dims)).numel()) * dt.itemsize
     out["batch_bytes"] = batch
     out["argument_bytes"] = (out["params_bytes"] + out["moments_bytes"]
                              + out["cache_bytes"] + batch)
     return out
+
+
+def _param_tree(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, variant: str,
+                gen: torch.Generator, device):
+    """A step's whole parameter tree on ``device`` and its shardings under
+    ``variant``: f32, or bf16 weights under ``serve_resident_bf16``; the
+    serve placement (no FSDP axis) under ``serve_resident*``, off a train
+    shape."""
+    from repro_torch.models.model import init_params
+
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    train = shape.kind == "train"
+    serve = variant.startswith("serve_resident") and not train
+    dtype = torch.bfloat16 if variant == "serve_resident_bf16" and not train \
+        else torch.float32
+    params = init_params(gen, cfg, dtype=dtype, device=device)
+    return params, SH.param_shardings(params, cfg, mesh,
+                                      mode="serve" if serve else "train")
+
+
+def _cache_tree(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, device):
+    """A prefill or decode step's whole caches on ``device`` and their
+    shardings."""
+    from repro_torch.models.model import init_caches
+
+    caches = init_caches(cfg, shape.global_batch, shape.seq_len, device=device)
+    return caches, SH.cache_shardings(caches, cfg, mesh, shape.global_batch)
+
+
+def _input_block(mesh: Mesh, baxes, dims) -> tuple:
+    """A rank's block of a model input of shape ``dims``: its rows of the
+    batch."""
+    spec = (SH._entry(baxes),) + (None,) * (len(dims) - 1) if dims else ()
+    return SH.Sharding(mesh, spec).block_shape(dims)
+
+
+def _batch(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, baxes,
+           gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every model input of ``shape``: uninitialised
+    on a shape record, else drawn whole from ``gen`` (tokens and labels
+    in the vocabulary, features normal) and cut to the rank's rows."""
+    rows = SH.shard_rows(mesh, baxes, shape.global_batch)
+    out = {}
+    for name, (dims, dt) in input_specs(cfg, shape).items():
+        if name == "cache_index":
+            continue
+        if mesh.device.type == "meta":
+            out[name] = torch.empty(_input_block(mesh, baxes, dims), dtype=dt,
+                                    device=mesh.device)
+        elif name == "frontend":
+            out[name] = torch.randn(dims, generator=gen).to(dt)[rows]
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                                      dtype=dt)[rows]
+    return {k: v.to(mesh.device) for k, v in out.items()}
+
+
+def step_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                     variant: str = "baseline", seed: int = 0):
+    """The collectives this rank issues in one step of ``cfg`` at
+    ``shape`` on ``mesh`` under ``variant``, as the reference's
+    ``build_lowered`` builds the step: a train shape runs
+    ``make_train_step`` with AdamW (clip 1.0) on this rank's blocks of
+    the parameters and moments (``bf16cast``: with the bf16 compute copy);
+    a prefill or a decode shape runs the sharded prefill or decode step
+    on this rank's blocks of the parameters (``serve_resident*``: the
+    serve placement, bf16 weights for ``serve_resident_bf16``) and the
+    caches; ``moe_a2a`` switches the MoE blocks to the all-to-all
+    dispatch. The batch is this rank's rows.
+
+    On a shape record (``make_production_mesh``, or any mesh on the meta
+    device with no groups) everything is a meta tensor: nothing is
+    computed or allocated, and each collective records what it would
+    issue. On a mesh of ranks (every rank calls it) the step runs on
+    weights and tokens drawn from ``seed``. Returns the
+    :class:`~repro_torch.distribution.records.CollectiveStats`."""
+    from repro_torch.distribution.collectives import record_collectives
+    from repro_torch.distribution.context import activation_sharding
+    from repro_torch.models.model import (
+        make_decode_step, make_prefill_step, make_train_step)
+    from repro_torch.optim import adamw
+
+    dev = mesh.device
+    made = dev if dev.type == "meta" else torch.device("cpu")  # drawn on the host
+    train = shape.kind == "train"
+    gen = torch.Generator().manual_seed(seed)
+    params, psh = _param_tree(cfg, shape, mesh, variant, gen, made)
+    params = _to(SH.blocks(params, psh), dev)
+    baxes = SH.batch_axes(mesh, shape.global_batch)
+    batch = _batch(cfg, shape, mesh, baxes, gen)
+    ctx = activation_sharding(mesh, baxes, kv_seq_shard=_kv_seq_shard(cfg),
+                              moe_a2a=variant == "moe_a2a")
+    if train:
+        opt = adamw(1e-4, max_grad_norm=1.0)
+        opt_state = opt.init(params)
+        step = make_train_step(
+            cfg, opt, param_shardings_tree=psh,
+            compute_copy_dtype=torch.bfloat16 if variant == "bf16cast" else None)
+        with ctx, record_collectives() as stats:
+            step(params, opt_state, batch)
+        return stats
+    caches, csh = _cache_tree(cfg, shape, mesh, made)
+    caches = _to(SH.blocks(caches, csh), dev)
+    if shape.kind == "prefill":
+        prefill = make_prefill_step(cfg, param_shardings_tree=psh,
+                                    cache_shardings_tree=csh)
+        with ctx, record_collectives() as stats:
+            prefill(params, batch["tokens"], caches,
+                    frontend_feats=batch.get("frontend"))
+        return stats
+    decode = make_decode_step(cfg, param_shardings_tree=psh,
+                              cache_shardings_tree=csh)
+    index = torch.full((), shape.seq_len // 2, dtype=torch.int32, device=dev)
+    with ctx, record_collectives() as stats:
+        decode(params, batch["tokens"], caches, index)
+    return stats
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.to(dev), tree)
 
 
 def run_one(arch: str, shape_name: str, *, multi_pod=False,
@@ -224,22 +348,29 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False,
         "perf_variant": variant,
         "n_devices": mesh.size,
     }
-    if variant == "moe_a2a":
-        rec["note"] = ("same resident bytes as baseline: the all-to-all moves "
-                       "activations, which the dry run does not count")
     try:
         mem = resident_bytes(cfg, shape, mesh, variant)
         mf = model_flops_per_device(cfg, shape, mesh.size)
         af = analytic_hlo_flops_per_device(cfg, shape, mesh.size)
         cost = {"flops": af, "bytes accessed": float(mem["argument_bytes"])}
-        roof = roofline_from(cost, None, mf)
+        t1 = time.time()
+        coll = coll_rec = None
+        try:
+            coll = step_collectives(cfg, shape, mesh, variant)
+            coll_rec = dict(result_bytes=coll.result_bytes,
+                            wire_bytes=coll.wire_bytes, counts=coll.counts)
+        except (NotImplementedError, RuntimeError) as e:
+            # a host read of a meta tensor's values: no count
+            rec["collectives_error"] = f"{type(e).__name__}: {str(e)[:500]}"
+        roof = roofline_from(cost, coll, mf)
         rec.update(
             ok=True,
-            build_s=round(time.time() - t0, 2),
+            build_s=round(t1 - t0, 2),
+            step_s=round(time.time() - t1, 2),
             kv_seq_shard=_kv_seq_shard(cfg),
             period=_period(cfg),
             memory=mem,
-            collectives=None,
+            collectives=coll_rec,
             roofline=roof.as_dict(),
         )
         if verbose:
@@ -249,7 +380,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod=False,
                 f"(params {mem['params_bytes'] / 2**30:.2f}, moments "
                 f"{mem['moments_bytes'] / 2**30:.2f}, caches "
                 f"{mem['cache_bytes'] / 2**30:.2f}), dominant={roof.dominant} "
-                f"(c={roof.compute_s:.3e}s m={roof.memory_s:.3e}s) "
+                f"(c={roof.compute_s:.3e}s m={roof.memory_s:.3e}s "
+                f"k={roof.collective_s:.3e}s) "
                 f"useful={roof.useful_ratio:.2f}",
                 flush=True,
             )

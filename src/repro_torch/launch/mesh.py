@@ -23,8 +23,10 @@ as ``device="cpu"``. On a host with one card every rank shares
 (:mod:`repro_torch.distribution.collectives` stages through the host).
 
 :func:`make_production_mesh` is the reference's 512-device production
-mesh as a shape record only: ``launch.dryrun`` sizes each rank's blocks
-on it under the sharding rules, and no rank is started.
+mesh as a shape record: ``launch.dryrun`` sizes each rank's blocks on
+it under the sharding rules and runs rank 0's step on them, whose
+collectives record themselves without a process group
+(:mod:`repro_torch.distribution.collectives`); no rank is started.
 """
 from __future__ import annotations
 
@@ -156,8 +158,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     from rank 0, with no process group and on no device: a record for the
     sharding rules (``spec_for_param``, ``param_shardings``,
     ``cache_shardings``, ``batch_axes``), which give rank 0's block of
-    each leaf (every rank's has the same shape). Nothing collective may
-    run on it."""
+    each leaf (every rank's has the same shape). A collective on it
+    touches no process group: it records what rank 0 would issue and
+    returns an empty meta tensor of its result's shape
+    (:mod:`repro_torch.distribution.collectives`), so rank 0's step runs
+    on meta tensors and counts its collectives (``launch.dryrun``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return Mesh(axes, shape, coords=(0,) * len(shape), device=torch.device("meta"))

@@ -293,7 +293,8 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     when ``cache_index`` is a vector. Without a cache, ``impl`` picks the
     route: ``"dense"``, ``"chunked"``, ``"pallas"`` (the hand-written
     flash-attention kernel, :mod:`repro_torch.kernels.flash_attention`,
-    forward only) or ``"auto"`` (chunked above 2048 tokens, else dense).
+    forward only) or ``"auto"`` (chunked above 2048 tokens, else dense;
+    dense on the meta device).
 
     ``kv_cache``: ``{"k", "v"}`` of shape (B, C, KH, hd), decode and
     prefill for serving; ``cache_index`` is the number of valid entries
@@ -356,7 +357,10 @@ def _attention_core(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
         from repro_torch.kernels.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=True, window=cfg.attention_window)
-    if impl == "chunked" or (impl == "auto" and q.shape[1] > 2048):
+    # chunking bounds the scores' peak memory, which a meta tensor (the
+    # dry run's shape record) does not have: there "auto" takes the few
+    # ops of the dense form, whose shapes, graph and collectives are the same
+    if impl == "chunked" or (impl == "auto" and q.shape[1] > 2048 and not q.is_meta):
         return chunked_attention(q, k, v, q_offset=0, window=cfg.attention_window)
     if impl in ("auto", "dense"):
         return dense_attention(q, k, v, q_offset=0, window=cfg.attention_window)
@@ -786,14 +790,24 @@ def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
     xe = C.enter_parallel(xt, split.mesh, split.axis) if local else xt
     pbuf = x.new_zeros((p_rows, d)).index_copy(0, dest, xe[order // k])
     rows = None
-    if local:  # this rank's experts' blocks
-        mine = torch.nonzero((block_eid >= lo) & (block_eid < hi))[:, 0]
+    if local:
+        # this rank's experts' blocks, which are contiguous, in a window of
+        # static length (the bound of p_rows for hi - lo experts) from the
+        # first of them; the window's rows past them are zeroed, so they
+        # give zeros, added to rows nothing gathers back
+        n_blocks = p_rows // block_size
+        width = -(-(t * k + (hi - lo) * (block_size - 1)) // block_size)
+        first = torch.searchsorted(block_eid, torch.full(
+            (1,), lo, dtype=block_eid.dtype, device=x.device))
+        mine = first + torch.arange(width, device=x.device)
+        inside = (mine < n_blocks) & (block_eid[mine.clamp(max=n_blocks - 1)] < hi)
+        mine = mine.clamp(max=n_blocks - 1)
         rows = (mine[:, None] * block_size
                 + torch.arange(block_size, device=x.device)).reshape(-1)
-        pbuf, block_eid = pbuf[rows], block_eid[mine] - lo
-    if not pbuf.shape[0]:  # no block routed to this rank's experts
-        out_p = pbuf
-    elif impl == "reference":
+        keep = inside.repeat_interleave(block_size)[:, None].to(x.dtype)
+        pbuf = pbuf[rows] * keep
+        block_eid = (block_eid[mine] - lo).clamp(0, hi - lo - 1)
+    if impl == "reference":
         out_p = grouped_ffn_reference(pbuf, block_eid, params.get("w_gate"),
                                       params["w_up"], params["w_down"],
                                       cfg.activation)
@@ -801,7 +815,7 @@ def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
         out_p = grouped_moe_ffn(pbuf, block_eid, params,
                                 activation=cfg.activation)
     if local:
-        out_p = out_p.new_zeros((p_rows, d)).index_copy(0, rows, out_p)
+        out_p = out_p.new_zeros((p_rows, d)).index_add(0, rows, out_p * keep)
     out_sorted = out_p[dest]
     inv = torch.argsort(order)  # flat choice -> sorted row
     got = out_sorted[inv].reshape(t, k, d)

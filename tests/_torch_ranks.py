@@ -223,16 +223,18 @@ def unflatten(flat):
 
 def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
                wires, env_axis_case):
-    """A 2-stage step on ranks 0-1 for each wire dtype (the other ranks
-    idle), then, on 4 ranks, the (2 x 2) ``env_axis`` step; rank 0
-    returns the assembled gradients. Then serving on stage ranks: the
+    """A 2-stage step on ranks 0-1 for each wire dtype and a fill-drain
+    step (the other ranks idle), then, on 4 ranks, the (2 x 2)
+    ``env_axis`` step under each schedule; rank 0 returns the assembled
+    gradients. Then serving on stage ranks: the
     token ring on 2 and on 4 ranks at each wire dtype (every rank returns
     the logits and its ring), ``ServingService`` on 4 ranks without and
     with ``reference_schedule`` faults; and the launcher on 2 stage ranks
     (``LAUNCH_ARGV`` with a checkpoint directory), then again, resuming
     from its checkpoint. Then the collective recorder: the 1F1B step on
     3 stage ranks under each transport, recorded and not, and two plain
-    transfers of known size."""
+    transfers of known size, and the fill-drain step on the 3 stage
+    ranks."""
     import torch.distributed as dist
 
     from repro_torch.core import pipeline as P
@@ -251,16 +253,26 @@ def stage_runs(rank, world, tmp, params_path, arch, layers, bounds, micro,
         loss, grads = step(local, tok, lab)
         out[wire] = (float(loss), P.gather_stage_tree(grads, params, cfg,
                                                       bounds, mesh))
+    if mesh.coords is not None:  # fill-drain, and its loss alone
+        fd = P.PipelineConfig(schedule="fill_drain", compute_dtype="float32")
+        local = P.stage_params(params, cfg, bounds, mesh.axis_index("stage"))
+        loss, grads = P.pipeline_step_fn(cfg, bounds, micro, pipe=fd,
+                                         mesh=mesh)(local, tok, lab)
+        out["fd"] = (float(loss), P.gather_stage_tree(grads, params, cfg,
+                                                      bounds, mesh))
+        out["fd_loss"] = float(P.pipeline_loss_fn(cfg, bounds, micro, pipe=fd,
+                                                  mesh=mesh)(local, tok, lab))
     dist.barrier()
     if env_axis_case and world == 4:
         mesh4 = make_stage_env_mesh(2, 2, device="cpu")
-        pipe = P.PipelineConfig(compute_dtype="float32")
-        step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe, mesh=mesh4,
-                                  env_axis="env")
         local = P.stage_params(params, cfg, bounds, mesh4.axis_index("stage"))
-        loss, grads = step(local, tok, lab)
-        out["env"] = (float(loss), P.gather_stage_tree(grads, params, cfg,
-                                                       bounds, mesh4))
+        for key, sched in (("env", "1f1b"), ("fd_env", "fill_drain")):
+            pipe = P.PipelineConfig(schedule=sched, compute_dtype="float32")
+            step = P.pipeline_step_fn(cfg, bounds, micro, pipe=pipe, mesh=mesh4,
+                                      env_axis="env")
+            loss, grads = step(local, tok, lab)
+            out[key] = (float(loss), P.gather_stage_tree(grads, params, cfg,
+                                                         bounds, mesh4))
     if world == 4:
         ring4 = make_stage_mesh(4, device="cpu")
         out["serve"] = {}
@@ -286,7 +298,7 @@ def recorded_runs(cfg, params, tok, lab, micro, mesh2, mesh4):
     (ranks 0-2) under ``transport="sync"`` and ``"overlap"``, each
     recorded and then run again unrecorded (its per-tick counts, and
     whether the two runs' loss and this rank's gradients are bit for bit
-    equal); an all-gather of a (4, 8) f32 block over the 2-rank mesh and
+    equal), and the fill-drain step (its counts); an all-gather of a (4, 8) f32 block over the 2-rank mesh and
     an all-reduce of a (4, 4) f32 tensor over the 4-rank one."""
     import torch
 
@@ -311,6 +323,12 @@ def recorded_runs(cfg, params, tok, lab, micro, mesh2, mesh4):
                 torch.equal(a, b) for a, b in zip(_leaves(grads), _leaves(grads0)))
             out[tr] = dict(per_tick=pipeline_collective_counts(st, ticks),
                            counts=dict(st.counts), bitwise=same)
+        step = P.pipeline_step_fn(cfg, RECORD_BOUNDS, micro, mesh=mesh3,
+                                  pipe=P.PipelineConfig(schedule="fill_drain",
+                                                        compute_dtype="float32"))
+        with C.record_collectives() as st:
+            step(local, tok, lab)
+        out["fill_drain"] = dict(counts=dict(st.counts))
     with C.record_collectives() as st:
         if mesh2.coords is not None:
             C.all_gather(torch.ones(4, 8), mesh2, "stage", dim=0)
@@ -502,7 +520,8 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
     sharded decode steps (a cache split by length, then by heads; Mamba2
     and Jamba on their SSM heads and conv channels); (f)
     ``load_pytree(shardings=)``; (g) ``launch.train`` with ``--data-par 2
-    --model-par 2``. Rank 0 returns the gathered trees."""
+    --model-par 2``; (h) the collectives each rank records in the dry
+    run's steps (``DRY_CASES``). Rank 0 returns the gathered trees."""
     import dataclasses
 
     import numpy as np
@@ -648,7 +667,35 @@ def tensor_parallel_runs(rank, world, tmp, stablelm_path, moe_path, a2a_cf):
                                    "--ckpt", os.path.join(tmp, "trained.npz")])
     out["launcher"] = dict(losses=res["losses"])
     lap("g")
+    # (h) the dry run's step on ranks: each rank's recorded collectives
+    out["dry"] = {name: dry_step(name, mesh).as_dict() for name, *_ in DRY_CASES}
+    lap("h")
     return out
+
+
+# the dry run's step (launch.dryrun.step_collectives) recorded on the
+# (2 x 2) ranks and on a (2 x 2) shape record: (name, arch, overrides,
+# (shape name, seq, batch, kind), variant)
+DRY_CASES = [
+    ("train", "qwen3-moe-30b-a3b", {"num_kv_heads": 1}, ("tp", 32, 4, "train"),
+     "baseline"),
+    ("train-a2a", "qwen3-moe-30b-a3b", {"num_kv_heads": 1}, ("tp", 32, 4, "train"),
+     "moe_a2a"),
+    ("decode", "qwen3-moe-30b-a3b", {"num_kv_heads": 1}, ("tpd", 16, 4, "decode"),
+     "baseline"),
+    ("decode-jamba", "jamba-v0.1-52b", {}, ("tpd", 16, 4, "decode"), "baseline"),
+]
+
+
+def dry_step(name, mesh):
+    """``step_collectives`` of the ``DRY_CASES`` entry ``name`` on
+    ``mesh``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import step_collectives
+
+    _, arch, over, shape, variant = next(c for c in DRY_CASES if c[0] == name)
+    return step_collectives(tp_config(arch, **over), ShapeConfig(*shape), mesh,
+                            variant)
 
 
 # the sharded decode of SSM and hybrid configs: (arch, (data, model))
@@ -1004,7 +1051,10 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
     norm and its updated shares (gathered) held to the one-process
     launcher step's on the same inputs; then the (2 x 2) stage x env step
     at ``env_depth`` in f32 against the in-process step (the 1-D stage
-    mesh's result). Each timed step runs under ``record_collectives``
+    mesh's result), and the (2 x 2) fill-drain step there against the
+    in-process fill-drain and against that 1F1B step (``vs_1f1b``: the
+    loss's relative difference and :func:`tree_excess` at the reference's
+    2e-5). Each timed step runs under ``record_collectives``
     (``collectives``: one record a step)."""
     import numpy as np
     import torch
@@ -1022,7 +1072,11 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
                 for _ in range(2))
     out = {"launches": {}}
 
-    def case(depth, bounds, pipe, mesh, env_axis, n_steps, update=False):
+    def case(depth, bounds, pipe, mesh, env_axis, n_steps, update=False,
+             keep=False, against=None):
+        """The case's result and launches, and with ``keep`` rank 0's loss
+        and gathered gradients; ``against`` (such a pair) is held to
+        rank 0's."""
         cfg = executed_config(arch, depth, reduced=False)
         tk, lb = tok % cfg.vocab_size, lab % cfg.vocab_size
         params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -1045,6 +1099,13 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
         full = P.gather_stage_tree(grads, params, cfg, bounds, mesh)
         res = dict(seconds=secs, transport=transport(mesh), loss=float(loss),
                    collectives=stats)
+        kept = None
+        if full is not None and mesh.axis_index(mesh.axis_names[-1]) == 0:
+            kept = (float(loss), full) if keep else None
+            if against is not None:
+                res["vs_1f1b"] = dict(
+                    loss_rel=abs(float(loss) - against[0]) / abs(against[0]),
+                    excess=tree_excess(full, against[1], FD_RTOL))
         del grads
         new = None
         opt = adamw(RUN.LR, max_grad_norm=1.0)
@@ -1076,16 +1137,41 @@ def card_stage(rank, world, tmp, arch, depth, bounds, micro, rows, seq, steps,
             _restore(saved)  # not the path's
         del full, local, params, new
         torch.cuda.empty_cache()
-        return res, launches
+        return res, launches, kept
 
     pipe = P.PipelineConfig(stage_impl="pallas", compute_dtype="bfloat16")
-    out["stage"], out["launches"]["stage"] = case(
+    out["stage"], out["launches"]["stage"], _ = case(
         depth, tuple(bounds), pipe, make_stage_mesh(len(bounds)), None, steps,
         update=True)
+    mesh22 = make_stage_env_mesh(2, 2)
     pipe = P.PipelineConfig(stage_impl="pallas", compute_dtype="float32")
-    out["stage_env"], out["launches"]["stage_env"] = case(
-        env_depth, tuple(env_bounds), pipe, make_stage_env_mesh(2, 2), "env", 1)
+    out["stage_env"], out["launches"]["stage_env"], one_f = case(
+        env_depth, tuple(env_bounds), pipe, mesh22, "env", 1, keep=True)
+    pipe = P.PipelineConfig(schedule="fill_drain", stage_impl="pallas",
+                            compute_dtype="float32")
+    out["fill_drain"], out["launches"]["fill_drain"], _ = case(
+        env_depth, tuple(env_bounds), pipe, mesh22, "env", 1, against=one_f)
     return out
+
+
+# fill-drain against 1F1B on the same ranks: the reference's gate for the
+# pair (tests/test_pipeline_schedule.py), loss 2e-5 relative, gradients
+# rtol 2e-5 and atol 2e-5 max|ref|
+FD_RTOL = 2e-5
+
+
+def tree_excess(a, b, rtol):
+    """The largest over leaves of ``max(|a - b| - rtol |b|) / max|b|``:
+    at most ``rtol`` where every element of every leaf is within ``rtol
+    |b| + rtol max|b|`` of ``b``."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.double(), y.double()
+        top = max(float(y.abs().max()), 1e-30)
+        worst = max(worst, float(((x - y).abs() - rtol * y.abs()).max()) / top)
+    return worst
 
 
 def card_serve_stage(rank, world, tmp, arch, bounds, serve, trace, device="cuda",

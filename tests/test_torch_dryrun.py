@@ -18,6 +18,17 @@ this process) computes the reference's values:
 The port's values come from the meta device and the production mesh's
 shape record in this process. FLOPs are held at ``rel=1e-12`` (the same
 arithmetic), bytes exactly.
+
+The collective term has no JAX counterpart to hold it to (XLA combines
+and reorders collectives; the port's counts are what it issues, and
+``tests/test_torch_tensor_parallel.py`` holds the meta step's record to
+what four gloo ranks issue). Here every arch's decode step, and train,
+prefill and variant steps of a few archs, run on the production shape
+records: each record carries positive counts, result and wire bytes, a
+collective term above zero and the largest of three terms as its
+``dominant``; ``moe_a2a`` records two all-to-alls per MoE layer where
+the baseline records none; and the combinations whose step cannot run on
+meta tensors are exactly ``COLLECTIVES_ERRORS``.
 """
 import json
 import os
@@ -34,11 +45,22 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config, get_shape  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.models.model import signature  # noqa: E402
 
 FLOPS_REL = 1e-12
 BYTE_ARCHS = ("qwen2.5-3b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b")
 BYTE_SHAPES = ("train_4k", "decode_32k")
 MAIN_LIMIT_S = 10.0
+# (arch, shape, variant) whose step reads a meta tensor's values on the
+# host, so that its record has no collective count: none (every
+# combination of ``--all`` on both meshes and under every variant runs)
+COLLECTIVES_ERRORS = frozenset()
+# (arch, shape, variant, multi_pod) run through ``run_one`` below
+COUNT_CASES = ([(a, "decode_32k", "baseline", False) for a in ARCH_IDS]
+               + [("stablelm-1.6b", "train_4k", "baseline", False),
+                  ("stablelm-1.6b", "train_4k", "bf16cast", True),
+                  ("qwen2.5-3b", "prefill_32k", "serve_resident_bf16", True),
+                  ("mamba2-370m", "long_500k", "serve_resident", False)])
 
 REFERENCE = """
 import json
@@ -162,10 +184,10 @@ def test_run_one_writes_the_reference_keys(tmp_path):
                 "ok", "memory", "roofline", "collectives"):
         assert key in rec, key
     assert rec["mesh"] == "2x16x16" and rec["n_devices"] == 512
-    assert rec["collectives"] is None
+    assert set(rec["collectives"]) == {"result_bytes", "wire_bytes", "counts"}
     ref_keys = set(Roofline(0, 0, 0, 0, 0, 0, "compute").as_dict())
     assert set(rec["roofline"]) == ref_keys
-    assert rec["roofline"]["dominant"] in ("compute", "memory")
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert rec["roofline"]["flops_per_device"] == pytest.approx(
         DR.analytic_hlo_flops_per_device(get_config("qwen3-moe-30b-a3b"),
                                          get_shape("decode_32k"), 512), rel=FLOPS_REL)
@@ -176,10 +198,48 @@ def test_run_one_writes_the_reference_keys(tmp_path):
                       verbose=False, variant="serve_resident")
     assert long["variant"] == "qwen2.5-3b-sw8192" and long["perf_variant"] == "serve_resident"
     assert (tmp_path / "qwen2.5-3b__long_500k__16_16__serve_resident.json").is_file()
-    assert "note" not in rec
+    # the all-to-all moves activations: the resident bytes are the
+    # baseline's, the collectives are not
     a2a = DR.run_one("qwen3-moe-30b-a3b", "decode_32k", multi_pod=True,
                      out_dir=os.fspath(tmp_path), verbose=False, variant="moe_a2a")
-    assert a2a["memory"] == rec["memory"] and "baseline" in a2a["note"]
+    assert a2a["memory"] == rec["memory"]
+    assert "all-to-all" not in rec["collectives"]["counts"]
+    cfg = get_config("qwen3-moe-30b-a3b")
+    moe_layers = sum(is_moe for _, is_moe, _ in signature(cfg))
+    assert moe_layers == cfg.num_layers
+    # one exchange out and one back per MoE layer of the decode step
+    assert a2a["collectives"]["counts"]["all-to-all"] == 2 * moe_layers
+
+
+@pytest.mark.parametrize("arch,shape,variant,multi_pod", COUNT_CASES)
+def test_run_one_counts_the_steps_collectives(tmp_path, arch, shape, variant,
+                                              multi_pod):
+    """Rank 0's step on the production shape record: positive counts,
+    result and wire bytes per kind; the roofline's collective term is
+    the wire bytes at the link's rate, and ``dominant`` the largest of
+    the three terms."""
+    from repro_torch.launch.hlo_analysis import NVLINK_BW
+
+    rec = DR.run_one(arch, shape, multi_pod=multi_pod, out_dir=os.fspath(tmp_path),
+                     verbose=False, variant=variant)
+    assert rec["ok"], rec.get("error")
+    failed = (arch, shape, variant) in COLLECTIVES_ERRORS
+    assert ("collectives_error" in rec) == failed, rec.get("collectives_error")
+    if failed:
+        assert rec["collectives"] is None
+        return
+    coll, roof = rec["collectives"], rec["roofline"]
+    assert set(coll["counts"]) == set(coll["result_bytes"]) == set(coll["wire_bytes"])
+    for kind, n in coll["counts"].items():
+        assert n > 0 and coll["result_bytes"][kind] > 0, kind
+        assert coll["wire_bytes"][kind] > 0, kind
+    wire = sum(coll["wire_bytes"].values())
+    assert roof["wire_bytes_per_device"] == pytest.approx(wire, rel=FLOPS_REL)
+    assert roof["collective_s"] == pytest.approx(wire / NVLINK_BW, rel=FLOPS_REL)
+    assert roof["collective_s"] > 0
+    terms = {"compute": roof["compute_s"], "memory": roof["memory_s"],
+             "collective": roof["collective_s"]}
+    assert roof["dominant"] == max(terms, key=terms.get)
 
 
 def test_main_exits_zero_quickly(tmp_path):

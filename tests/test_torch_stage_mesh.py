@@ -12,6 +12,15 @@ the 1-D step, at the JAX package's own gate for that pair
 (``tests/test_population_mesh.py``: loss 1e-6 relative, gradients
 ``rtol 1e-5``). Weights are the JAX package's, carried.
 
+Fill-drain on stage ranks, in the same group: the f32 fill-drain step on
+the 2 ranks bit for bit the in-process fill-drain (its loss alone,
+``pipeline_loss_fn(mesh=)``, too), within the in-process gates of JAX's
+fill-drain on ``make_stage_mesh(2)`` (same JAX subprocess), and against
+1F1B on the same ranks at the reference's gate for that pair
+(``tests/test_pipeline_schedule.py``: loss 2e-5 relative, gradients
+``rtol 2e-5``, ``atol 2e-5 max|ref|``); on the (2 x 2) stage x env mesh
+against the 1-D fill-drain at the env gates.
+
 Serving on stage ranks, in the same group: the token ring
 (``PipelineRunner(mesh=)``, ``pipeline_serve_fns(mesh=)``) on 2 and on 4
 ranks, f32 and bf16 wire, a prefill and one decode tick, bit for bit the
@@ -36,8 +45,9 @@ in the same group, the counterpart of ``tests/test_hlo_analysis.py``'s
 reduced Qwen2.5-3B on 3 stage ranks issues no more collectives per tick
 under ``transport="overlap"`` than under ``"sync"``, some of them
 ``collective-permute`` hops, and the recorded run is bit for bit the
-unrecorded one; an all-gather of a 256 B result over 2 ranks records
-128 wire bytes and an all-reduce of 64 B over 4 records 96.
+unrecorded one; the fill-drain step on the same 3 ranks issues the
+hops its tick loop implies; an all-gather of a 256 B result over 2 ranks
+records 128 wire bytes and an all-reduce of 64 B over 4 records 96.
 """
 import dataclasses
 import os
@@ -117,6 +127,13 @@ for wire in {wires!r}:
     for k, v in (('prefill', lg), ('decode', dl), ('k', caches['k']),
                  ('v', caches['v'])):
         out['serve|' + wire + '|' + k] = np.asarray(v)
+step = pipeline_step_fn(cfg, make_stage_mesh(2), {bounds!r}, {micro},
+                        pipe=PipelineConfig(schedule='fill_drain',
+                                            compute_dtype='float32'))
+loss, grads = jax.jit(step)(params, tok, lab)
+out.update({{'fd|' + k: v for k, v in TR.flatten(
+    jax.tree.map(np.asarray, grads)).items()}})
+out['fd|__loss__'] = np.asarray(loss)
 np.savez({out!r}, **out)
 print('JAX_STAGE_OK')
 """
@@ -163,6 +180,9 @@ def runs(tmp_path_factory):
                                               compute_dtype="float32",
                                               wire_dtype=wire))
             local[wire] = step(params, tok, lab)
+        local["fd"] = TPIPE.pipeline_step_fn(
+            _cfg(), BOUNDS, MICRO, pipe=TPIPE.PipelineConfig(
+                schedule="fill_drain", compute_dtype="float32"))(params, tok, lab)
         cfg = _cfg()
         serve = {(n, wire): TR.serve_pass(cfg, params, TR.SERVE_BOUNDS[n], wire)
                  for n in (2, 4) for wire in WIRES}
@@ -221,6 +241,68 @@ def test_two_stage_ranks_match_jax_stage_mesh(runs, wire):
         for k, a in port.items():
             rel = float(np.linalg.norm(a - jref[k]) / np.linalg.norm(jref[k]))
             assert rel <= WIRE_GRAD_RTOL, (k, rel)
+
+
+def _close(got, ref, rtol, err_msg=""):
+    """Each gradient leaf within ``rtol`` relative and ``rtol`` of the
+    reference leaf's max absolute value."""
+    for (k, a), (_, b) in zip(_flat_np(got).items(), _flat_np(ref).items()):
+        b = np.asarray(b, np.float64)
+        np.testing.assert_allclose(np.asarray(a, np.float64), b, rtol=rtol,
+                                   atol=rtol * max(np.abs(b).max(), 1e-8),
+                                   err_msg=err_msg + k)
+
+
+def test_fill_drain_on_stage_ranks_bitwise_in_process(runs):
+    """Fill-drain with stage k on rank k (each rank keeps its stage's
+    graph of every microbatch and pulls the cotangents through them in
+    reverse order): loss and every gradient leaf equal the in-process
+    fill-drain's (autograd of the whole forward) bit for bit, and the
+    loss alone (``pipeline_loss_fn(mesh=)``) its loss."""
+    loss, grads = runs["ranks"][0]["fd"]
+    ref_loss, ref = runs["local"]["fd"]
+    assert loss == float(ref_loss) == runs["ranks"][0]["fd_loss"]
+    assert runs["ranks"][1]["fd"][0] == loss and runs["ranks"][1]["fd"][1] is None
+    for (ka, a), (kb, b) in zip(_flat_np(grads).items(), _flat_np(ref).items()):
+        assert ka == kb and np.array_equal(a, b), ka
+    assert "fd" not in runs["ranks"][2]
+
+
+def test_fill_drain_on_stage_ranks_matches_jax_stage_mesh(runs):
+    """The 2-rank fill-drain against JAX's fill-drain ``pipeline_step_fn``
+    on ``make_stage_mesh(2)``, at the in-process step's gates."""
+    loss, grads = runs["ranks"][0]["fd"]
+    jref = {k.split("|", 1)[1]: v for k, v in runs["jax"].items()
+            if k.startswith("fd|")}
+    port = _flat_np(grads)
+    assert set(port) == set(jref) - {"__loss__"}
+    np.testing.assert_allclose(loss, float(jref["__loss__"]), rtol=RTOL)
+    for k, a in port.items():
+        r = np.asarray(jref[k], np.float64)
+        np.testing.assert_allclose(np.asarray(a, np.float64), r, rtol=RTOL,
+                                   atol=RTOL * max(np.abs(r).max(), 1e-8),
+                                   err_msg=k)
+
+
+def test_fill_drain_matches_1f1b_on_the_same_ranks(runs):
+    """The reference's oracle for 1F1B on a mesh: fill-drain on the same
+    2 stage ranks (f32 hops both), loss 2e-5 relative, every gradient
+    ``rtol 2e-5``, ``atol 2e-5 max|ref|``."""
+    loss, grads = runs["ranks"][0]["float32"]
+    ref_loss, ref = runs["ranks"][0]["fd"]
+    assert abs(loss - ref_loss) <= RTOL * abs(ref_loss)
+    _close(grads, ref, RTOL)
+
+
+def test_fill_drain_stage_env_matches_stage_mesh(runs):
+    """Fill-drain on the (2 x 2) stage x env ranks, microbatch rows split
+    over env and loss and gradients averaged over it, against the 1-D
+    fill-drain."""
+    loss, grads = runs["ranks"][0]["fd_env"]
+    ref_loss, ref = runs["ranks"][0]["fd"]
+    assert abs(loss - ref_loss) <= ENV_LOSS_RTOL * abs(ref_loss)
+    _close(grads, ref, ENV_GRAD_RTOL)
+    assert runs["ranks"][1]["fd_env"][0] == loss
 
 
 def test_stage_env_step_matches_stage_mesh(runs):
@@ -381,16 +463,18 @@ def test_stage_params_cover_the_tree(arch, bounds):
 
 
 def test_mesh_refusals():
-    """fill-drain does not cross processes; ``env_axis`` needs a mesh with
-    that axis; the stage axis must have a rank per stage; a mesh larger
-    than the world raises."""
+    """fill-drain on a mesh refuses a mixed-period config, as in one
+    process; ``env_axis`` needs a mesh with that axis; the stage axis must
+    have a rank per stage; a mesh larger than the world raises."""
     cfg = _cfg()
     stage2 = Mesh(("stage",), (2,), (0,))
-    with pytest.raises(NotImplementedError):
-        TPIPE.pipeline_step_fn(cfg, BOUNDS, MICRO, pipe=TPIPE.PipelineConfig(
+    mixed = executed_config("jamba-v0.1-52b", 4, reduced=True)
+    assert TPIPE.M.find_period(TPIPE.M.signature(mixed)) > 1
+    with pytest.raises(ValueError, match="period"):
+        TPIPE.pipeline_step_fn(mixed, (2, 4), MICRO, pipe=TPIPE.PipelineConfig(
             schedule="fill_drain"), mesh=stage2)
-    with pytest.raises(NotImplementedError):
-        TPIPE.pipeline_loss_fn(cfg, BOUNDS, MICRO, mesh=stage2)
+    with pytest.raises(ValueError, match="period"):
+        TPIPE.pipeline_loss_fn(mixed, (2, 4), MICRO, mesh=stage2)
     with pytest.raises(ValueError, match="env_axis"):
         TPIPE.pipeline_step_fn(cfg, BOUNDS, MICRO, env_axis="env")
     with pytest.raises(ValueError, match="env_axis"):
@@ -422,6 +506,27 @@ def test_overlap_issues_no_more_collectives_than_sync(runs):
     assert _cfg().tie_embeddings
     assert sends == [MICRO + 1, 2 * MICRO, MICRO + 1]
     assert "sync" not in runs["ranks"][3]["recorded"]  # outside the 3-rank mesh
+
+
+def test_fill_drain_issues_the_hops_of_its_tick_loop(runs):
+    """Fill-drain on 3 stage ranks (M microbatches, S stages): stage
+    ``i`` sends one forward hop per microbatch to stage ``i + 1`` when
+    ``i < S - 1`` and one backward hop per microbatch to stage ``i - 1``
+    when ``i > 0``, and with tied embeddings the last stage sends its
+    head gradient to the first and the first the summed gradient back:
+    ``M [i < S-1] + M [i > 0] + [tied, i in (0, S-1)]`` sends; the loss
+    is one all-reduce over the stage axis."""
+    n = len(TR.RECORD_BOUNDS)
+    tied = _cfg().tie_embeddings
+
+    def sends(i):
+        return (MICRO * (i < n - 1) + MICRO * (i > 0)
+                + int(tied and n > 1 and i in (0, n - 1)))
+
+    for i in range(n):
+        counts = runs["ranks"][i]["recorded"]["fill_drain"]["counts"]
+        assert counts == {"collective-permute": sends(i), "all-reduce": 1}, i
+    assert "fill_drain" not in runs["ranks"][3]["recorded"]
 
 
 def test_recorded_transfers_carry_the_reference_wire_bytes(runs):

@@ -59,6 +59,12 @@ weights of the JAX comparisons are carried by ``repro_torch.weights``.
   shape record of the mesh: the per-rank bytes of reduced
   Qwen3-MoE-30B-A3B's parameters and AdamW state equal the bytes of the
   blocks each rank holds after (a)'s sharded step.
+* (h) The dry run's step (``launch.dryrun.step_collectives``: a sharded
+  train step with AdamW, the same with ``moe_a2a``, and decode steps of
+  reduced Qwen3-MoE-30B-A3B and Jamba) on the four ranks, each rank's
+  collectives recorded, against the same step on the meta device over a
+  (2 x 2) shape record: counts, result bytes, wire bytes and group
+  sizes equal, kind by kind.
 
 Tolerances:
 - f32 steps (a), (d): loss ``rtol 1e-5`` (measured at most 8e-8); updated
@@ -486,3 +492,19 @@ def test_dryrun_bytes_equal_the_blocks_each_rank_holds(runs):
         held = r["train"][name]["held_bytes"]
         assert np.isfinite(r["train"][name]["loss"])
         assert held == {"params": want["params_bytes"], "moments": want["moments_bytes"]}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in TR.DRY_CASES])
+def test_dry_step_records_what_each_rank_issues(runs, case):
+    """The meta step over a (2 x 2) shape record issues no transfer, and
+    records exactly the collectives each of the four ranks issued in the
+    same step: kind by kind, the counts, result bytes, wire bytes and
+    group sizes."""
+    from repro_torch.launch.mesh import Mesh
+
+    record = Mesh(("data", "model"), (2, 2), coords=(0, 0), device=torch.device("meta"))
+    want = TR.dry_step(case, record).as_dict()
+    assert want["counts"] and all(n > 0 for n in want["counts"].values())
+    assert ("all-to-all" in want["counts"]) == case.endswith("a2a")
+    for r in runs["ranks"]:
+        assert r["dry"][case] == want
