@@ -2878,9 +2878,11 @@ def _check_launcher_result(torch, res, args):
 
 def _log_kernels(torch, prof, label, n=8):
     """Log the top device kernels of a profile by self device time; return
-    every device kernel's record."""
+    every device kernel's record (not the device mirrors of the program's
+    spans, which ``repro_torch.tracing`` opens under the profiler)."""
     cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    kern = [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:n]:
         log(f"[trace]   {label} kernel {e.key[:70]}: {e.count}x, "
             f"{e.self_device_time_total / 1e3:.3f} ms device")

@@ -60,6 +60,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -417,8 +418,11 @@ class _Stage:
                                s.blk_impl)
             if not self.last:
                 return y
-            head = s.head_leaf.T if s.cfg.tie_embeddings else s.head_leaf
-            li = _logits_loss(s.cfg, y, s.norm_leaf, head, s.lab_mb[mb])
+            with tracing.span("head.loss", phase="forward"):
+                mark = tracing.mark_in(y, "head.loss")
+                head = s.head_leaf.T if s.cfg.tie_embeddings else s.head_leaf
+                li = tracing.mark_out(
+                    _logits_loss(s.cfg, y, s.norm_leaf, head, s.lab_mb[mb]), mark)
         s.loss_acc = s.loss_acc + li.detach()
         return li
 
@@ -452,11 +456,12 @@ class _Stage:
         s = self.step
         if not 0 <= mf < s.m_micro:
             return None
-        x0 = self._input(mf, x_in)
-        self.stash[mf % s.depth] = x0
-        if self.last:
-            return None
-        return self._run(x0, mf, grad=False).to(s.wdtype)
+        with tracing.span("pipeline.forward_slot", stage=self.i, mb=mf):
+            x0 = self._input(mf, x_in)
+            self.stash[mf % s.depth] = x0
+            if self.last:
+                return None
+            return self._run(x0, mf, grad=False).to(s.wdtype)
 
     def backward(self, mbk: int, g_in: Optional[Tensor]) -> Optional[Tensor]:
         """Microbatch ``mbk``'s 1F1B backward slot; returns the hop to the
@@ -464,9 +469,13 @@ class _Stage:
         s = self.step
         if not 0 <= mbk < s.m_micro:
             return None
-        x_sv = self.stash[mbk % s.depth].detach().requires_grad_(True)
-        self.stash[mbk % s.depth] = None
-        return self._pull(mbk, x_sv, self._run(x_sv, mbk), g_in)
+        with tracing.span("pipeline.backward_slot", stage=self.i, mb=mbk):
+            x_sv = self.stash[mbk % s.depth].detach().requires_grad_(True)
+            self.stash[mbk % s.depth] = None
+            with tracing.span("pipeline.recompute", stage=self.i, mb=mbk):
+                out = self._run(x_sv, mbk)
+            with tracing.span("pipeline.grad", stage=self.i, mb=mbk):
+                return self._pull(mbk, x_sv, out, g_in)
 
     def fd_forward(self, mf: int, x_in: Optional[Tensor],
                    grad: bool = True) -> Optional[Tensor]:
@@ -594,6 +603,10 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
     depth = 2 * (s_stages - 1) + 1  # activation-stash ring depth
 
     def fn(params, tokens, labels):
+        with tracing.span("pipeline.step"):
+            return ticks(params, tokens, labels)
+
+    def ticks(params, tokens, labels):
         tok_mb, lab_mb = _microbatches(tokens, labels, m_micro)
         step = _Step(cfg, params, tok_mb, lab_mb, m_micro, depth, pipe,
                      True, True)
@@ -606,8 +619,9 @@ def pipeline_step_fn(cfg: ModelConfig, boundaries: Sequence[int],
         for t in range(n_ticks):
             # the hops (Eq. 1 forward, Eq. 4 gradient): last tick's
             # wire-dtype outputs arrive in the compute dtype
-            x_in = [None if b is None else b.to(step.cdtype) for b in buf_x]
-            g_in = [None if b is None else b.to(step.cdtype) for b in buf_g]
+            with tracing.span("pipeline.hop"):
+                x_in = [None if b is None else b.to(step.cdtype) for b in buf_x]
+                g_in = [None if b is None else b.to(step.cdtype) for b in buf_g]
             buf_x, buf_g = [None] * s_stages, [None] * s_stages
             for i, st in enumerate(stages):
                 y = st.forward(t - i, x_in[i])

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.agents import loops as LP
@@ -165,11 +166,15 @@ def make_pipeline_train_step(cfg: ModelConfig, boundaries, n_microbatches: int,
                                mesh=mesh, stage_axis=stage_axis)
 
     def train_step(params, opt_state, tokens, labels):
-        loss, grads = step_fn(params, tokens, labels)
-        norm = global_norm(grads, None if mesh is None else stage_shardings(
-            params, cfg, boundaries, mesh, stage_axis))
-        ups, opt_state = opt.update(grads, opt_state, params, grad_norm=norm)
-        return apply_updates(params, ups), opt_state, loss, norm
+        with tracing.span("train.step"):
+            loss, grads = step_fn(params, tokens, labels)
+            with tracing.span("optim.clip_norm"):
+                norm = global_norm(grads, None if mesh is None else stage_shardings(
+                    params, cfg, boundaries, mesh, stage_axis))
+            with tracing.span("optim.update"):
+                ups, opt_state = opt.update(grads, opt_state, params, grad_norm=norm)
+                params = apply_updates(params, ups)
+        return params, opt_state, loss, norm
 
     return train_step
 

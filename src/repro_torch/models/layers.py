@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distribution import collectives as C
@@ -785,6 +786,8 @@ def moe_apply_dropless(params, x: Tensor, cfg: ModelConfig, *,
     gates, ids, aux = _moe_route(params, xt, cfg, split)
     order, dest, p_rows, block_eid = dropless_layout(ids, m.num_experts,
                                                      block_size)
+    tracing.count("moe.rows_routed", t * k)
+    tracing.count("moe.rows_computed", p_rows)
     lo, hi = _expert_range(split, m.num_experts)
     local = hi - lo < m.num_experts
     xe = C.enter_parallel(xt, split.mesh, split.axis) if local else xt

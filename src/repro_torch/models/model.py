@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distribution import collectives as C
@@ -119,14 +120,18 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
         raise ValueError(f"unknown block impl {impl!r}; have {BLOCK_IMPLS}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     half_impl = "auto" if impl == "pallas_stage" else impl
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "A":
-        out, new_kv = L.attention_apply(
-            p["attn"], h, cfg, positions=positions,
-            kv_cache=None if cache is None else {"k": cache["k"], "v": cache["v"]},
-            cache_index=cache_index, impl=half_impl, plan=plan, split=split)
-        new_cache = {} if new_kv is None else new_kv
+        with tracing.span("block.attention", phase="forward"):
+            mark = tracing.mark_in(x, "block.attention")
+            h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            out, new_kv = L.attention_apply(
+                p["attn"], h, cfg, positions=positions,
+                kv_cache=None if cache is None else {"k": cache["k"], "v": cache["v"]},
+                cache_index=cache_index, impl=half_impl, plan=plan, split=split)
+            new_cache = {} if new_kv is None else new_kv
+            x = tracing.mark_out(x + out, mark)
     else:
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
         out, (new_ssm, new_conv) = S.mamba_apply(
             p["mamba"], h, cfg,
             ssm_state=None if cache is None else cache["ssm"],
@@ -134,31 +139,37 @@ def block_apply(p, x: Tensor, cfg: ModelConfig, slot_sig, *, positions,
             use_pallas=half_impl == "pallas",
             split=split if split is not None and split.ssm else None)
         new_cache = {} if cache is None else {"ssm": new_ssm, "conv": new_conv}
-    x = x + out
+        x = x + out
     if has_mlp:
         if is_moe:
             from repro_torch.models.moe_a2a import a2a_applicable, moe_apply_a2a
 
-            h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-            if ctx.moe_a2a_enabled() and a2a_applicable(cfg):
-                y, aux = moe_apply_a2a(p["moe"], h2, cfg)
-            elif cfg.moe.dispatch == "dropless":
-                y, aux = L.moe_apply_dropless(p["moe"], h2, cfg, split=split)
-            else:
-                y, aux = L.moe_apply(p["moe"], h2, cfg, split=split)
-            x = x + y
-        elif impl == "pallas_stage":
-            from repro_torch.kernels.stage_block import stage_mlp_block
-
-            if split is not None and split.mlp:
-                raise NotImplementedError(
-                    "the stage kernel fuses a whole MLP half-block; it does not "
-                    "run on FFN columns split over the model axis")
-            x = stage_mlp_block(p["norm2"], p["mlp"], x,
-                                activation=cfg.activation, eps=cfg.norm_eps)
+            with tracing.span("block.moe", phase="forward"):
+                mark = tracing.mark_in(x, "block.moe")
+                h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+                if ctx.moe_a2a_enabled() and a2a_applicable(cfg):
+                    y, aux = moe_apply_a2a(p["moe"], h2, cfg)
+                elif cfg.moe.dispatch == "dropless":
+                    y, aux = L.moe_apply_dropless(p["moe"], h2, cfg, split=split)
+                else:
+                    y, aux = L.moe_apply(p["moe"], h2, cfg, split=split)
+                x = tracing.mark_out(x + y, mark)
         else:
-            x = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps,
-                            split=split)
+            with tracing.span("block.mlp", phase="forward"):
+                mark = tracing.mark_in(x, "block.mlp")
+                if impl == "pallas_stage":
+                    from repro_torch.kernels.stage_block import stage_mlp_block
+
+                    if split is not None and split.mlp:
+                        raise NotImplementedError(
+                            "the stage kernel fuses a whole MLP half-block; it does "
+                            "not run on FFN columns split over the model axis")
+                    y = stage_mlp_block(p["norm2"], p["mlp"], x,
+                                        activation=cfg.activation, eps=cfg.norm_eps)
+                else:
+                    y = L.mlp_block(p["norm2"], p["mlp"], x, cfg.activation, cfg.norm_eps,
+                                    split=split)
+                x = tracing.mark_out(y, mark)
     return x, new_cache, aux
 
 

@@ -1126,3 +1126,61 @@ def test_sharded_mamba_decode_on_four_gloo_ranks(tmp_path):
     assert c["cache_spec"]["ssm"][2] == "model" and c["cache_spec"]["conv"][3] == "model"
     assert all(not any(v for part in r["launches"].values() for v in part.values())
                for r in ranks)
+
+
+@pytest.mark.gpu
+def test_step_spans_agree_with_cuda_events_on_card():
+    """Under ``tracing.recording()``, one pipelined training step of
+    Qwen2.5-3B at published widths, depth 4 on 3 stages, bf16 through the
+    stage kernel: ``train.step``'s device ms is within 5% of CUDA events
+    around the whole step; every span's children take no more device
+    time than it does; the stage kernel runs as often as the plan says."""
+    _card()
+    import dataclasses
+
+    from repro_torch import configs as TC
+    from repro_torch import tracing
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.kernels import stage_block as SB
+    from repro_torch.launch import train_mhsl_rl as RUN
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = dataclasses.replace(TC.get_config("qwen2.5-3b"), num_layers=4)
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    opt = adamw(3e-4, max_grad_norm=1.0)
+    micro = 4
+    step = RUN.make_pipeline_train_step(
+        cfg, (1, 3, 4), micro, PipelineConfig(stage_impl="pallas"), opt)
+    state = opt.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok, lab = (torch.randint(0, cfg.vocab_size, (8, 512), generator=gen, device="cuda")
+                for _ in range(2))
+    for _ in range(2):  # warm-up: the kernel's build, the allocator
+        params, state, _, _ = step(params, state, tok, lab)
+    tracing.reset()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    launches = SB.launches
+    with tracing.recording():
+        torch.cuda.synchronize()
+        a.record()
+        params, state, loss, _ = step(params, state, tok, lab)
+        b.record()
+        b.synchronize()
+    assert SB.launches - launches == micro * (1 + 2 * 3)  # 2 runs off the last stage
+    outer = a.elapsed_time(b)
+    s = tracing.summary()
+    inner = s["spans"]["train.step"]["device_ms"]
+    assert s["steps"] == 1 and abs(inner - outer) <= 0.05 * outer, (inner, outer)
+    recs = tracing.TRACER.records
+    dev = [r.ev0.elapsed_time(r.ev1) for r in recs]
+    children = {}
+    for r, ms in zip(recs, dev):
+        if r.parent is not None:
+            total, n = children.get(r.parent, (0.0, 0))
+            children[r.parent] = (total + ms, n + 1)
+    for i, (ms, n) in children.items():  # an event's resolution a child as slack
+        assert ms <= dev[i] + 1e-3 * n, (recs[i].name, ms, dev[i])
+    tracing.reset()
+    assert np.isfinite(float(loss))
