@@ -1,4 +1,4 @@
-"""Causal GQA flash attention, forward only.
+"""Causal GQA flash attention, with a backward for the tensor-core body.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_kernel``, launched by ``flash_attention``'s ``pallas_call``) with a
@@ -31,8 +31,16 @@ follows is written at the top of the CUDA source.
   columns. That costs one copy of q, k, v and o each. Above 256 the
   wrapper raises: the tensor-core body's O accumulator of 64 rows would
   exceed the register file.
-* There is no backward, as the JAX kernel has no VJP: the wrapper raises
-  when a gradient would be required.
+* The tensor-core body has a backward at head dims :data:`BWD_HEAD_DIMS`
+  (after padding), which the JAX kernel lacks (it has no VJP): where a
+  gradient is required, :func:`flash_attention` runs as a
+  :class:`torch.autograd.Function` whose forward also keeps the rows'
+  log-sum-exp and the output's second term ``T(o - T(o))``, and whose
+  backward is the hand-written ``flash_bwd_*`` kernels (one more count in
+  :data:`launches`; :func:`has_backward`). dq, dk and dv come back in the
+  input dtype, bit-equal from call to call. The f32 FMA body, other head
+  dims and CPU tensors have no backward: the wrapper raises when a
+  gradient would be required there.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._tma import check_tma
 
@@ -51,6 +60,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # head dims both bodies are instantiated for (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+# head dims the tensor-core body's backward is instantiated for
+BWD_HEAD_DIMS = (64, 128)
+# the forward's log-sum-exp and the backward's D are laid out at Sq padded
+# to the forward's 128-row tiles
+_ROW_TILE = 128
 
 _lib = None
 
@@ -76,7 +90,11 @@ def _library():
         lib.flash_attention_fma.restype = ctypes.c_int
         lib.flash_attention_fma.argtypes = tail
         lib.flash_attention_wgmma.restype = ctypes.c_int
-        lib.flash_attention_wgmma.argtypes = [ctypes.c_int] + tail
+        lib.flash_attention_wgmma.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                              + tail[4:])
+        lib.flash_attention_bwd_wgmma.restype = ctypes.c_int
+        lib.flash_attention_bwd_wgmma.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                                                  + tail[4:])
         lib.flash_attention_wgmma_smem.restype = ctypes.c_int
         lib.flash_attention_wgmma_smem.argtypes = [ctypes.c_int]
         _lib = lib
@@ -92,6 +110,14 @@ def padded_head_dim(hd: int) -> int:
     raise ValueError(f"flash_attention kernel takes head_dim <= {HEAD_DIMS[-1]}, "
                      f"got {hd}: the tensor-core body's O accumulator of 64 rows "
                      "would exceed the register file")
+
+
+def has_backward(dtype, hd: int) -> bool:
+    """Whether a gradient flows through the kernel for CUDA inputs of
+    ``dtype`` and head dim ``hd``: the tensor-core body (f16, bf16) at a
+    head dim whose padded width is one of :data:`BWD_HEAD_DIMS`."""
+    return (dtype in (torch.float16, torch.bfloat16) and 0 < hd <= HEAD_DIMS[-1]
+            and padded_head_dim(hd) in BWD_HEAD_DIMS)
 
 
 def pad_head_dim(q, k, v):
@@ -145,8 +171,11 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
 
 
-def _launch(q, k, v, causal, window, q_offset):
-    """Launch the CUDA kernel on the current stream (no fallback)."""
+def _launch(q, k, v, causal, window, q_offset, keep=False):
+    """Launch the CUDA kernel on the current stream (no fallback). With
+    ``keep`` (the tensor-core body) also return what the backward needs:
+    the padded q, k, v and output, the output's second term and the rows'
+    log-sum-exp."""
     global launches
     _check(q, k, v)
     dev = q.device
@@ -164,14 +193,13 @@ def _launch(q, k, v, causal, window, q_offset):
     skv, kh = k.shape[1], k.shape[2]
     padded_head_dim(hd)  # raises above 256
     if b == 0 or sq == 0:
-        return torch.empty_like(q)
+        return (torch.empty_like(q), None) if keep else torch.empty_like(q)
     if skv == 0:
         raise ValueError("flash_attention needs at least one key")
     q, k, v, width = pad_head_dim(q, k, v)
     lib = _library()
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, kh, width, 1.0 / math.sqrt(hd), int(causal),
+    args = (b, sq, skv, h, kh, width, 1.0 / math.sqrt(hd), int(causal),
             0 if window is None else int(window), int(q_offset))
     if route == "wgmma":
         # the tensor maps' strides, innermost first: a row, a head's rows,
@@ -181,29 +209,99 @@ def _launch(q, k, v, causal, window, q_offset):
                                       ("v", v, kh, skv)):
             check_tma(f"flash_attention {name}", t.data_ptr(),
                       [width * es, n_heads * width * es, seq * n_heads * width * es])
+    lse = o_lo = None
+    if keep:
+        sq_pad = -(-sq // _ROW_TILE) * _ROW_TILE
+        lse = torch.empty((b, h, sq_pad), dtype=torch.float32, device=dev)
+        o_lo = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if route == "wgmma":
-            err = lib.flash_attention_wgmma(_DTYPE_CODE[q.dtype], *args, stream)
+            err = lib.flash_attention_wgmma(
+                _DTYPE_CODE[q.dtype], *ptrs, 0 if lse is None else lse.data_ptr(),
+                0 if o_lo is None else o_lo.data_ptr(), *args, stream)
         else:
-            err = lib.flash_attention_fma(*args, stream)
+            err = lib.flash_attention_fma(*ptrs, *args, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
-    return out if width == hd else out[..., :hd].contiguous()
+    res = out if width == hd else out[..., :hd].contiguous()
+    return (res, (q, k, v, out, o_lo, lse)) if keep else res
+
+
+def _launch_bwd(dout, saved, causal, window, q_offset):
+    """The backward kernels on the current stream: dq, dk, dv (the input
+    dtype) from the forward's padded tensors ``saved`` and ``dout``."""
+    global launches
+    q, k, v, out, o_lo, lse = saved
+    b, sq, h, width = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    hd = dout.shape[-1]
+    dout = dout.contiguous()
+    if width != hd:
+        dout = torch.nn.functional.pad(dout, (0, width - hd))
+    es = q.element_size()
+    check_tma("flash_attention dout", dout.data_ptr(),
+              [width * es, h * width * es, sq * h * width * es])
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dpart = (None if h == kh else
+             torch.empty((2, b, skv, h, width), dtype=torch.float32, device=q.device))
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_wgmma(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), o_lo.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            0 if dpart is None else dpart.data_ptr(), b, sq, skv, h, kh, width,
+            1.0 / math.sqrt(hd), int(causal), 0 if window is None else int(window),
+            int(q_offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: cudaError {err}")
+    launches += 1
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The tensor-core body with its backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, saved = _launch(q, k, v, causal, window, q_offset, keep=True)
+        ctx.args = (causal, window, q_offset)
+        ctx.empty = saved is None
+        if saved is not None:
+            ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        if ctx.empty:
+            return (None,) * 6
+        return (*_launch_bwd(dout, ctx.saved_tensors, *ctx.args), None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0):
-    """Causal GQA attention, forward only: q (B, Sq, H, hd), k/v
-    (B, Skv, KH, hd), all one dtype (f32, f16 or bf16); queries sit at
-    absolute positions ``q_offset + i``. On CUDA tensors f16/bf16 run the
-    tensor-core body and f32 the FMA body (:func:`body`). Raises if a
-    gradient would be required (the JAX kernel has no VJP either)."""
+    """Causal GQA attention: q (B, Sq, H, hd), k/v (B, Skv, KH, hd), all
+    one dtype (f32, f16 or bf16); queries sit at absolute positions
+    ``q_offset + i``. On CUDA tensors f16/bf16 run the tensor-core body
+    and f32 the FMA body (:func:`body`). A gradient flows through CUDA
+    f16/bf16 inputs at the head dims of :func:`has_backward`; elsewhere
+    the call raises if a gradient would be required."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward (as the JAX kernel "
-                           "has no VJP); call it under torch.no_grad() or use "
-                           "impl='dense'/'chunked' for training")
+        if q.device.type == "cuda" and has_backward(q.dtype, q.shape[-1]):
+            return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        raise RuntimeError(
+            "flash_attention has a backward only for CUDA f16/bf16 inputs at "
+            f"head dims padded to {BWD_HEAD_DIMS} (got {q.device.type} {q.dtype}, "
+            f"head dim {q.shape[-1]}); call it under torch.no_grad() or use "
+            "impl='dense'/'chunked' for training")
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":

@@ -293,9 +293,12 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     ``positions``: (S,) absolute positions, or (B, S) per-row positions
     when ``cache_index`` is a vector. Without a cache, ``impl`` picks the
     route: ``"dense"``, ``"chunked"``, ``"pallas"`` (the hand-written
-    flash-attention kernel, :mod:`repro_torch.kernels.flash_attention`,
-    forward only) or ``"auto"`` (chunked above 2048 tokens, else dense;
-    dense on the meta device).
+    flash-attention kernel, :mod:`repro_torch.kernels.flash_attention`;
+    a gradient flows only where :func:`~repro_torch.kernels.flash_attention.has_backward`
+    holds) or ``"auto"``: the kernel, forward and backward, on CUDA f16/bf16
+    tensors at the head dims its backward is built for (64 and 128, and
+    widths padded to them); elsewhere (CPU, meta, f32, other head dims)
+    chunked above 2048 tokens, else dense (dense on the meta device).
 
     ``kv_cache``: ``{"k", "v"}`` of shape (B, C, KH, hd), decode and
     prefill for serving; ``cache_index`` is the number of valid entries
@@ -351,13 +354,31 @@ def attention_apply(params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     return out @ params["wo"].to(dt), new_cache
 
 
+def _kernel_route(q: Tensor) -> bool:
+    """Whether ``"auto"`` takes the flash kernel: a CUDA f16/bf16 query at
+    a head dim the kernel's backward is built for."""
+    if not q.is_cuda:
+        return False
+    from repro_torch.kernels.flash_attention import has_backward
+
+    return has_backward(q.dtype, q.shape[-1])
+
+
 def _attention_core(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig,
                     impl: str) -> Tensor:
-    """Causal (windowed) attention of a fresh sequence by ``impl``."""
-    if impl == "pallas":
+    """Causal (windowed) attention of a fresh sequence by ``impl``.
+    Counts ``attention.calls`` on every call and ``attention.kernel_calls``
+    on those that take the flash kernel (``"pallas"``, or ``"auto"`` where
+    :func:`_kernel_route` holds)."""
+    tracing.count("attention.calls", 1)
+    if impl == "pallas" or (impl == "auto" and _kernel_route(q)):
         from repro_torch.kernels.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=True, window=cfg.attention_window)
+        tracing.count("attention.kernel_calls", 1)
+        # the kernel takes contiguous tensors; the sharded path's q and k
+        # are slices of one rope pass
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True, window=cfg.attention_window)
     # chunking bounds the scores' peak memory, which a meta tensor (the
     # dry run's shape record) does not have: there "auto" takes the few
     # ops of the dense form, whose shapes, graph and collectives are the same

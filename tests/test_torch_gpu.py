@@ -466,6 +466,85 @@ def test_flash_attention_kernel_matches_plain_on_card(case, dtype):
                                atol=FLASH_ATOL[dtype])
 
 
+# the backward's cases: (B, S, H, KH, hd, window)
+FLASH_BWD_CASES = [
+    (2, 2048, 16, 2, 128, None),  # the dense training cell's microbatch
+    (1, 1024, 32, 4, 128, None),  # the MoE training cell's
+    (2, 512, 8, 2, 64, 128),      # sliding window
+    (2, 256, 4, 4, 64, None),     # GQA group 1, head dim 64
+    (1, 300, 4, 2, 48, None),     # head dim 48, padded to 64; ragged S
+]
+
+
+def _grads(fn, q, k, v, do):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fn(*leaves).backward(do)
+    return [t.grad for t in leaves]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_backward_on_card(case):
+    """bf16 gradients through the kernel against ``flash_attention_ref``'s
+    autograd in f32 from the same bf16 inputs: each of dq, dk and dv is
+    at most as far from it (max|err| over max|ref|) as the dense route's
+    bf16 autograd, measured here; two calls give bit-equal gradients; a
+    forward and a backward count one launch each."""
+    _card()
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    b, s, h, kh, hd, window = case
+    g = torch.Generator(device="cuda").manual_seed(s + h + hd)
+    q, k, v, do = (torch.randn(*shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd),
+                                 (b, s, h, hd)))
+    ref = _grads(lambda *t: FA.flash_attention_ref(*(x.float() for x in t), window=window),
+                 q, k, v, do.float())
+    dense = _grads(lambda *t: L.dense_attention(*t, q_offset=0, window=window), q, k, v, do)
+    before = FA.launches
+    got = _grads(lambda *t: FA.flash_attention(*t, window=window), q, k, v, do)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 2
+    again = _grads(lambda *t: FA.flash_attention(*t, window=window), q, k, v, do)
+    for name, x, y, r, d in zip("qkv", got, again, ref, dense):
+        assert x.dtype == torch.bfloat16 and x.shape == r.shape
+        assert torch.equal(x, y), f"d{name} differs between two calls"
+        assert _rel(x, r) <= _rel(d, r), (f"d{name}", _rel(x, r), _rel(d, r))
+
+
+@pytest.mark.gpu
+def test_attention_apply_auto_trains_through_the_kernel_on_card():
+    """``attention_apply(impl="auto")`` on bf16 card tensors at head dim
+    128 adds one kernel launch forward and one backward; on f32 card
+    tensors it keeps the dense route and launches nothing."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    cfg = get_config("qwen2.5-3b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = {k: v.cuda().requires_grad_(True) for k, v in L.init_attention(
+        torch.Generator().manual_seed(0), cfg, device="cpu").items()}
+    pos = torch.arange(256, device="cuda")
+    for dt, launches in ((torch.bfloat16, (1, 1)), (torch.float32, (0, 0))):
+        x = torch.randn(2, 256, cfg.d_model, generator=g, device="cuda").to(dt)
+        x.requires_grad_(True)
+        before = FA.launches
+        out, _ = L.attention_apply(params, x, cfg, positions=pos, impl="auto")
+        torch.cuda.synchronize()
+        fwd = FA.launches - before
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert (fwd, FA.launches - before - fwd) == launches, dt
+        assert torch.isfinite(x.grad.float()).all()
+
+
 @pytest.mark.gpu
 def test_split_kernels_reject_what_they_do_not_take():
     """On CUDA tensors the wrappers launch or raise: mixed dtypes,

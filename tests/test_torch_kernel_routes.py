@@ -19,6 +19,7 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import stage_block as SB  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels._tma import check_tma  # noqa: E402
 
 
@@ -109,13 +110,140 @@ def test_cpu_tensors_take_the_plain_version_whatever_the_dtype():
     assert torch.equal(out, SB.stage_mlp_block_ref(nw, p, x, activation="gelu"))
 
 
+@pytest.mark.parametrize("dtype,hd,expect", [
+    (torch.bfloat16, 128, True), (torch.float16, 64, True), (torch.bfloat16, 48, True),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 96, False), (torch.bfloat16, 256, False),
+    (torch.bfloat16, 272, False), (torch.float32, 128, False)])
+def test_flash_backward_head_dims(dtype, hd, expect):
+    """The backward is built for the tensor-core body at head dims 64 and
+    128, and widths padded to them (48 -> 64); f32 has none."""
+    assert FA.has_backward(dtype, hd) == expect
+
+
+def test_flash_gradient_raises_off_the_card():
+    """CPU tensors have no backward through the kernel's wrapper, whatever
+    the dtype (the plain version is no kernel)."""
+    q = torch.randn(1, 4, 2, 64).bfloat16().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        FA.flash_attention(q, q, q)
+
+
+def _qkv(b, s, h, kh, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, s, n, hd, generator=g).to(dtype) for n in (h, kh, kh))
+
+
+@pytest.mark.parametrize("s,window", [(17, None), (300, 64), (2048, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_auto_on_cpu_is_the_dense_route_up_to_2048(s, window, dtype):
+    """On CPU tensors ``"auto"`` keeps its route bit for bit: dense at
+    <= 2048 tokens (the kernel takes only CUDA f16/bf16 tensors)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    cfg = cfg if window is None else cfg.with_window(window)
+    q, k, v = _qkv(1, s, 2, 1, 8, dtype, s)
+    got = L._attention_core(q, k, v, cfg, "auto")
+    assert torch.equal(got, L.dense_attention(q, k, v, q_offset=0, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_auto_on_cpu_is_the_chunked_route_above_2048(dtype):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    q, k, v = _qkv(1, 2049, 2, 1, 8, dtype, 3)
+    got = L._attention_core(q, k, v, cfg, "auto")
+    assert torch.equal(got, L.chunked_attention(q, k, v, q_offset=0))
+
+
+def test_auto_on_meta_and_cpu_never_takes_the_kernel():
+    for dev, dt in (("meta", torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float16)):
+        assert not L._kernel_route(torch.empty(1, 8, 2, 128, device=dev, dtype=dt))
+
+
+@pytest.mark.parametrize("impl,kernel", [("auto", 0), ("dense", 0), ("chunked", 0), ("pallas", 1)])
+def test_attention_counters_follow_the_route(impl, kernel):
+    """A traced forward counts every core call in ``attention.calls`` and
+    those routed to the flash kernel in ``attention.kernel_calls`` (on the
+    CPU only ``"pallas"``, whose wrapper runs the plain version there);
+    with tracing off nothing is counted."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
+    tracing.reset()
+    with torch.no_grad():
+        M.forward(params, tokens, cfg, impl=impl)
+    assert tracing.summary()["counters"] == {}
+    with tracing.recording(), torch.no_grad():
+        M.forward(params, tokens, cfg, impl=impl)
+    counters = tracing.summary()["counters"]
+    tracing.reset()
+    n = cfg.num_attn_layers
+    assert counters.get("attention.calls") == n
+    assert counters.get("attention.kernel_calls", 0) == kernel * n
+
+
+def _emulate_flash_backward(q, k, v, do, terms):
+    """The backward kernels' arithmetic in f32 on the CPU: P and dS as
+    ``terms`` bf16 terms in their products (``T(x) + T(x - T(x))`` or
+    ``T(x)``), D from the output's two terms (or its bf16 rounding alone),
+    every sum in f32, the gradients rounded to bf16 once."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    T = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    split = (lambda x: T(x) + T(x - T(x))) if terms == 2 else T
+    kr, vr = (t.float().repeat_interleave(g, 2) for t in (k, v))
+    scale = 1.0 / math.sqrt(hd)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), -math.inf)
+    p = torch.exp(sc - torch.logsumexp(sc, -1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    d = (do.float() * split(o)).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.float(), vr) - d)
+    dv = torch.einsum("bhqk,bqhd->bkhd", split(p), do.float()).reshape(b, s, kh, g, hd).sum(3)
+    dk = torch.einsum("bhqk,bqhd->bkhd", split(ds), q.float()).reshape(b, s, kh, g, hd).sum(3)
+    dq = torch.einsum("bhqk,bkhd->bqhd", split(ds), kr)
+    return [x.to(torch.bfloat16) for x in (dq * scale, dk * scale, dv)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_flash_backward_emulation_two_terms_meet_the_dense_route(seed):
+    """Why the backward takes dS and P as two bf16 terms: emulated, its
+    dq, dk and dv are no further from the f32 autograd of the plain
+    version (max|err| over max|ref|) than the dense route's bf16
+    autograd, while one bf16 term (with D from the rounded output) moves
+    dq or dk further than two do."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = ((3.0 if i < 2 else 1.0) * torch.randn(1, 256, n, 64, generator=g)
+                   for i, n in enumerate((4, 2, 2, 4)))
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    FA.flash_attention_ref(*leaves).backward(do.float())
+    ref = [t.grad for t in leaves]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    L.dense_attention(*leaves, q_offset=0).backward(do)
+
+    def rel(xs):
+        return [float((x.float() - r).abs().max() / r.abs().max()) for x, r in zip(xs, ref)]
+
+    two, one = (rel(_emulate_flash_backward(q, k, v, do, n)) for n in (2, 1))
+    dense = rel([t.grad for t in leaves])
+    assert all(a <= b for a, b in zip(two, dense)), (two, dense)
+    assert max(one[:2]) > max(two[:2]), (one, two)
+
+
 # ---------------------------------------------------------------------------
 # the SSM and MoE kernels' tensor-core bodies
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels import moe_dispatch as MD  # noqa: E402
 from repro_torch.kernels import ssd_scan as SK  # noqa: E402
-from repro_torch.models import layers as L  # noqa: E402
 
 
 @pytest.mark.parametrize("dtype,expect", [

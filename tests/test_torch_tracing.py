@@ -197,8 +197,12 @@ def test_moe_counters_are_the_layouts():
     t, k = ROWS // MICRO * SEQ, cfg.moe.top_k
     ids = torch.zeros((t, k), dtype=torch.long)
     p_rows = L.dropless_layout(ids, cfg.moe.num_experts, 128)[2]
+    # every attention half's core is counted too; on the CPU none takes
+    # the kernel
+    attn = s["spans"]["block.attention"]["phases"]["forward"]["calls"]
     assert s["counters"] == {"moe.rows_routed": calls * t * k,
-                             "moe.rows_computed": calls * p_rows}
+                             "moe.rows_computed": calls * p_rows,
+                             "attention.calls": attn}
 
 
 def test_profiler_turns_spans_on_and_summary_keeps_them():
