@@ -7,5 +7,6 @@ from perfbench import yardstick
 
 
 def read(run):
-    return (100.0 * run.tokens_per_s * run.flops_per_token
+    flops_per_token = yardstick.train_flops_per_token(run.conf, run.traffic["seq"])
+    return (100.0 * run.tokens_per_s * flops_per_token
             / (yardstick.BF16_FLOPS_PER_S * run.chips))

@@ -1,7 +1,22 @@
-"""A decoder-LM configuration file as the program's ``ModelConfig``."""
+"""A decoder-LM configuration file as the program's ``ModelConfig``, and
+the tiny widths that the benchmark's CPU tests cut it to."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+
+# the port's ModelConfig.reduced() widths, as Hugging Face keys
+TINY = {"hidden_size": 256, "num_attention_heads": 4, "num_key_value_heads": 2,
+        "head_dim": 64, "intermediate_size": 512, "num_hidden_layers": 2,
+        "vocab_size": 512}
+TINY_EXPERTS = {"num_experts": 4, "num_experts_per_tok": 2, "moe_intermediate_size": 128}
+
+
+def tiny(conf) -> dict:
+    """The keys of ``conf`` to overwrite for a run at tiny widths on the
+    CPU: 2 layers, d 256, 4 query and 2 KV heads of 64, FFN 512,
+    vocabulary 512, and, for a mixture of experts, 4 experts of width
+    128, top-2."""
+    return {**TINY, **(TINY_EXPERTS if conf.get("num_experts") else {})}
 
 
 def model_config(conf) -> ModelConfig:

@@ -7,7 +7,9 @@ optional QKV bias, residual; RMSNorm, a SwiGLU MLP or a routed mixture of
 SwiGLU experts (softmax router, top-k, gates renormalized to sum to one),
 residual; final RMSNorm, LM head (tied to the embedding or not), mean
 cross-entropy. Everything is f32 with TF32 off, every routed token is
-computed, and each expert runs on exactly its tokens.
+computed, and each expert runs on exactly its tokens. Above
+``QUERY_BLOCK`` queries the attention runs in blocks of queries, each
+under ``torch.utils.checkpoint``; at or below it, in one call.
 
 The weights are a flat ``{path: tensor}`` dict in the layout the
 benchmark made them in: per-layer leaves stacked on a leading axis under
@@ -32,11 +34,17 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 F8_MAX = 448.0  # largest float8 e4m3fn value
+# queries whose f32 scores one attention call holds: above it the queries go
+# in blocks against their causal prefix of keys, each block recomputed in the
+# backward, so that one block's scores exist at a time (16 heads x 8 192
+# keys x 2 048 queries is 1.07 GB)
+QUERY_BLOCK = 2048
 
 
 def exact_mm(a: Tensor, w: Tensor) -> Tensor:
@@ -73,6 +81,17 @@ def _rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _causal_core(q: Tensor, k: Tensor, v: Tensor, start: int) -> Tensor:
+    """Softmax attention of the queries at positions ``start ..`` over the
+    keys ``0 ..``, each query seeing the keys up to its own position:
+    ``(b, sq, h, hd)`` from q ``(b, sq, h, hd)`` and k, v ``(b, sk, h, hd)``."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    pos = torch.arange(start, start + q.shape[1], device=q.device)
+    causal = torch.arange(k.shape[1], device=q.device)[None, :] <= pos[:, None]
+    w = torch.softmax(scores.masked_fill(~causal, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class DecoderLM:
@@ -117,11 +136,14 @@ class DecoderLM:
         v = v.view(b, s, kh, hd)
         k = k.repeat_interleave(h // kh, dim=2)  # head i reads KV head i // (h / kh)
         v = v.repeat_interleave(h // kh, dim=2)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
-        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-        w = torch.softmax(scores.masked_fill(~causal, -math.inf), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, h * hd)
-        return self.mm(o, self._w(p, r, "attn/wo"))
+        if s <= QUERY_BLOCK:
+            o = _causal_core(q, k, v, 0)
+        else:  # one block's f32 scores at a time, forward and backward
+            o = torch.cat([checkpoint(_causal_core, q[:, i:i + QUERY_BLOCK],
+                                      k[:, :i + QUERY_BLOCK], v[:, :i + QUERY_BLOCK], i,
+                                      use_reentrant=False)
+                           for i in range(0, s, QUERY_BLOCK)], dim=1)
+        return self.mm(o.reshape(b, s, h * hd), self._w(p, r, "attn/wo"))
 
     def _swiglu(self, x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor) -> Tensor:
         return self.mm(F.silu(self.mm(x, wg)) * self.mm(x, wu), wd)

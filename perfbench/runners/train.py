@@ -28,34 +28,52 @@ import gc
 import math
 import statistics
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from perfbench import compare, spec, weights, yardstick
+from perfbench import compare, spec, weights
 from perfbench.devtrace import WINDOW, Trace
+
+
+def forward_calls(layers: Sequence[bool], boundaries, microbatches: int,
+                  schedule: str) -> int:
+    """Forward calls of the layers that ``layers`` marks in one in-process
+    1F1B step: a layer of a stage runs its forward in the forward slot
+    and again in the backward slot's recomputation, except on the last
+    stage, whose forward runs only inside the loss's backward slot."""
+    if schedule != "1f1b":
+        raise ValueError(f"no call count for schedule {schedule!r}")
+    total, lo = 0, 0
+    for k, hi in enumerate(boundaries):
+        per = 1 if k == len(boundaries) - 1 else 2
+        total += per * sum(1 for r in range(lo, hi) if layers[r])
+        lo = hi
+    return microbatches * total
 
 
 def expected_stage_launches(mcfg, boundaries, microbatches: int, schedule: str,
                             device: torch.device) -> int:
-    """``stage_mlp_block`` launches of one in-process 1F1B step: a dense
-    MLP layer of a stage runs its forward in the forward slot and again in
-    the backward slot's recomputation, except on the last stage, whose
-    forward runs only inside the loss's backward slot. 0 off the card,
-    where the kernel's plain version runs."""
+    """``stage_mlp_block`` launches of one in-process 1F1B step: the
+    forward calls of the dense MLP layers. 0 off the card, where the
+    kernel's plain version runs."""
     from repro_torch.models import model as M
 
     if device.type != "cuda":
         return 0
-    if schedule != "1f1b":
-        raise ValueError(f"no launch count for schedule {schedule!r}")
-    sig = M.signature(mcfg)
-    total, lo = 0, 0
-    for k, hi in enumerate(boundaries):
-        per = 1 if k == len(boundaries) - 1 else 2
-        total += per * sum(1 for r in range(lo, hi) if sig[r][2] and not sig[r][1])
-        lo = hi
-    return microbatches * total
+    dense = [has_mlp and not is_moe for _, is_moe, has_mlp in M.signature(mcfg)]
+    return forward_calls(dense, boundaries, microbatches, schedule)
+
+
+def attention_calls(mcfg, boundaries, microbatches: int, schedule: str) -> Tuple[int, int]:
+    """Calls of the attention core in one in-process 1F1B step, forward
+    and backward: the attention layers' forward calls, and one backward
+    of each attention layer a microbatch. The count is of the work,
+    whatever implements it."""
+    from repro_torch.models import model as M
+
+    attn = [kind == "A" for kind, _, _ in M.signature(mcfg)]
+    return forward_calls(attn, boundaries, microbatches, schedule), microbatches * sum(attn)
 
 
 class Run:
@@ -133,7 +151,7 @@ class Program:
         self.step_fn = RUN.make_pipeline_train_step(self.mcfg, self.boundaries, self.micro,
                                                     self.pipe, self.opt)
         self.opt_state = self.opt.init(self.params)
-        self.feed = weights.token_batches(seed, conf["vocab_size"], self.rows, self.seq, dev)
+        self.feed = weights.token_batches(seed, self.mcfg.vocab_size, self.rows, self.seq, dev)
 
     def step(self) -> float:
         """One step on the next batch; its loss (read: waits for the step)."""
@@ -254,8 +272,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str,
 
         r = Run(cell=cell, conf=cell.config, traffic=cell.traffic, mcfg=prog.mcfg,
                 device=dev, seed=seed, tokens_per_s=tokens_per_s, window_steps=n_steps,
-                window_s=window_s, peak_window_bytes=peak_window, chips=cell.chips,
-                flops_per_token=yardstick.train_flops_per_token(cell.config, prog.seq))
+                window_s=window_s, peak_window_bytes=peak_window, chips=cell.chips)
         n_trace = int(cell.traffic["trace_steps"])
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         before = RUN.kernel_launches()

@@ -1,9 +1,9 @@
 """The comparison that decides ``correct``, on the CPU at tiny widths: a
-cell's configuration at the port's ``ModelConfig.reduced()`` widths (2
-layers, d 256, 4 query and 2 KV heads of 64, FFN 512, vocabulary 512, 4
-experts of width 128, top-2), 4 rows of 32 tokens in 2 microbatches, one
-layer a stage; its family, optimizer, init rules and limits are the
-cell's own.
+cell's configuration at its family's tiny widths (``_cell``; for the
+decoder LMs the port's ``ModelConfig.reduced()`` widths: 2 layers, d 256,
+4 query and 2 KV heads of 64, FFN 512, vocabulary 512, 4 experts of width
+128, top-2), 4 rows of 32 tokens in 2 microbatches, two stages; its
+family, optimizer, init rules and limits are the cell's own.
 
 * The port's step in f32 agrees with the plain reference to round-off,
   and the port in bf16, a lower precision, fails that agreement.
@@ -28,18 +28,15 @@ from perfbench import compare, spec  # noqa: E402
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 F32_AGREEMENT = 1e-5  # the f32 port reads 1e-6 at most (tiny widths, seeds 1-2)
-WIDTHS = {"hidden_size": 256, "num_attention_heads": 4, "num_key_value_heads": 2,
-          "head_dim": 64, "intermediate_size": 512, "num_hidden_layers": 2,
-          "vocab_size": 512}
-EXPERTS = {"num_experts": 4, "num_experts_per_tok": 2, "moe_intermediate_size": 128}
 
 
 def _cell(name, compute="float32"):
+    """The cell at its family's tiny widths (its ports file's
+    ``tiny(conf)``), in two stages of which the first holds one layer."""
     c = copy.deepcopy(spec.cell(name))
-    c.config.update(WIDTHS)
-    if c.config.get("num_experts"):
-        c.config.update(EXPERTS)
-    c.config["plan"]["boundaries"] = [1, 2]
+    ports = spec.family("ports", c.config["family"])
+    c.config.update(ports.tiny(c.config))
+    c.config["plan"]["boundaries"] = [1, ports.model_config(c.config).num_layers]
     c.config["dtypes"]["compute"] = compute
     c.traffic.update(rows=4, seq=32, microbatches=2, trace_steps=1)
     return c

@@ -89,8 +89,9 @@ def test_reader_gives_none_without_the_tracer(metric, monkeypatch):
 
 def test_traced_run_at_tiny_widths_on_the_cpu():
     """A whole ``--trace 1`` run of each cell on the CPU: the spans have
-    no device time there, so only the counters' share is reported, in the
-    MoE cell alone, and it is the layout's ``t * k / p_rows``."""
+    no device time there, so of these readers only the counters' are
+    reported, each in exactly the cells its ``workloads`` list names, and
+    ``moe_routed_rows_pct`` is the layout's ``t * k / p_rows``."""
     from perfbench.test_perfbench_correct import _cell
     from repro_torch import tracing
     from repro_torch.models import layers as L
@@ -103,13 +104,13 @@ def test_traced_run_at_tiny_widths_on_the_cpu():
         tracing.reset()
         assert res["correct"], res["checks"]
         new = set(res["metrics"]) & set(EXPECTED)
-        if not cell.config.get("num_experts"):
-            assert new == set()
+        assert new == {m["name"] for m in cell.per_layer
+                       if m["name"] in EXPECTED and m["source"] == "program_counter"}
+        if "moe_routed_rows_pct" not in new:
             continue
-        assert new == {"moe_routed_rows_pct"}
+        moe = spec.family("ports", cell.config["family"]).model_config(cell.config).moe
         t = cell.traffic["rows"] // cell.traffic["microbatches"] * cell.traffic["seq"]
-        k = cell.config["num_experts_per_tok"]
-        p_rows = L.dropless_layout(torch.zeros((t, k), dtype=torch.long),
-                                   cell.config["num_experts"], 128)[2]
+        p_rows = L.dropless_layout(torch.zeros((t, moe.top_k), dtype=torch.long),
+                                   moe.num_experts, 128)[2]
         assert res["metrics"]["moe_routed_rows_pct"]["value"] == pytest.approx(
-            100.0 * t * k / p_rows)
+            100.0 * t * moe.top_k / p_rows)

@@ -55,9 +55,29 @@ def test_config_entry(entry):
     assert conf["name"] == entry["name"] and conf["source"] == entry["source"]
     assert len(entry["reduced"]) <= 16 and all(NAME.match(k) for k in entry["reduced"])
     assert sorted(entry["reduced"]) == sorted(conf["cut"])
-    for key in entry["reduced"]:  # a cut is never of a width
-        assert not re.search(r"(_dim|_rank|size|heads|experts_per_tok)$", key)
+    for key in entry["reduced"]:
+        assert cut_allowed(key, conf), (key, conf["cut"][key])
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
+
+
+VOCAB_FLOOR = 8  # a sliced vocabulary keeps at least 1 / VOCAB_FLOOR of the published one
+
+
+def cut_allowed(key, conf) -> bool:
+    """Whether the configuration ``conf`` may cut ``key``: never a width;
+    the vocabulary only as the chip's share of a vocabulary split over
+    ``chips`` chips (2 to ``VOCAB_FLOOR``): its cut entry names ``chips``,
+    ``here`` times ``chips`` covers the published vocabulary, ``here`` is
+    what the file runs, and the configuration's ``deployment`` says that
+    the vocabulary is split over that many chips."""
+    if key == "vocab_size":
+        cut = conf["cut"][key]
+        chips = cut.get("chips")
+        return (isinstance(chips, int) and 2 <= chips <= VOCAB_FLOOR
+                and cut["here"] == conf[key] < cut["published"] <= chips * cut["here"]
+                and bool(re.search(rf"vocabulary\b[^.]*\bsplit over {chips} chips\b",
+                                   conf.get("deployment", ""))))
+    return not re.search(r"(_dim|_rank|size|heads|experts_per_tok)$", key)
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=CELLS)

@@ -1,5 +1,6 @@
 """Frozen arithmetic of the benchmark: the card's peaks, a kernel's least
-time, a training step's model FLOPs. Later changes to the program do not
+time (the stage kernel's, the flash kernel's), a training step's model
+FLOPs. Later changes to the program do not
 change these.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense rates without sparsity, at a
@@ -8,7 +9,7 @@ power limit of 700 W (copied from ``chip_smoke.py`` ``HBM_BYTES_PER_S``,
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -29,6 +30,42 @@ def stage_bound(rows: int, d: int, f: int, gated: bool, x_elt: int,
     flops = 2 * rows * d * f * mats
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+LSE_BYTES = 4  # the flash forward's f32 log-sum-exp: one a query row and head
+
+
+def causal_pairs(s: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs that causal attention over ``s`` positions
+    reaches, each query seeing itself and at most ``window - 1`` keys
+    before it (all before it where ``window`` is None)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(b: int, s: int, h: int, kh: int, hd: int, elt: int, backward: bool,
+                window: Optional[int] = None) -> Tuple[float, str, int, float]:
+    """Least time (ms) of one causal ``flash_attention`` call over ``b``
+    rows of ``s`` positions, ``h`` query and ``kh`` KV heads of ``hd``,
+    elements of ``elt`` bytes, forward or ``backward``: the products of
+    the reachable pairs (forward q.k and p.v, 4 hd FLOPs a pair and query
+    head; backward its five products, 2.5 times that) over the peak,
+    against each tensor read or written once over the HBM rate (forward
+    q, k, v, o and the f32 log-sum-exp; backward q, k, v, o, dO and the
+    log-sum-exp in, dQ, dK, dV out); the larger wins. Returns
+    ``(ms, "bytes" | "operations", bytes, flops)``.
+
+    The forward's count is ``chip_smoke.py`` ``flash_bound``'s with the
+    log-sum-exp's bytes added; the backward's products are its 2.5 times."""
+    q_elems, kv_elems = b * s * h * hd, b * s * kh * hd
+    per_tensor = 4 if backward else 2  # (q, o, dO, dQ) and (k, v, dK, dV); or (q, o), (k, v)
+    nbytes = elt * per_tensor * (q_elems + kv_elems) + LSE_BYTES * b * h * s
+    flops = 4 * hd * causal_pairs(s, window) * b * h * (2.5 if backward else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, flops)
 
